@@ -1,0 +1,142 @@
+"""SAH BVH builder (the port's numpy copy of the SAH path of the reference
+package's accel/bvh.py; its median split modes and binary cache are not
+ported).
+
+Re-implements the reference's top-down full-sweep SAH builder
+(src/bvh.cpp:237-440) with numpy-vectorized per-node sweeps: sort refs by
+centroid along each axis (sortReferences, bvh.cpp:290-304), prefix/suffix AABB
+scans replace the rightBoxes lookup (buildBoxLookup, bvh.cpp:361-369), and the
+same cost model costBox=costTri=1 (bvh.hpp:70-74). Node layout matches
+bvhnode.hpp:50-59: left child = node index + 1, explicit right child, leaves
+hold (iStart, nPrims) into a triangle index list.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import NamedTuple
+
+import numpy as np
+
+MAX_LEAF_ELEMS = 8   # bvh.hpp:66
+MAX_DEPTH = 64       # bvh.hpp:67
+COST_BOX = 1.0
+COST_TRI = 1.0
+
+
+class BVHArrays(NamedTuple):
+    """Flat BVH (host, numpy). Interior: right_or_start = right child index.
+    Leaf (n_prims > 0): right_or_start = start into `indices`."""
+    box_min: np.ndarray        # [Nn, 3] f32
+    box_max: np.ndarray        # [Nn, 3] f32
+    right_or_start: np.ndarray  # [Nn] uint32
+    parent: np.ndarray          # [Nn] int32
+    n_prims: np.ndarray         # [Nn] uint8
+    indices: np.ndarray         # [K] uint32 triangle indices
+
+    @property
+    def num_nodes(self):
+        return len(self.n_prims)
+
+
+def _aabb_area(bmin, bmax):
+    d = np.maximum(bmax - bmin, 0.0)
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 0] * d[..., 2]
+                  + d[..., 1] * d[..., 2])
+
+
+def build_bvh(positions: np.ndarray) -> BVHArrays:
+    """positions: [M, 3, 3] triangle vertices. Returns flat BVH arrays."""
+    m = positions.shape[0]
+    if m == 0:
+        raise ValueError("empty scene")
+    tri_min = positions.min(axis=1).astype(np.float32)  # [M,3]
+    tri_max = positions.max(axis=1).astype(np.float32)
+    centroid2 = tri_min + tri_max  # 2x centroid, the reference's sort key
+
+    # ref arrays (reordered during build)
+    ind = np.arange(m, dtype=np.uint32)
+
+    nodes_bmin, nodes_bmax = [], []
+    nodes_right, nodes_parent, nodes_nprims = [], [], []
+    out_indices = []
+
+    sys.setrecursionlimit(max(10000, 4 * m))
+
+    def emit_node(bmin, bmax, parent):
+        i = len(nodes_bmin)
+        nodes_bmin.append(bmin)
+        nodes_bmax.append(bmax)
+        nodes_right.append(0)
+        nodes_parent.append(parent)
+        nodes_nprims.append(0)
+        return i
+
+    def build(sub: np.ndarray, parent: int, depth: int) -> int:
+        """sub: positional index array into `ind` range — here we pass the
+        actual ref ordering as an array of triangle indices directly."""
+        bmin = tri_min[sub].min(axis=0)
+        bmax = tri_max[sub].max(axis=0)
+        node = emit_node(bmin, bmax, parent)
+        k = len(sub)
+
+        if k <= MAX_LEAF_ELEMS or depth >= MAX_DEPTH:
+            nodes_nprims[node] = k
+            nodes_right[node] = len(out_indices)
+            out_indices.append(sub)
+            return node
+
+        order, i_split = _sah_split(sub, tri_min, tri_max, centroid2,
+                                    bmin, bmax)
+        sub = sub[order]
+        left, right = sub[:i_split + 1], sub[i_split + 1:]
+        build(left, node, depth + 1)
+        nodes_right[node] = len(nodes_bmin)
+        build(right, node, depth + 1)
+        return node
+
+    def _sah_split(sub, tri_min, tri_max, centroid2, bmin, bmax):
+        k = len(sub)
+        best_cost = np.inf
+        best_dim, best_i, best_order = 0, 0, None
+        inv_parent_area = 1.0 / max(_aabb_area(bmin, bmax), 1e-30)
+        for dim in range(3):
+            order = np.lexsort((sub, centroid2[sub, dim]))
+            s = sub[order]
+            lo, hi = tri_min[s], tri_max[s]
+            # prefix (left) sweep
+            lmin = np.minimum.accumulate(lo, axis=0)
+            lmax = np.maximum.accumulate(hi, axis=0)
+            # suffix (right) sweep
+            rmin = np.minimum.accumulate(lo[::-1], axis=0)[::-1]
+            rmax = np.maximum.accumulate(hi[::-1], axis=0)[::-1]
+            la = _aabb_area(lmin[:-1], lmax[:-1])          # left = [0..s]
+            ra = _aabb_area(rmin[1:], rmax[1:])            # right = [s+1..]
+            counts = np.arange(1, k, dtype=np.float64)
+            cost = (2.0 * COST_BOX + COST_TRI *
+                    (counts * la + (k - counts) * ra) * inv_parent_area)
+            i = int(np.argmin(cost))
+            if cost[i] < best_cost:
+                best_cost, best_dim, best_i, best_order = cost[i], dim, i, order
+        if best_i == 0:  # "fix indexing" (bvh.cpp:427-437)
+            best_i = 1
+        return best_order, best_i
+
+    root_sub = ind.copy()
+    build(root_sub, -1, 0)
+
+    indices = np.concatenate(out_indices).astype(np.uint32)
+    # fix leaf iStart: emitted as chunk ordinal, convert to offsets
+    starts = np.cumsum([0] + [len(c) for c in out_indices[:-1]])
+    right = np.asarray(nodes_right, np.uint32)
+    nprims = np.asarray(nodes_nprims, np.uint8)
+    leaf_slots = nprims > 0
+    right[leaf_slots] = starts[right[leaf_slots]]
+
+    return BVHArrays(
+        box_min=np.asarray(nodes_bmin, np.float32),
+        box_max=np.asarray(nodes_bmax, np.float32),
+        right_or_start=right,
+        parent=np.asarray(nodes_parent, np.int32),
+        n_prims=nprims,
+        indices=indices)

@@ -1,0 +1,917 @@
+"""Cluster-table ray tracing: the port of the reference package's
+accel/mxu_trace.py (flat rays-on-lanes tier and resident-table resolve).
+
+Triangles are cut into clusters of ``cluster_size`` (the subtrees of a SAH
+BVH cut at that many refs). Each triangle carries the affine map that
+takes world points to its unit right triangle: for a ray (o, d),
+t = -o'_w / d'_w, u = o'_u + t d'_u, v = o'_v + t d'_v, hit iff t > 0,
+u, v >= 0, u + v <= 1. Rays are sorted by a coherence key and cut into
+tiles; each tile gets a private front-to-back candidate cluster list
+(K1 + a stable sort), walked by the trace kernel (K2) with per-ray t_best
+pruning and a tile-level early-out. A resolve kernel (K3) turns the winner
+column into exact t/u/v, interpolated vertex attributes and the baked
+material parameters.
+
+Kernels (each launched on CUDA tensors; its plain PyTorch twin runs on CPU
+tensors):
+  K1 ``tile_order``  csrc/tile_order.cu  (ref _tile_order_kernel)
+  K2 ``trace_rol``   csrc/trace_rol.cu   (ref _trace_kernel_rol)
+  K3 ``resolve_v5``  csrc/resolve_v5.cu  (ref _resolve_kernel_v5)
+
+The host table build (``MXUScene.build``) reproduces the reference's
+tables bit for bit, with bf16 rounding done by torch (round to nearest
+even, as ml_dtypes); bf16 arrays travel as uint16 bit patterns in numpy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import kernel_build as kb
+from ..vec import Vec3
+from .bvh import BVHArrays
+
+F32_MAX = np.float32(3.4028235e38)
+_CULL_INF = np.float32(1e30)
+
+# supercluster granularity (member clusters per super) and the cluster
+# count above which the reference switches to its two-level kernel (K5,
+# not ported yet)
+SC_CLUSTERS = 64
+SC_THRESHOLD = 96
+RAY_TILE = 512
+ROL_TILE = 512
+
+# attrs column layout (rows of the SoA resolve output)
+ATTR_N = 0        # nx, ny, nz
+ATTR_UV = 3       # tu, tv
+ATTR_MAT = 5      # material id
+ATTR_KD = 6       # Kd gamma-linearized (matGetAlbedo semantics), 3
+ATTR_KS = 9       # Ks, 3
+ATTR_KE = 12      # Ke, 3
+ATTR_KT = 15      # Kt, 3
+ATTR_NS = 18      # GGX alpha
+ATTR_NI = 19
+ATTR_D = 20       # dissolve
+ATTR_TYPE = 21    # bxdf bits
+ATTR_MAP_KD = 22
+ATTR_MAP_KS = 23
+ATTR_MAP_N = 24
+ATTR_TRI = 25     # original triangle index (float-exact below 2^24)
+ATTR_HITU = 26    # barycentric u of the hit (written by the resolve kernel)
+ATTR_HITV = 27
+ATTR_HITT = 28    # exact hit t (recomputed from the winner transform)
+ATTR_TKD_WH = 29
+ATTR_TKD_OFF = 30
+ATTR_TKS_WH = 31
+ATTR_TKS_OFF = 32
+ATTR_TN_WH = 33
+ATTR_TN_OFF = 34
+ATTR_COLS = 40    # padded
+
+
+class B16:
+    """Column offsets of the bf16 resolve table (one row per triangle,
+    128 columns). Every entry is exact in bf16 by construction: floats are
+    split hi/lo (hi = bf16(x), lo = bf16(x - hi)), integers into 8-bit
+    chunks. Map indices are stored +1."""
+    TXY_HI = 0       # 12: affine transform rows (x0..3, y0..3, z0..3)
+    TXY_LO = 12      # 12
+    CF_HI = 24       # 15 const floats: KD3 KS3 KE3 KT3 NS NI D
+    CF_LO = 39       # 15
+    V0_HI = 54       # 5 per-vertex floats of v0: N3, UV2
+    V0_LO = 59
+    V1_HI = 64
+    V1_LO = 69
+    V2_HI = 74
+    V2_LO = 79
+    MAT = 84         # 2 chunks
+    TYPE = 86        # 2
+    MAP_KD = 88      # 2 (stored +1)
+    MAP_KS = 90      # 2 (stored +1)
+    MAP_N = 92       # 2 (stored +1)
+    TRI = 94         # 3
+    TKD_W = 97       # 2
+    TKD_H = 99       # 2
+    TKD_OFF = 101    # 3
+    TKS_W = 104
+    TKS_H = 106
+    TKS_OFF = 108
+    TN_W = 111
+    TN_H = 113
+    TN_OFF = 115
+    COLS = 128
+
+
+# ---------------------------------------------------------------------------
+# Host tables
+# ---------------------------------------------------------------------------
+
+def _bf16_bits(x) -> np.ndarray:
+    """f32 array -> uint16 bf16 bit patterns, rounded to nearest even."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def _bf16_round(x) -> np.ndarray:
+    """f32 array -> f32 values rounded to bf16 (nearest even)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.bfloat16).to(torch.float32).numpy()
+
+
+def _b16_split(x):
+    """f32 -> (hi, lo) with hi + lo == x to ~2^-16 relative; both bf16-
+    representable."""
+    x = np.asarray(x, np.float32)
+    hi = _bf16_round(x)
+    lo = _bf16_round(x - hi)
+    return hi, lo
+
+
+def _b16_chunks(v, n):
+    """non-negative int array -> n 8-bit chunk columns (little-endian)."""
+    v = np.asarray(v, np.int64)
+    if not ((v >= 0).all() and (v < (1 << (8 * n))).all()):
+        raise ValueError(f"value out of range for {n} 8-bit chunks")
+    return [((v >> (8 * k)) & 0xFF).astype(np.float32) for k in range(n)]
+
+
+def _build_attr_b16(a, txy_t):
+    """Pack the bf16 resolve table (see B16) from the per-triangle
+    attribute array a [Mpad, 3, ATTR_COLS] and transforms txy_t [Mpad, 12].
+    Returned as uint16 bf16 bit patterns [Mpad, 128]."""
+    m_pad = a.shape[0]
+    tb = np.zeros((m_pad, B16.COLS), np.float32)
+
+    def put_f(col_hi, col_lo, x):
+        hi, lo = _b16_split(x)
+        w = x.shape[1]
+        tb[:, col_hi:col_hi + w] = hi
+        tb[:, col_lo:col_lo + w] = lo
+
+    def put_i(col, n, v):
+        for k, c in enumerate(_b16_chunks(np.rint(v), n)):
+            tb[:, col + k] = c
+
+    put_f(B16.TXY_HI, B16.TXY_LO, txy_t)
+    cf = np.concatenate(
+        [a[:, 0, ATTR_KD:ATTR_KD + 3], a[:, 0, ATTR_KS:ATTR_KS + 3],
+         a[:, 0, ATTR_KE:ATTR_KE + 3], a[:, 0, ATTR_KT:ATTR_KT + 3],
+         a[:, 0, ATTR_NS:ATTR_NS + 1], a[:, 0, ATTR_NI:ATTR_NI + 1],
+         a[:, 0, ATTR_D:ATTR_D + 1]], axis=1)
+    put_f(B16.CF_HI, B16.CF_LO, cf)
+    for k, (ch, cl) in enumerate(((B16.V0_HI, B16.V0_LO),
+                                  (B16.V1_HI, B16.V1_LO),
+                                  (B16.V2_HI, B16.V2_LO))):
+        vf = np.concatenate([a[:, k, ATTR_N:ATTR_N + 3],
+                             a[:, k, ATTR_UV:ATTR_UV + 2]], axis=1)
+        put_f(ch, cl, vf)
+
+    put_i(B16.MAT, 2, a[:, 0, ATTR_MAT])
+    put_i(B16.TYPE, 2, a[:, 0, ATTR_TYPE])
+    put_i(B16.MAP_KD, 2, a[:, 0, ATTR_MAP_KD] + 1.0)
+    put_i(B16.MAP_KS, 2, a[:, 0, ATTR_MAP_KS] + 1.0)
+    put_i(B16.MAP_N, 2, a[:, 0, ATTR_MAP_N] + 1.0)
+    put_i(B16.TRI, 3, a[:, 0, ATTR_TRI])
+    for wh_col, off_col, (cw, chh, co) in (
+            (ATTR_TKD_WH, ATTR_TKD_OFF, (B16.TKD_W, B16.TKD_H, B16.TKD_OFF)),
+            (ATTR_TKS_WH, ATTR_TKS_OFF, (B16.TKS_W, B16.TKS_H, B16.TKS_OFF)),
+            (ATTR_TN_WH, ATTR_TN_OFF, (B16.TN_W, B16.TN_H, B16.TN_OFF))):
+        wh = np.rint(a[:, 0, wh_col]).astype(np.int64)
+        put_i(cw, 2, wh // 4096)
+        put_i(chh, 2, wh % 4096)
+        put_i(co, 3, a[:, 0, off_col])
+    return _bf16_bits(tb)
+
+
+def _cut_supers(bvh: BVHArrays, counts, cluster_lo, super_size: int):
+    """Cut the BVH at ``super_size`` refs into superclusters; each one's
+    member clusters form one contiguous range of cluster ids. Returns
+    (cut nodes, first member, end member)."""
+    n_prims = bvh.n_prims.astype(np.int64)
+    leaf = n_prims > 0
+    parent = bvh.parent.astype(np.int64)
+    cut_ok = counts <= super_size
+    pbig = np.where(parent >= 0, ~cut_ok[np.maximum(parent, 0)], True)
+    cut = np.nonzero(cut_ok & pbig)[0]
+
+    right = bvh.right_or_start.astype(np.int64)
+    leaf_start = np.where(leaf, right, np.iinfo(np.int64).max)
+    lo_all = np.minimum.accumulate(leaf_start[::-1])[::-1]
+    lo = lo_all[cut]
+    c0 = np.searchsorted(cluster_lo, lo, side="left")
+    c1 = np.append(c0[1:], len(cluster_lo))
+    return cut, c0, c1
+
+
+def _cut_clusters(bvh: BVHArrays, cluster_size: int):
+    """Cut the BVH into subtrees holding <= cluster_size triangle refs.
+    Returns (list of (index slice, bmin, bmax), subtree counts, slice
+    starts). Each cut subtree's leaf refs are one contiguous slice of
+    ``indices`` (build_bvh appends leaves in DFS order)."""
+    n_prims = bvh.n_prims.astype(np.int64)
+    right = bvh.right_or_start.astype(np.int64)
+    leaf = n_prims > 0
+    inner = ~leaf
+
+    counts = np.where(leaf, n_prims, 0)
+    li = np.nonzero(inner)[0]
+    lchild = li + 1
+    rchild = right[li]
+    for _ in range(80):
+        new = counts[lchild] + counts[rchild]
+        if (counts[li] == new).all():
+            break
+        counts[li] = new
+
+    cut_ok = counts <= cluster_size
+    parent = bvh.parent.astype(np.int64)
+    pbig = np.where(parent >= 0, ~cut_ok[np.maximum(parent, 0)], True)
+    cut = np.nonzero(cut_ok & pbig)[0]
+
+    leaf_start = np.where(leaf, right, np.iinfo(np.int64).max)
+    lo_all = np.minimum.accumulate(leaf_start[::-1])[::-1]
+    lo = lo_all[cut]
+    hi = np.append(lo[1:], len(bvh.indices))
+
+    good = (lo[0] == 0 and (hi >= lo).all()
+            and (hi - lo == counts[cut]).all())
+    if not good:
+        raise ValueError("BVH leaf slices are not DFS-contiguous")
+    return ([(bvh.indices[lo[j]:hi[j]], bvh.box_min[i], bvh.box_max[i])
+             for j, i in enumerate(cut)], counts, lo)
+
+
+class MXUScene:
+    """Host build of the cluster tables (the reference's
+    ``MXUScene.build(..., return_host=True)``); ``tables_from_numpy``
+    uploads the result."""
+
+    @staticmethod
+    def build(positions: np.ndarray, bvh: BVHArrays,
+              cluster_size: int = 256, normals: Optional[np.ndarray] = None,
+              uvs: Optional[np.ndarray] = None,
+              mat_ids: Optional[np.ndarray] = None,
+              materials=None):
+        """positions: [M,3,3] world-space triangle vertices; materials: an
+        optional HostMaterial list, baked per triangle. Returns
+        (host dict of numpy arrays, statics dict)."""
+        p = np.asarray(positions, np.float64)
+        lo = p.reshape(-1, 3).min(0)
+        hi = p.reshape(-1, 3).max(0)
+        center = (lo + hi) * 0.5
+        p = p - center  # center for f32 precision in the affine transform
+
+        clusters, counts, cluster_lo = _cut_clusters(bvh, cluster_size)
+        n_clusters = len(clusters)
+        m_pad = n_clusters * cluster_size
+
+        sc_box = None
+        n_sc = 0
+        if n_clusters > 1:
+            sc_size = SC_CLUSTERS * cluster_size
+            sc_nodes, sc_c0, sc_c1 = _cut_supers(bvh, counts, cluster_lo,
+                                                 sc_size)
+            n_sc = len(sc_nodes)
+            sb = np.zeros((n_sc, 8), np.float32)
+            sb[:, 0:3] = bvh.box_min[sc_nodes] - center
+            sb[:, 3:6] = bvh.box_max[sc_nodes] - center
+            sb[:, 6] = sc_c0.astype(np.float32)
+            sb[:, 7] = (sc_c1 - sc_c0).astype(np.float32)
+            if not (sc_c0[0] == 0 and (sc_c1[-1:] == n_clusters).all()
+                    and (sc_c1 - sc_c0 >= 1).all()):
+                raise ValueError("super/cluster cut mismatch")
+            sc_box = sb
+
+        tri_map = np.full(m_pad, -1, np.int32)
+        boxes = np.zeros((n_clusters, 8), np.float32)
+        order = np.zeros(m_pad, np.int64)
+        used = np.zeros(m_pad, bool)
+        for ci, (idx, bmin, bmax) in enumerate(clusters):
+            base = ci * cluster_size
+            idx = np.unique(idx)
+            k = len(idx)
+            order[base:base + k] = idx
+            used[base:base + k] = True
+            tri_map[base:base + k] = idx
+            boxes[ci, 0:3] = bmin - center
+            boxes[ci, 3:6] = bmax - center
+
+        tris = p[order]
+        v0 = tris[:, 0]
+        e1 = tris[:, 1] - tris[:, 0]
+        e2 = tris[:, 2] - tris[:, 0]
+        nrm = np.cross(e1, e2)
+        mats = np.stack([e1, e2, nrm], axis=-1)       # [Mpad,3,3]
+        det = np.linalg.det(mats)
+        ok = used & (np.abs(det) > 1e-30)
+        minv = np.zeros((m_pad, 3, 3))
+        minv[ok] = np.linalg.inv(mats[ok])
+        trans = -np.einsum("mij,mj->mi", minv, v0)
+        t4 = np.concatenate([minv.transpose(0, 2, 1), trans[:, None, :]],
+                            axis=1)                    # [Mpad,4,3]
+        t4[~ok] = 0.0  # forces d'_w == 0 -> never hits
+
+        attrs = None
+        a_tri = None
+        if normals is not None:
+            a = np.zeros((m_pad, 3, ATTR_COLS), np.float32)
+            a[:, :, ATTR_N:ATTR_N + 3] = normals[order]
+            if uvs is not None:
+                a[:, :, ATTR_UV:ATTR_UV + 2] = uvs[order]
+            if mat_ids is not None:
+                mid = mat_ids[order]
+                a[:, :, ATTR_MAT] = mid[:, None]
+                if materials is not None:
+                    def col(get):
+                        return np.array([get(materials[i]) for i in
+                                         range(len(materials))],
+                                        np.float32)[mid]
+                    kd = col(lambda m: m.Kd) ** 2.2   # matGetAlbedo gamma
+                    a[:, :, ATTR_KD:ATTR_KD + 3] = kd[:, None, :]
+                    a[:, :, ATTR_KS:ATTR_KS + 3] = col(lambda m: m.Ks)[:, None, :]
+                    a[:, :, ATTR_KE:ATTR_KE + 3] = col(lambda m: m.Ke)[:, None, :]
+                    a[:, :, ATTR_KT:ATTR_KT + 3] = col(lambda m: m.Kt)[:, None, :]
+                    a[:, :, ATTR_NS] = col(lambda m: m.Ns)[:, None]
+                    a[:, :, ATTR_NI] = col(lambda m: m.Ni)[:, None]
+                    a[:, :, ATTR_D] = col(lambda m: m.d)[:, None]
+                    a[:, :, ATTR_TYPE] = col(lambda m: m.type)[:, None]
+                    a[:, :, ATTR_MAP_KD] = col(lambda m: m.map_Kd)[:, None]
+                    a[:, :, ATTR_MAP_KS] = col(lambda m: m.map_Ks)[:, None]
+                    a[:, :, ATTR_MAP_N] = col(lambda m: m.map_N)[:, None]
+            a[:, :, ATTR_TRI] = order[:, None].astype(np.float32)
+            a[~used] = 0.0
+            a_tri = a
+            attrs = a.reshape(n_clusters, cluster_size, 3, ATTR_COLS) \
+                .transpose(0, 2, 1, 3).reshape(
+                    n_clusters * 3 * cluster_size, ATTR_COLS)
+
+        txy_t = np.concatenate([t4[:, :, 0], t4[:, :, 1], t4[:, :, 2]],
+                               axis=1).astype(np.float32)  # [Mpad, 12]
+
+        attr_b16 = None
+        if a_tri is not None:
+            attr_b16 = _build_attr_b16(a_tri, txy_t)
+
+        # cluster c's 12 transform rows at rows [c*16, c*16+12)
+        t12 = np.ascontiguousarray(txy_t.T)
+        t12b = np.zeros((n_clusters * 16, cluster_size), np.float32)
+        t12b.reshape(n_clusters, 16, cluster_size)[:, :12] = \
+            t12.reshape(12, n_clusters, cluster_size).transpose(1, 0, 2)
+
+        # cluster-blocked transpose of the B16 table (cluster c's
+        # [128, tc] block at rows c*128..)
+        b16t = None
+        if attr_b16 is not None:
+            b16t = np.ascontiguousarray(
+                attr_b16.reshape(n_clusters, cluster_size, B16.COLS)
+                .transpose(0, 2, 1)
+                .reshape(n_clusters * B16.COLS, cluster_size))
+
+        tx = np.ascontiguousarray(t4[:, :, 0].T, np.float32)
+        ty = np.ascontiguousarray(t4[:, :, 1].T, np.float32)
+        tz = np.ascontiguousarray(t4[:, :, 2].T, np.float32)
+
+        host = dict(
+            sc_box=sc_box, sub_box=None, fine_box=None,
+            attr_b16=attr_b16, attrs=attrs,
+            b16t=b16t, txy_t=txy_t, t12=t12, t12b=t12b,
+            tx=tx, ty=ty, tz=tz,
+            cluster_box=boxes, tri_map=tri_map,
+            center=center.astype(np.float32))
+        statics = dict(n_clusters=n_clusters, cluster_size=cluster_size,
+                       n_superclusters=n_sc, has_tex_meta=False)
+        return host, statics
+
+
+class MXUSceneT(NamedTuple):
+    """Device tables of the port.
+
+    cluster_box [ncl, 8] f32   bmin3 bmax3 pad2 (centered)
+    t12   [12, Mpad] f32       coefficient-major transforms (K2)
+    t12b  [ncl*16, tc] f32     cluster-blocked transforms (reference layout)
+    b16t  [ncl*128, tc] bf16   cluster-blocked B16 table (reference layout)
+    b16r  [Mpad, 128] bf16     the same bits, row-major (K3 row reads)
+    t16r  [Mpad, 16] f32       t12b's bits, row-major (K3 transform reads)
+    tri_map [Mpad] i32, center [3] f32, lo/hi [3] f32 scene bounds
+    """
+    cluster_box: torch.Tensor
+    t12: torch.Tensor
+    t12b: torch.Tensor
+    b16t: torch.Tensor
+    b16r: torch.Tensor
+    t16r: torch.Tensor
+    tri_map: torch.Tensor
+    center: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    n_clusters: int
+    cluster_size: int
+    n_superclusters: int
+
+
+def _bf16_tensor(a, device):
+    a = np.ascontiguousarray(a)
+    if a.dtype != np.uint16:        # ml_dtypes.bfloat16 from the reference
+        a = a.view(np.uint16)
+    return torch.from_numpy(a.view(np.int16).copy()).view(
+        torch.bfloat16).to(device)
+
+
+def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
+    """Upload a host table dict — the port's own ``MXUScene.build`` result
+    or the reference package's ``MXUScene.build(..., return_host=True)``
+    (its bf16 arrays are read through ``.view(np.uint16)``) — as the
+    port's device tables."""
+    ncl = statics["n_clusters"]
+    tc = statics["cluster_size"]
+    f32 = lambda k: torch.from_numpy(
+        np.ascontiguousarray(host[k], np.float32)).to(device)
+    b16t = np.ascontiguousarray(host["b16t"])
+    if b16t.dtype != np.uint16:
+        b16t = b16t.view(np.uint16)
+    b16r = b16t.reshape(ncl, B16.COLS, tc).transpose(0, 2, 1).reshape(
+        ncl * tc, B16.COLS)
+    t12b = np.asarray(host["t12b"], np.float32)
+    t16r = t12b.reshape(ncl, 16, tc).transpose(0, 2, 1).reshape(ncl * tc, 16)
+    boxes = f32("cluster_box")
+    return MXUSceneT(
+        cluster_box=boxes, t12=f32("t12"), t12b=f32("t12b"),
+        b16t=_bf16_tensor(b16t, device), b16r=_bf16_tensor(b16r, device),
+        t16r=torch.from_numpy(np.ascontiguousarray(t16r)).to(device),
+        tri_map=torch.from_numpy(
+            np.ascontiguousarray(host["tri_map"], np.int32)).to(device),
+        center=f32("center"),
+        lo=boxes[:, 0:3].amin(0), hi=boxes[:, 3:6].amax(0),
+        n_clusters=ncl, cluster_size=tc,
+        n_superclusters=statics["n_superclusters"])
+
+
+# ---------------------------------------------------------------------------
+# K1: per-tile candidate order
+# ---------------------------------------------------------------------------
+
+K1 = kb.Kernel("tile_order", "tile_order.cu", "tile_order_launch",
+               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+
+
+def _slab(box, o0, o1, o2, i0, i1, i2):
+    """Exact per-ray slab test terms, the kernels' operation order, with
+    NaN-propagating min/max (torch.minimum/maximum)."""
+    ax = (box[0] - o0) * i0
+    bx = (box[3] - o0) * i0
+    ay = (box[1] - o1) * i1
+    by = (box[4] - o1) * i1
+    az = (box[2] - o2) * i2
+    bz = (box[5] - o2) * i2
+    tnear = torch.maximum(torch.maximum(torch.minimum(ax, bx),
+                                        torch.minimum(ay, by)),
+                          torch.minimum(az, bz))
+    tfar = torch.minimum(torch.minimum(torch.maximum(ax, bx),
+                                       torch.maximum(ay, by)),
+                         torch.maximum(az, bz))
+    return tnear, tfar
+
+
+def _inv_dirs(rays):
+    eps = 1e-30
+    return [1.0 / torch.where(rays[:, k] == 0.0, eps, rays[:, k])
+            for k in (4, 5, 6)]
+
+
+def tile_order_plain(rays, tm, boxes):
+    """Plain PyTorch K1. rays [nt, 8, rt], tm [nt, rt], boxes [ncl, 8] ->
+    cons [nt, ncl_pad]: per tile and cluster, the min over rays of
+    max(tnear, 0) for rays entering within their tmax, else 1e30."""
+    K1.plain_runs += 1
+    nt, _, rt = rays.shape
+    ncl = boxes.shape[0]
+    ncl_pad = ncl + ((-ncl) % 8)
+    o = [rays[:, k][:, None, :] for k in (0, 1, 2)]        # [nt, 1, rt]
+    inv = [i[:, None, :] for i in _inv_dirs(rays)]
+    box = [boxes[:, k].reshape(1, ncl, 1) for k in range(6)]
+    tnear, tfar = _slab(box, *o, *inv)                      # [nt, ncl, rt]
+    hit = (tfar >= 0.0) & (tnear <= tfar) & (tnear < tm[:, None, :])
+    entry = torch.where(hit, torch.clamp_min(tnear, 0.0), float(_CULL_INF))
+    cons = torch.full((nt, ncl_pad), float(_CULL_INF), dtype=torch.float32,
+                      device=rays.device)
+    cons[:, :ncl] = entry.amin(dim=2)
+    return cons
+
+
+def tile_order(rays, tm, boxes):
+    """K1: cluster entry bounds per tile (see ``tile_order_plain``)."""
+    if rays.device.type == "cpu":
+        return tile_order_plain(rays, tm, boxes)
+    kb.check_cuda("tile_order", rays, tm, boxes,
+                  dtypes=(torch.float32,) * 3)
+    nt, _, rt = rays.shape
+    ncl = boxes.shape[0]
+    ncl_pad = ncl + ((-ncl) % 8)
+    if rt % 32 or rt > 1024:
+        raise ValueError(f"tile_order: ray tile {rt} must be a multiple of "
+                         "32 and at most 1024")
+    cons = torch.empty((nt, ncl_pad), dtype=torch.float32,
+                       device=rays.device)
+    K1(kb.ptr(rays), kb.ptr(tm), kb.ptr(boxes), kb.ptr(cons), nt, rt, ncl,
+       ncl_pad)
+    return cons
+
+
+def _pack_rays(o4, d4, rt):
+    """[b,4] origins/directions -> [nt, 8, rt] (ox oy oz 1 dx dy dz 0 rows
+    per tile)."""
+    b = o4.shape[0]
+    nt = b // rt
+    rays = torch.cat([o4.T, d4.T], dim=0)                  # [8, b]
+    return rays.view(8, nt, rt).permute(1, 0, 2).contiguous()
+
+
+def _candidate_order(cons):
+    """Front-to-back candidate list per tile: a stable sort of the entry
+    bounds (lax.sort semantics), -1 past the culled ones."""
+    skey, sidx = torch.sort(cons, dim=1, stable=True)
+    order = torch.where(skey >= float(_CULL_INF), -1, sidx).to(torch.int32)
+    return order.contiguous(), skey.contiguous()
+
+
+def _tile_order_v2(o4, d4, tmax_col, boxes, rt):
+    """Per-tile candidate lists: (order [nt, ncl_pad] i32, cons
+    [nt, ncl_pad] f32), sorted front-to-back."""
+    nt = o4.shape[0] // rt
+    cons = tile_order(_pack_rays(o4, d4, rt),
+                      tmax_col.reshape(nt, rt).contiguous(), boxes)
+    return _candidate_order(cons)
+
+
+# ---------------------------------------------------------------------------
+# K2: rays-on-lanes cluster trace
+# ---------------------------------------------------------------------------
+
+K2 = kb.Kernel("trace_rol", "trace_rol.cu", "trace_rol_launch",
+               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+               + [ctypes.c_longlong, ctypes.c_int])
+
+
+def trace_rol_plain(rays, tm, order, cons, t12, boxes, n_clusters: int,
+                    tc: int, any_hit: bool):
+    """Plain PyTorch K2, all tiles advanced slot by slot together.
+    Returns (t [nt, rt] f32, i [nt, rt] i32, visits [nt] i32 — the live
+    cluster visits of each tile)."""
+    K2.plain_runs += 1
+    nt, _, rt = rays.shape
+    dev = rays.device
+    o = [rays[:, k] for k in (0, 1, 2)]                    # [nt, rt]
+    d = [rays[:, k] for k in (4, 5, 6)]
+    inv = _inv_dirs(rays)
+    t_best = tm.clone()
+    i_best = torch.full((nt, rt), -1, dtype=torch.int32, device=dev)
+    visits = torch.zeros(nt, dtype=torch.int32, device=dev)
+    rowbits = tc - 1
+    row = torch.arange(tc, dtype=torch.int32, device=dev).view(1, tc, 1)
+    t12c = t12.view(12, n_clusters, tc)
+
+    def stop_at(slot):
+        t_worst = t_best.amax(dim=1)
+        return ((order[:, slot] < 0) | (cons[:, slot] > t_worst)
+                | (t_worst <= 0.0))
+
+    stop = stop_at(0)
+    for slot in range(n_clusters):
+        run = ~stop
+        if not bool(run.any()):
+            break
+        c = order[:, slot].long()
+        box = boxes[c.clamp_min(0)]                         # [nt, 8]
+        tnear, tfar = _slab([box[:, k, None] for k in range(6)], *o, *inv)
+        box_hit = (tfar >= 0.0) & (tnear <= tfar) & (tnear < t_best)
+        if any_hit:
+            box_hit &= i_best < 0
+        live = box_hit.any(dim=1) & (c >= 0) & run
+        idx = live.nonzero()[:, 0]
+        if idx.numel():
+            visits[idx] += 1
+            T = t12c[:, c[idx]].permute(1, 0, 2)[..., None]  # [L,12,tc,1]
+            ol = [x[idx][:, None, :] for x in o]             # [L, 1, rt]
+            dl = [x[idx][:, None, :] for x in d]
+            oz = ol[0] * T[:, 8] + ol[1] * T[:, 9] + ol[2] * T[:, 10] \
+                + T[:, 11]
+            dz = dl[0] * T[:, 8] + dl[1] * T[:, 9] + dl[2] * T[:, 10]
+            t = -oz / torch.where(dz == 0.0, 1.0, dz)
+            ox = ol[0] * T[:, 0] + ol[1] * T[:, 1] + ol[2] * T[:, 2] \
+                + T[:, 3]
+            dx = dl[0] * T[:, 0] + dl[1] * T[:, 1] + dl[2] * T[:, 2]
+            u = ox + t * dx
+            oy = ol[0] * T[:, 4] + ol[1] * T[:, 5] + ol[2] * T[:, 6] \
+                + T[:, 7]
+            dy = dl[0] * T[:, 4] + dl[1] * T[:, 5] + dl[2] * T[:, 6]
+            v = oy + t * dy
+            valid = (dz != 0.0) & (t > 0.0) & (
+                torch.minimum(torch.minimum(u, v), 1.0 - u - v) >= 0.0)
+            tb = t_best[idx]
+            ib = i_best[idx]
+            if any_hit:
+                tcand = torch.where(valid, t, float(F32_MAX))
+                blocked = tcand.amin(dim=1) < tb
+                i_best[idx] = torch.where(blocked, 1, ib)
+                t_best[idx] = torch.where(blocked, 0.0, tb)
+            else:
+                key = (t.view(torch.int32) & ~rowbits) | row
+                key = torch.where(valid, key, 0x7F800000)
+                kmin = key.amin(dim=1)                       # [L, rt]
+                tmin = (kmin & ~rowbits).view(torch.float32)
+                better = tmin < tb
+                t_best[idx] = torch.where(better, tmin, tb)
+                i_best[idx] = torch.where(
+                    better, (kmin & rowbits) + c[idx, None].int() * tc, ib)
+        stop = stop | stop_at(min(slot + 1, n_clusters - 1))
+    return t_best, i_best, visits
+
+
+def trace_rol(rays, tm, order, cons, t12, boxes, n_clusters: int, tc: int,
+              any_hit: bool):
+    """K2: trace a batch of ray tiles against their candidate clusters
+    (see ``trace_rol_plain``). Returns (t, i, visits)."""
+    if rays.device.type == "cpu":
+        return trace_rol_plain(rays, tm, order, cons, t12, boxes,
+                               n_clusters, tc, any_hit)
+    kb.check_cuda("trace_rol", rays, tm, order, cons, t12, boxes,
+                  dtypes=(torch.float32, torch.float32, torch.int32,
+                          torch.float32, torch.float32, torch.float32))
+    nt, _, rt = rays.shape
+    if rt % 32 or rt > 1024 or tc & (tc - 1):
+        raise ValueError(f"trace_rol: ray tile {rt} / cluster size {tc} "
+                         "unsupported")
+    dev = rays.device
+    t = torch.empty((nt, rt), dtype=torch.float32, device=dev)
+    i = torch.empty((nt, rt), dtype=torch.int32, device=dev)
+    visits = torch.empty(nt, dtype=torch.int32, device=dev)
+    K2(kb.ptr(rays), kb.ptr(tm), kb.ptr(order), kb.ptr(cons), kb.ptr(t12),
+       kb.ptr(boxes), kb.ptr(t), kb.ptr(i), kb.ptr(visits), nt, rt,
+       order.shape[1], n_clusters, tc, t12.shape[1], int(any_hit))
+    return t, i, visits
+
+
+def _trace_rol(o4, d4, tmax_col, t12, boxes, scene_static, any_hit,
+               ray_tile):
+    """Rays-on-lanes trace of [b,4] rays: candidate lists (K1 + sort),
+    then K2. Returns (t [b,1], i [b,1])."""
+    n_clusters, tc = scene_static
+    rt = ray_tile
+    b = o4.shape[0]
+    nt = b // rt
+    rays = _pack_rays(o4, d4, rt)
+    tm = tmax_col.reshape(nt, rt).contiguous()
+    order, cons = _candidate_order(tile_order(rays, tm, boxes))
+    t, i, _ = trace_rol(rays, tm, order, cons, t12, boxes, n_clusters, tc,
+                        any_hit)
+    return t.reshape(b, 1), i.reshape(b, 1)
+
+
+def _dispatch_trace(o4, d4, tmax_col, scene: MXUSceneT, any_hit):
+    """The flat rays-on-lanes tier; the two-level tier (K5) that the
+    reference uses past SC_THRESHOLD clusters is not ported yet."""
+    if scene.n_clusters > SC_THRESHOLD:
+        raise NotImplementedError(
+            f"{scene.n_clusters} clusters > SC_THRESHOLD={SC_THRESHOLD}: the "
+            "two-level supercluster trace is not ported yet")
+    return _trace_rol(o4, d4, tmax_col, scene.t12, scene.cluster_box,
+                      (scene.n_clusters, scene.cluster_size), any_hit,
+                      ROL_TILE)
+
+
+# ---------------------------------------------------------------------------
+# Sorting and the pair trace
+# ---------------------------------------------------------------------------
+
+def _pad_rays(x, rt):
+    n = x.shape[0]
+    pad = (-n) % rt
+    if pad:
+        x = torch.cat([x, torch.zeros((pad,) + tuple(x.shape[1:]),
+                                      dtype=x.dtype, device=x.device)])
+    return x, n
+
+
+def _ray_inputs(orig: Vec3, d: Vec3, scene: MXUSceneT, t_max, ray_tile):
+    """(o4 [b,4] centered origins with w=1, d4 [b,4] with w=0, tmax
+    [b,1]), padded to a whole number of ray tiles."""
+    n = orig.x.shape[0]
+    dev = orig.x.device
+    one = torch.ones(n, dtype=torch.float32, device=dev)
+    zero = torch.zeros(n, dtype=torch.float32, device=dev)
+    o4 = torch.stack([orig.x - scene.center[0], orig.y - scene.center[1],
+                      orig.z - scene.center[2], one], dim=1)
+    d4 = torch.stack([d.x, d.y, d.z, zero], dim=1)
+    if t_max is None:
+        tmax_col = torch.full((n, 1), float(F32_MAX), dtype=torch.float32,
+                              device=dev)
+    else:
+        tmax_col = torch.as_tensor(t_max, dtype=torch.float32,
+                                   device=dev).expand(n).reshape(n, 1)
+    o4, _ = _pad_rays(o4, ray_tile)
+    d4, _ = _pad_rays(d4, ray_tile)
+    tmax_col, _ = _pad_rays(tmax_col, ray_tile)
+    return o4, d4, tmax_col
+
+
+def _exit_clamp(o4, d4, tmax_col, lo, hi):
+    """Clamp each ray's tmax to its exit distance from the scene AABB (with
+    a margin): escaping rays get tmax = 0 and sort into dead tail tiles."""
+    o = o4[:, 0:3]
+    dd = d4[:, 0:3]
+    inv = 1.0 / torch.where(dd == 0.0, 1e-30, dd)
+    t1 = (lo[None, :] - o) * inv
+    t2 = (hi[None, :] - o) * inv
+    tnear = torch.minimum(t1, t2).amax(dim=1)
+    tfar = torch.maximum(t1, t2).amin(dim=1)
+    exit_t = torch.where((tfar >= tnear) & (tfar > 0.0),
+                         tfar * 1.001 + 1e-4, 0.0)
+    return torch.minimum(tmax_col[:, 0], exit_t).reshape(-1, 1)
+
+
+def _morton5(q):
+    """Spread 5 bits of q to every 3rd bit position (int32)."""
+    return ((q & 1) | ((q & 2) << 2) | ((q & 4) << 4)
+            | ((q & 8) << 6) | ((q & 16) << 8))
+
+
+def _sort_key(o4, d4, lo, hi):
+    """Coherence key (major, minor): direction octant | origin morton (15
+    bits), and a 7-bit-per-axis quantized direction."""
+    d = d4[:, 0:3]
+    o = o4[:, 0:3]
+    i32 = torch.int32
+    oct_ = ((d[:, 0] < 0).to(i32) | ((d[:, 1] < 0).to(i32) << 1)
+            | ((d[:, 2] < 0).to(i32) << 2))
+    ext = torch.clamp_min(hi - lo, 1e-30)
+    qo = torch.clamp((o - lo[None, :]) / ext[None, :] * 31.0, 0.0, 31.0)
+    qo = qo.to(i32)
+    morton = (_morton5(qo[:, 0]) | (_morton5(qo[:, 1]) << 1)
+              | (_morton5(qo[:, 2]) << 2))
+    qd = torch.clamp((d * 0.5 + 0.5) * 127.0, 0.0, 127.0).to(i32)
+    minor = (qd[:, 0] << 14) | (qd[:, 1] << 7) | qd[:, 2]
+    return (oct_ << 15) | morton, minor
+
+
+def _perm_apply(perm, cols):
+    """Apply a row permutation to f32 columns with ONE stacked row gather."""
+    g = torch.stack(cols, dim=1)[perm]
+    return [g[:, k] for k in range(len(cols))]
+
+
+def _perm_invert(sidx):
+    """inv[sidx[j]] = j — the unsort permutation."""
+    inv = torch.empty_like(sidx)
+    inv[sidx] = torch.arange(sidx.shape[0], dtype=sidx.dtype,
+                             device=sidx.device)
+    return inv
+
+
+def _perm_unsort2(sidx, t_col, i_col):
+    """Restore (t f32, i int32) to original ray order with one stacked
+    gather by the inverse permutation (the int column rides as bits)."""
+    inv = _perm_invert(sidx)
+    g = torch.stack([t_col, i_col.view(torch.float32)], dim=1)[inv]
+    return g[:, 0], g[:, 1].contiguous().view(torch.int32)
+
+
+def _sorted_trace_pair(eo4, ed4, so4, sd4, sh_tmax_col, scene: MXUSceneT):
+    """Extension (closest-hit) and shadow (any-hit) traces under ONE
+    shared coherence permutation: one stable sort of the packed 30-bit
+    extension key plus one stacked row gather, two traces, one inverse-
+    permutation unsort (the occlusion verdict rides bit 30 of the winner
+    column). Returns (t [b,1], col [b,1], occluded [b]); misses have
+    t = F32_MAX, col = -1."""
+    b = eo4.shape[0]
+    dev = eo4.device
+    lo, hi = scene.lo, scene.hi
+    fmax = torch.full((b, 1), float(F32_MAX), dtype=torch.float32,
+                      device=dev)
+    sh_tm = _exit_clamp(so4, sd4, sh_tmax_col, lo, hi)
+    kmaj, kmin = _sort_key(eo4, ed4, lo, hi)
+    skey = (kmaj << 12) | (kmin >> 9)
+    etm = _exit_clamp(eo4, ed4, fmax, lo, hi)
+    skey = torch.where(etm[:, 0] <= 0.0, 0x7FFFFFFF, skey)
+    _, sidx = torch.sort(skey, stable=True)
+    srt = _perm_apply(sidx, [
+        eo4[:, 0], eo4[:, 1], eo4[:, 2],
+        ed4[:, 0], ed4[:, 1], ed4[:, 2],
+        so4[:, 0], so4[:, 1], so4[:, 2],
+        sd4[:, 0], sd4[:, 1], sd4[:, 2], sh_tm[:, 0]])
+    ones = torch.ones(b, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(b, dtype=torch.float32, device=dev)
+    eo4s = torch.stack([srt[0], srt[1], srt[2], ones], dim=1)
+    ed4s = torch.stack([srt[3], srt[4], srt[5], zeros], dim=1)
+    so4s = torch.stack([srt[6], srt[7], srt[8], ones], dim=1)
+    sd4s = torch.stack([srt[9], srt[10], srt[11], zeros], dim=1)
+    stm = srt[12]
+    etm_s = _exit_clamp(eo4s, ed4s, fmax, lo, hi)
+    t_e, i_e = _dispatch_trace(eo4s, ed4s, etm_s, scene, False)
+    _, i_s = _dispatch_trace(so4s, sd4s, stm.reshape(b, 1), scene, True)
+    packed = (i_e[:, 0] + 1) | torch.where(i_s[:, 0] >= 0, 1 << 30, 0).to(
+        torch.int32)
+    t_out, p_out = _perm_unsort2(sidx, t_e[:, 0], packed)
+    occ = (p_out >> 30) > 0
+    col = (p_out & ((1 << 30) - 1)) - 1
+    t_out = torch.where(col >= 0, t_out, float(F32_MAX))
+    return t_out.reshape(b, 1), col.reshape(b, 1), occ
+
+
+def trace_pair_mxu(eorig: Vec3, edir: Vec3, sorig: Vec3, sdir: Vec3,
+                   sh_tmax, scene: MXUSceneT, ray_tile: int = RAY_TILE):
+    """Extension closest-hit + shadow occlusion under one shared sort.
+    Returns (t[n], col[n], occluded[n])."""
+    n = eorig.x.shape[0]
+    eo4, ed4, _ = _ray_inputs(eorig, edir, scene, None, ray_tile)
+    so4, sd4, stm = _ray_inputs(sorig, sdir, scene, sh_tmax, ray_tile)
+    t, col, occ = _sorted_trace_pair(eo4, ed4, so4, sd4, stm, scene)
+    return t[:n, 0], col[:n, 0], occ[:n]
+
+
+# ---------------------------------------------------------------------------
+# K3: winner-attribute resolve
+# ---------------------------------------------------------------------------
+
+K3 = kb.Kernel("resolve_v5", "resolve_v5.cu", "resolve_v5_launch",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int])
+
+
+def resolve_v5_plain(col, o4, d4, b16r, t16r):
+    """Plain PyTorch K3: gather each winner's B16 row and transform row,
+    then the reference epilogue (_b16_epilogue_t). Returns [40, b]."""
+    K3.plain_runs += 1
+    active = col >= 0
+    safe = col.clamp_min(0).long()
+    acc = b16r[safe].to(torch.float32).T                     # [128, b]
+    tw = t16r[safe].T                                        # [16, b]
+    O, D = o4.T, d4.T
+
+    def dot4(a, k):
+        return a[0] * tw[k] + a[1] * tw[k + 1] + a[2] * tw[k + 2] \
+            + a[3] * tw[k + 3]
+
+    oz, dz = dot4(O, 8), dot4(D, 8)
+    t = -oz / torch.where(dz == 0.0, 1.0, dz)
+    ox, dx = dot4(O, 0), dot4(D, 0)
+    oy, dy = dot4(O, 4), dot4(D, 4)
+    u = ox + t * dx
+    v = oy + t * dy
+    g = lambda a, w: acc[a:a + w]
+    cf = g(B16.CF_HI, 15) + g(B16.CF_LO, 15)
+    v0 = g(B16.V0_HI, 5) + g(B16.V0_LO, 5)
+    v1 = g(B16.V1_HI, 5) + g(B16.V1_LO, 5)
+    v2 = g(B16.V2_HI, 5) + g(B16.V2_LO, 5)
+    vert = (1.0 - u - v) * v0 + u * v1 + v * v2
+    c2 = lambda a: acc[a:a + 1] + acc[a + 1:a + 2] * 256.0
+    c3 = lambda a: c2(a) + acc[a + 2:a + 3] * 65536.0
+    wh = lambda cw, chh: c2(cw) * 4096.0 + c2(chh)
+    res = torch.cat([
+        vert,                                       # 0-4: N, UV
+        c2(B16.MAT),                                # 5
+        cf,                                         # 6-20
+        c2(B16.TYPE),                               # 21
+        c2(B16.MAP_KD) - 1.0,                       # 22 (stored +1)
+        c2(B16.MAP_KS) - 1.0,                       # 23
+        c2(B16.MAP_N) - 1.0,                        # 24
+        c3(B16.TRI),                                # 25
+        u[None], v[None], t[None],                  # 26-28
+        wh(B16.TKD_W, B16.TKD_H), c3(B16.TKD_OFF),  # 29-30
+        wh(B16.TKS_W, B16.TKS_H), c3(B16.TKS_OFF),  # 31-32
+        wh(B16.TN_W, B16.TN_H), c3(B16.TN_OFF),     # 33-34
+        torch.zeros((ATTR_COLS - 35, col.shape[0]), dtype=torch.float32,
+                    device=col.device),
+    ], dim=0)
+    return torch.where(active[None, :], res, 0.0)
+
+
+def resolve_v5(col, o4, d4, b16r, t16r):
+    """K3: winner attributes as the SoA [ATTR_COLS, b] matrix (see
+    ``resolve_v5_plain``). col: int32 [b] winner column, -1 = miss."""
+    if col.device.type == "cpu":
+        return resolve_v5_plain(col, o4, d4, b16r, t16r)
+    kb.check_cuda("resolve_v5", col, o4, d4, b16r, t16r,
+                  dtypes=(torch.int32, torch.float32, torch.float32,
+                          torch.bfloat16, torch.float32))
+    b = col.shape[0]
+    out = torch.empty((ATTR_COLS, b), dtype=torch.float32, device=col.device)
+    K3(kb.ptr(col), kb.ptr(o4), kb.ptr(d4), kb.ptr(b16r), kb.ptr(t16r),
+       kb.ptr(out), b)
+    return out
+
+
+def resolve_hits_mxu(orig: Vec3, d: Vec3, t, col, scene: MXUSceneT,
+                     ray_tile: int = RAY_TILE):
+    """Per-ray winner attributes as the SoA matrix [ATTR_COLS, n] (ATTR_*
+    rows), including the exact t and barycentric u, v. col: winner column
+    (-1 = miss -> zero column)."""
+    n = col.shape[0]
+    o4, d4, _ = _ray_inputs(orig, d, scene, None, ray_tile)
+    col2, _ = _pad_rays(col.to(torch.int32), ray_tile)
+    out = resolve_v5(col2.contiguous(), o4.contiguous(), d4.contiguous(),
+                     scene.b16r, scene.t16r)
+    return out[:, :n]

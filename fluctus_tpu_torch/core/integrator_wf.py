@@ -1,0 +1,408 @@
+"""Wavefront (throughput) integrator — the port of the reference package's
+core/integrator_wf.py in its default configuration: the block-bound pool
+with the free-running splat (``max_spp == 0``), the area light with MIS
+between implicit hits and NEE, no Russian roulette, no env map, no
+denoiser.
+
+A fixed pool of paths is an SoA of [num_tasks] tensors. Each segment runs
+two phases: ``wf_trace_phase`` (extension + shadow trace of the rays staged
+last segment under one shared sort) and ``wf_shade_phase`` (winner
+resolve, then ``wf_logic_phase``: implicit light hits with MIS, NEE
+resolve, the film splat of terminated paths, NEE generation, BSDF
+sampling and per-group pixel-ring raygen). Queues are masks; queue
+lengths are mask popcounts (``WfCounters``).
+
+The pool is partitioned into G groups of S lanes; group g renders the true
+pixels [g*P, g*P + len_g) through its own ring cursor, and its splats land
+in film block g (core/block_splat.py). Film and spp live in the padded
+[G*Pk] layout (``pad_pixels`` / ``unpad_pixels``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import bxdf_types as bx
+from .. import flags
+from ..bsdf import apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample
+from ..geom import RenderConfig, RenderParams
+from ..rng import burtle_hash, rand
+from ..sampling import pdf_area_to_solid_angle, sample_area_light
+from ..vec import Vec3, dot, is_zero, length, where as vwhere
+from . import block_splat as bs
+from .camera import generate_camera_rays
+from .integrator_mk import Film
+from .trace import (DeviceScene, tangent_space_normal, trace_extension,
+                    trace_pair)
+
+
+class WfPool(NamedTuple):
+    """Path pool SoA (GPUTaskState, geom.h:222-259) as [num_tasks] tensors.
+    Seeds are int64 holding uint32 values (rng.py)."""
+    orig: Vec3
+    dir: Vec3
+    shadow_orig: Vec3
+    shadow_dir: Vec3
+    T: Vec3
+    Ei: Vec3
+    last_bsdf: Vec3
+    last_emission: Vec3
+    last_T: Vec3
+    last_pdf_w: torch.Tensor
+    path_len: torch.Tensor       # int32; -1 = freshly reset (pre-birth)
+    seed: torch.Tensor
+    last_specular: torch.Tensor
+    shadow_blocked: torch.Tensor
+    shadow_pending: torch.Tensor
+    pixel_index: torch.Tensor
+    last_pdf_direct: torch.Tensor
+    last_pdf_implicit: torch.Tensor
+    last_cos_th: torch.Tensor
+    last_light_pick: torch.Tensor
+    shadow_len: torch.Tensor
+
+
+class WfState(NamedTuple):
+    pool: WfPool
+    film: Film
+    spp: torch.Tensor          # [G*Pk] int32 samples per padded pixel
+    curr_pixel: torch.Tensor   # [G] int32 ring cursor per group
+
+
+class WfCounters(NamedTuple):
+    """Queue-length analogue (geom.h:263-277); 0-dim int tensors."""
+    raygen: torch.Tensor
+    extension: torch.Tensor
+    shadow: torch.Tensor
+    splatted: torch.Tensor
+
+
+def _block_geom(config: RenderConfig):
+    """(P true pixels per group, Pk padded). Group g owns true pixels
+    [g*P, g*P + len_g)."""
+    p_true = -(-config.num_pixels // config.groups)
+    pk = -(-p_true // 128) * 128
+    return p_true, pk
+
+
+def padded_to_true_pid(config: RenderConfig, idx):
+    """Padded pixel index (group g, slot k -> g*Pk + k) to the true pixel
+    id (g*P + k)."""
+    p_true, pk = _block_geom(config)
+    return torch.div(idx, pk, rounding_mode="floor") * p_true \
+        + torch.remainder(idx, pk)
+
+
+def unpad_pixels(arr, config: RenderConfig):
+    """Padded per-pixel array [G*Pk(, C)] -> true layout [num_pixels(, C)]."""
+    p_true, pk = _block_geom(config)
+    g = arr.shape[0] // pk
+    tail = tuple(arr.shape[1:])
+    return arr.reshape((g, pk) + tail)[:, :p_true].reshape(
+        (g * p_true,) + tail)[:config.num_pixels]
+
+
+def pad_pixels(arr, config: RenderConfig, fill=0):
+    """True per-pixel array [num_pixels(, C)] -> padded block layout
+    [G*Pk(, C)] (inverse of unpad_pixels); ``fill`` lands in dead slots."""
+    p_true, pk = _block_geom(config)
+    g = config.groups
+    total = g * p_true
+    tail = tuple(arr.shape[1:])
+    if total > arr.shape[0]:
+        arr = torch.cat([arr, torch.full((total - arr.shape[0],) + tail,
+                                         fill, dtype=arr.dtype,
+                                         device=arr.device)])
+    m = arr.reshape((g, p_true) + tail)
+    pad = torch.full((g, pk - p_true) + tail, fill, dtype=arr.dtype,
+                     device=arr.device)
+    return torch.cat([m, pad], dim=1).reshape((g * pk,) + tail)
+
+
+def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0,
+             device="cpu") -> WfState:
+    """wf_reset.cl: clear film, reset pool, seed = lane id (salted by
+    FLT_SEED_SALT when set). path_len = -1 marks paths as pre-birth: the
+    first segment regenerates them without splatting. Padded dead pixels'
+    spp is parked at 2^29."""
+    config.block_plan(num_tasks)
+    n = num_tasks
+    salt = flags.env_int("SEED_SALT", 0)
+    seed0 = torch.arange(n, dtype=torch.int64, device=device)
+    if salt:
+        seed0 = burtle_hash(seed0 ^ ((salt * 0x9E3779B9) & 0xFFFFFFFF))
+    f32 = lambda v: torch.full((n,), v, dtype=torch.float32, device=device)
+    z = f32(0.0)
+    b = lambda v: torch.full((n,), v, dtype=torch.bool, device=device)
+    pool = WfPool(
+        orig=Vec3(z, z, z), dir=Vec3(z, z, f32(1.0)),
+        shadow_orig=Vec3(z, z, z), shadow_dir=Vec3(z, z, f32(1.0)),
+        T=Vec3.ones(n, device), Ei=Vec3.zeros(n, device),
+        last_bsdf=Vec3.zeros(n, device), last_emission=Vec3.zeros(n, device),
+        last_T=Vec3.zeros(n, device),
+        last_pdf_w=f32(1.0),
+        path_len=torch.full((n,), -1, dtype=torch.int32, device=device),
+        seed=seed0,
+        last_specular=b(True), shadow_blocked=b(True),
+        shadow_pending=b(False),
+        pixel_index=torch.zeros(n, dtype=torch.int32, device=device),
+        last_pdf_direct=z, last_pdf_implicit=z, last_cos_th=z,
+        last_light_pick=f32(1.0),
+        shadow_len=f32(2.0 * float(world_radius)))
+    p_true, pk = _block_geom(config)
+    npix = config.groups * pk
+    gi = torch.arange(npix, dtype=torch.int32, device=device) // pk
+    li = torch.arange(npix, dtype=torch.int32, device=device) % pk
+    live = li < torch.clamp(config.num_pixels - gi * p_true, 1, p_true)
+    spp0 = torch.where(live, 0, 1 << 29).to(torch.int32)
+    curr0 = torch.zeros(config.groups, dtype=torch.int32, device=device)
+    return WfState(pool=pool, film=Film.zeros(npix, device), spp=spp0,
+                   curr_pixel=curr0)
+
+
+def wf_state_from_numpy(st: dict, device="cpu") -> WfState:
+    """WfState from numpy arrays: ``{"pool": {field: array or (x, y, z)},
+    "film": {"color": (x, y, z), "weight": array}, "spp": array,
+    "curr_pixel": array}`` — e.g. the reference package's wf_reset state,
+    so both integrators can start from one state. uint32 seeds become
+    int64."""
+    def t(a):
+        a = np.asarray(a)
+        if a.dtype == np.uint32:
+            a = a.astype(np.int64)
+        return torch.from_numpy(np.array(a)).to(device)   # own copy
+
+    def v(x):
+        return Vec3(*(t(c) for c in x)) if isinstance(x, (tuple, list)) \
+            else t(x)
+    pool = WfPool(**{k: v(st["pool"][k]) for k in WfPool._fields})
+    film = Film(color=v(st["film"]["color"]), weight=t(st["film"]["weight"]))
+    return WfState(pool=pool, film=film, spp=t(st["spp"]).to(torch.int32),
+                   curr_pixel=t(st["curr_pixel"]).to(torch.int32))
+
+
+def wf_state_to_numpy(state: WfState) -> dict:
+    """Inverse of wf_state_from_numpy (seeds back to uint32)."""
+    n = lambda a: a.detach().cpu().numpy()
+    v = lambda x: tuple(n(c) for c in x) if isinstance(x, Vec3) else n(x)
+    pool = {k: v(getattr(state.pool, k)) for k in WfPool._fields}
+    pool["seed"] = pool["seed"].astype(np.uint32)
+    return dict(pool=pool,
+                film=dict(color=v(state.film.color),
+                          weight=n(state.film.weight)),
+                spp=n(state.spp), curr_pixel=n(state.curr_pixel))
+
+
+def wf_trace_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
+                   config: RenderConfig):
+    """Extension + shadow traces of the rays staged last segment
+    (wf_extrays.cl / wf_shadowrays.cl) under one shared sort. Non-pending
+    shadow lanes get tmax = 0. Returns (raw=(t, col), occluded)."""
+    shadow_tmax = torch.where(pool.shadow_pending, pool.shadow_len, 0.0)
+    return trace_pair(pool.orig, pool.dir, pool.shadow_orig,
+                      pool.shadow_dir, shadow_tmax, scene, params.area_light)
+
+
+def wf_resolve_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
+                     config: RenderConfig, raw):
+    """Winner-attribute resolve + hit construction. Returns (hit, sp)."""
+    return trace_extension(pool.orig, pool.dir, scene, params.area_light, raw)
+
+
+def wf_shade_phase(scene: DeviceScene, params: RenderParams, state: WfState,
+                   config: RenderConfig, raw, occluded):
+    """Resolve + logic, the second program of a segment."""
+    hit, sp = wf_resolve_phase(scene, state.pool, params, config, raw)
+    return wf_logic_phase(scene, params, state, config, hit, sp, occluded)
+
+
+def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
+                   config: RenderConfig, hit, sp, occluded):
+    """Logic + shading + NEE + material sampling + raygen + splat — the
+    post-trace half of the segment (wf_logic.cl onward). Returns
+    (state, counters)."""
+    cfg = config
+    pool = state.pool
+    n = pool.seed.shape[0]
+    dev = pool.seed.device
+    light = params.area_light
+    num_pixels = state.film.weight.shape[0]
+    p_true, pk_ = _block_geom(cfg)
+    g_local = num_pixels // pk_
+    s_ = n // g_local
+    lpid = pool.pixel_index
+    lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s_
+
+    seed = pool.seed
+    T = pool.T
+    Ei = pool.Ei
+
+    plen = pool.path_len + 1
+    shadow_blocked = torch.where(pool.shadow_pending, occluded, True)
+
+    # ---- LOGIC (wf_logic.cl) ---------------------------------------------
+    terminate = plen <= 0   # pre-birth paths regenerate without splatting
+    if cfg.max_bounces > 0:
+        terminate |= plen >= (cfg.max_bounces + 1)
+
+    terminate |= is_zero(T) | (pool.last_pdf_w == 0.0)
+    terminate |= hit.i < 0
+
+    # ---- implicit area light hit with MIS (wf_logic.cl:124-147) -----------
+    al = (hit.area_light_hit > 0) & ~terminate
+    pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
+    dist = length(hit.P - pool.orig)
+    pdf_w = pdf_area_to_solid_angle(pdf_a, dist, -dot(pool.dir, hit.N))
+    w_mis = pool.last_pdf_w / torch.clamp_min(
+        pool.last_pdf_w + pdf_w * pool.last_light_pick, 1e-30)
+    use_mis = (plen > 1) & ~pool.last_specular
+    mis_w = torch.where(use_mis, w_mis, 1.0)
+    Ei = vwhere(al, Ei + T * light.E * mis_w, Ei)
+    terminate |= al
+
+    # ---- NEE shadow-ray resolution (wf_logic.cl:149-168) ------------------
+    unblocked = ~shadow_blocked
+    denom = (pool.last_light_pick * pool.last_pdf_direct
+             + pool.last_pdf_implicit)
+    contrib = pool.last_bsdf * pool.last_T * pool.last_emission * (
+        pool.last_cos_th / torch.clamp_min(denom, 1e-30))
+    Ei = vwhere(unblocked, Ei + contrib, Ei)
+
+    # ---- splat terminated paths (wf_logic.cl:171-205) ---------------------
+    splat = terminate & (plen > 0)
+    film = state.film
+    data_t = torch.stack([torch.where(splat, Ei.x, 0.0),
+                          torch.where(splat, Ei.y, 0.0),
+                          torch.where(splat, Ei.z, 0.0),
+                          splat.to(torch.float32)], dim=0)
+    local_col = torch.where(splat, torch.remainder(lpid, pk_), -1).to(
+        torch.int32)
+    fmat = torch.stack([film.color.x, film.color.y, film.color.z,
+                        film.weight], dim=0)
+    new_mat = bs.splat(local_col, data_t, fmat, groups=g_local)
+    film = Film(color=Vec3(new_mat[0], new_mat[1], new_mat[2]),
+                weight=new_mat[3])
+
+    # ---- shading of surviving paths: NEE generation + material ------------
+    alive = ~terminate
+    sp = apply_textures(sp, hit.uv_u, hit.uv_v)
+
+    # implicit triangle emission (weight-1; emissive surfaces are never
+    # NEE-sampled as lights)
+    em = alive & (hit.i >= 0) & (sp.type == bx.BXDF_EMISSIVE)
+    Ei = vwhere(em, Ei + T * sp.Ke, Ei)
+
+    nrm = tangent_space_normal(hit)
+    backface = dot(nrm, pool.dir) > 0.0
+    nrm = vwhere(backface, -nrm, nrm)
+    nee_orig = hit.P - pool.dir * 1e-3
+
+    singular = (sp.type & bx.BXDF_SINGULAR_MASK) != 0
+
+    shadow_orig, shadow_dir = pool.shadow_orig, pool.shadow_dir
+    shadow_len = pool.shadow_len
+    l_pdf_direct, l_cos_th = pool.last_pdf_direct, pool.last_cos_th
+    l_pick, l_emission = pool.last_light_pick, pool.last_emission
+
+    # NEE toward the area light. The light-pick draw (env map vs area
+    # light, wf_logic.cl:249-251) is kept so the RNG sequence matches the
+    # reference; with no env map the area light is always picked.
+    do_nee = alive & ~singular
+    _, seed = rand(seed)
+    pdf_a, pos_l, seed = sample_area_light(light, seed)
+    Lv = pos_l - nee_orig
+    len0 = length(Lv)
+    inv_len = 1.0 / torch.clamp_min(len0, 1e-30)
+    Ln = Lv * inv_len
+    cos_light = torch.clamp_min(dot(light.N, -Lv), 0.0)
+    ok = do_nee & (cos_light > 0.0)
+    len_l = len0 * 0.995                    # wf_logic.cl:308
+    direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l, cos_light * inv_len)
+    cos_th = torch.clamp_min(dot(Ln, nrm), 0.0)
+    shadow_orig = vwhere(ok, nee_orig, shadow_orig)
+    shadow_dir = vwhere(ok, Ln, shadow_dir)
+    shadow_len = torch.where(ok, len_l, shadow_len)
+    l_pdf_direct = torch.where(ok, direct_pdf, l_pdf_direct)
+    l_cos_th = torch.where(ok, cos_th, l_cos_th)
+    l_pick = torch.where(ok, 1.0, l_pick)
+    l_emission = vwhere(ok, Vec3(light.E.x.expand(n), light.E.y.expand(n),
+                                 light.E.z.expand(n)), l_emission)
+    shadow_pending = ok
+
+    # ---- material phase (wf_mat_*.cl) -------------------------------------
+    nee_bsdf = bxdf_eval(nrm, sp, backface, pool.dir, shadow_dir,
+                         cfg.material_types)
+    nee_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, pool.dir,
+                                       shadow_dir, cfg.material_types), 0.0)
+    d_new, pdf_w, f, seed = bxdf_sample(nrm, sp, backface, pool.dir, seed,
+                                        cfg.material_types)
+    bad = (pdf_w == 0.0) | is_zero(f)
+    new_T = vwhere(bad, Vec3.zeros(n, dev),
+                   T * f * (dot(nrm, d_new) / torch.where(bad, 1.0, pdf_w)))
+    cont_orig = hit.P + d_new * 1e-4
+
+    # ---- RAYGEN for terminated paths (wf_raygen.cl): one ring per group --
+    term_i = terminate.to(torch.int32).view(g_local, s_)
+    rank2 = (torch.cumsum(term_i, dim=1) - term_i).to(torch.int32)
+    n_term_g = term_i.sum(dim=1).to(torch.int32)
+    n_regen = n_term_g.sum()
+    g_row = torch.arange(g_local, dtype=torch.int32, device=dev)
+    len_g = torch.clamp(cfg.num_pixels - g_row * p_true, 1, p_true)
+    new_l = torch.remainder(state.curr_pixel[:, None] + rank2,
+                            len_g[:, None])
+    new_pixel = (lane_g * pk_ + new_l.reshape(n)).to(torch.int32)
+    curr_out = torch.remainder(state.curr_pixel + n_term_g, len_g).to(
+        torch.int32)
+    pixel_index = torch.where(terminate, new_pixel, pool.pixel_index)
+    # camera rays address TRUE pixels
+    cam_pid = padded_to_true_pid(cfg, pixel_index)
+    cam_orig, cam_dir, seed = generate_camera_rays(
+        cam_pid, params.camera, cfg.width, cfg.height,
+        params.world_radius, seed)
+
+    # merge: terminated -> fresh camera path; alive -> continuation
+    ones3 = Vec3.ones(n, dev)
+    zeros3 = Vec3.zeros(n, dev)
+    orig = vwhere(terminate, cam_orig, cont_orig)
+    direc = vwhere(terminate, cam_dir, d_new)
+    T_out = vwhere(terminate, ones3, new_T)
+    Ei_out = vwhere(terminate, zeros3, Ei)
+    plen_out = torch.where(terminate, 0, plen).to(torch.int32)
+    last_pdf_w = torch.where(terminate, 1.0, pdf_w)
+    last_specular = torch.where(terminate, True, singular)
+    last_T = vwhere(terminate, zeros3, T)
+    shadow_pending &= ~terminate
+    l_pdf_direct = torch.where(terminate, 0.0, l_pdf_direct)
+    l_pdf_implicit = torch.where(terminate, 0.0, nee_pdf)
+    l_cos_th = torch.where(terminate, 0.0, l_cos_th)
+    l_pick = torch.where(terminate, 1.0, l_pick)
+    l_emission = vwhere(terminate, zeros3, l_emission)
+    nee_bsdf = vwhere(terminate, zeros3, nee_bsdf)
+
+    new_pool = WfPool(
+        orig=orig, dir=direc,
+        shadow_orig=shadow_orig, shadow_dir=shadow_dir,
+        T=T_out, Ei=Ei_out,
+        last_bsdf=nee_bsdf, last_emission=l_emission, last_T=last_T,
+        last_pdf_w=last_pdf_w, path_len=plen_out, seed=seed,
+        last_specular=last_specular,
+        shadow_blocked=torch.ones(n, dtype=torch.bool, device=dev),
+        shadow_pending=shadow_pending,
+        pixel_index=pixel_index,
+        last_pdf_direct=l_pdf_direct, last_pdf_implicit=l_pdf_implicit,
+        last_cos_th=l_cos_th, last_light_pick=l_pick,
+        shadow_len=shadow_len)
+
+    counters = WfCounters(
+        raygen=n_regen,
+        # all n lanes are traced each segment (ray counts compare like for
+        # like with the reference)
+        extension=torch.tensor(n, dtype=torch.int32, device=dev),
+        shadow=shadow_pending.sum(),
+        splatted=splat.sum())
+    new_state = WfState(pool=new_pool, film=film, spp=state.spp,
+                        curr_pixel=curr_out)
+    return new_state, counters

@@ -1,0 +1,107 @@
+"""Extension and shadow tracing with the cluster tables, the winner
+resolve, the implicit area-light intersection, and the conversion of the
+resolve matrix into hit records and shading parameters (the reference
+package's core/trace.py, MXU raw-hit path, wf_extrays.cl:16-35 and
+wf_shadowrays.cl:27-33)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..accel import mxu_trace as mt
+from ..bsdf import ShadingParams
+from ..geom import AreaLight, Hit
+from ..vec import Vec3, dot, normalize, where as vwhere
+
+F32_MAX = 3.4028235e38
+
+
+class DeviceScene(NamedTuple):
+    """Device-resident scene data: the cluster tables and the static OR of
+    the BXDF type bits present. The port has no texture atlas and no
+    environment map yet."""
+    mxu: mt.MXUSceneT
+    material_types: int
+
+
+def intersect_area_light(orig: Vec3, d: Vec3, light: AreaLight, t_prev):
+    """Quad light intersection for implicit hits (intersect.cl:124-155).
+    Returns (hit_mask, t). Backside hits rejected."""
+    denom = dot(d, light.N)
+    facing = denom < 0.0
+    t = dot(light.pos - orig, light.N) / torch.where(denom == 0.0, 1.0,
+                                                     denom)
+    p = orig + d * t
+    rel = p - light.pos
+    lx = dot(rel, light.right)
+    ly = dot(rel, light.up)
+    inside = (torch.abs(lx) <= light.size_x) & (torch.abs(ly) <= light.size_y)
+    hit = facing & (denom != 0.0) & inside & (t > 0.0) & (t < t_prev)
+    return hit, t
+
+
+def shading_from_attrs(row, col) -> ShadingParams:
+    """ShadingParams from the winner-resolve SoA matrix [ATTR_COLS, n]."""
+    g = lambda c: row[c]
+    v3 = lambda c: Vec3(row[c], row[c + 1], row[c + 2])
+    valid = col >= 0
+    i32 = torch.int32
+    rint = lambda c: torch.where(valid, torch.round(g(c)).to(i32), -1)
+    return ShadingParams(
+        Kd=v3(mt.ATTR_KD), Ks=v3(mt.ATTR_KS), Ke=v3(mt.ATTR_KE),
+        Kt=v3(mt.ATTR_KT), alpha=g(mt.ATTR_NS), Ni=g(mt.ATTR_NI),
+        d=g(mt.ATTR_D),
+        type=torch.where(valid, (g(mt.ATTR_TYPE) + 0.5).to(i32), 0),
+        map_N=rint(mt.ATTR_MAP_N), map_Kd=rint(mt.ATTR_MAP_KD),
+        map_Ks=rint(mt.ATTR_MAP_KS))
+
+
+def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
+                    area_light: AreaLight, raw):
+    """Hit record + shading parameters of the closest hits given by a
+    trace's raw (t, winner col), plus the implicit area-light quad
+    (wf_extrays.cl:26-29). Returns (Hit, ShadingParams)."""
+    t, col = raw
+    row = mt.resolve_hits_mxu(orig, d, t, col, scene.mxu)
+    t = torch.where(col >= 0, row[mt.ATTR_HITT], t)
+    nrm = Vec3(row[mt.ATTR_N], row[mt.ATTR_N + 1], row[mt.ATTR_N + 2])
+    mat_id = torch.where(col >= 0,
+                         (row[mt.ATTR_MAT] + 0.5).to(torch.int32), -1)
+    tri = torch.where(col >= 0, (row[mt.ATTR_TRI] + 0.5).to(torch.int32), -1)
+    hit = Hit(P=orig + d * t, N=normalize(nrm),
+              uv_u=row[mt.ATTR_UV], uv_v=row[mt.ATTR_UV + 1],
+              t=t, i=tri, area_light_hit=torch.zeros_like(tri),
+              mat_id=mat_id)
+    sp = shading_from_attrs(row, col)
+    l_hit, l_t = intersect_area_light(orig, d, area_light, hit.t)
+    shp = t.shape
+    hit = Hit(
+        P=vwhere(l_hit, orig + d * l_t, hit.P),
+        N=vwhere(l_hit, Vec3(area_light.N.x.expand(shp),
+                             area_light.N.y.expand(shp),
+                             area_light.N.z.expand(shp)), hit.N),
+        uv_u=hit.uv_u, uv_v=hit.uv_v,
+        t=torch.where(l_hit, l_t, hit.t),
+        i=torch.where(l_hit, 0, hit.i),            # intersect.cl:152
+        area_light_hit=torch.where(l_hit, 1, hit.area_light_hit),
+        mat_id=torch.where(l_hit, 0, hit.mat_id))  # intersect.cl:153
+    return hit, sp
+
+
+def trace_pair(orig: Vec3, d: Vec3, sorig: Vec3, sdir: Vec3, max_len,
+               scene: DeviceScene, area_light: AreaLight):
+    """Extension closest-hit + shadow occlusion under one shared coherence
+    sort (mxu_trace.trace_pair_mxu). Returns (raw=(t, col), occluded),
+    including the area-light body occlusion (wf_shadowrays.cl:27-33)."""
+    t, col, occ = mt.trace_pair_mxu(orig, d, sorig, sdir, max_len, scene.mxu)
+    l_hit, _ = intersect_area_light(sorig, sdir, area_light, max_len)
+    return (t, col), occ | l_hit
+
+
+def tangent_space_normal(hit: Hit) -> Vec3:
+    """Normal mapping (utils.cl:174-207). Normal maps are not ported yet
+    (scenes with textures are refused at load), so this is the reference's
+    empty-atlas branch: the interpolated normal (trace.py:241-242)."""
+    return hit.N

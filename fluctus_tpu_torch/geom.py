@@ -1,0 +1,129 @@
+"""Core geometry / parameter types (the reference's src/geom.h structs).
+
+``RenderConfig`` is the static, hashable part of the render parameters
+(the analogue of the reference's kernel -D defines); ``RenderParams`` holds
+the values (camera, light) as 0-dim float32 tensors on the render device,
+so every product with them rounds in float32 as in the reference package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+from .vec import Vec3
+
+
+def _f32(v, device):
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+class Camera(NamedTuple):
+    """Pinhole + thin-lens camera (geom.h:165-175)."""
+    pos: Vec3
+    dir: Vec3
+    up: Vec3
+    right: Vec3
+    fov: torch.Tensor            # degrees
+    fov_scale: torch.Tensor      # tan(fov/2 in rad)
+    aperture_size: torch.Tensor
+    focal_dist: torch.Tensor
+
+    @staticmethod
+    def make(pos, dir, up, right, fov=60.0, aperture_size=0.0,
+             focal_dist=0.5, device="cpu"):
+        return Camera(
+            pos=Vec3.of(*pos, device=device), dir=Vec3.of(*dir, device=device),
+            up=Vec3.of(*up, device=device),
+            right=Vec3.of(*right, device=device), fov=_f32(fov, device),
+            fov_scale=_f32(math.tan(math.radians(0.5 * float(fov))), device),
+            aperture_size=_f32(aperture_size, device),
+            focal_dist=_f32(focal_dist, device))
+
+
+class AreaLight(NamedTuple):
+    """Rectangular area light (geom.h:120-128). size_* are half extents."""
+    right: Vec3
+    up: Vec3
+    N: Vec3
+    pos: Vec3
+    E: Vec3
+    size_x: torch.Tensor
+    size_y: torch.Tensor
+
+    @staticmethod
+    def make(pos, N, right, up, E, size, device="cpu"):
+        v = lambda t: Vec3.of(*t, device=device)
+        return AreaLight(pos=v(pos), N=v(N), right=v(right), up=v(up),
+                         E=v(E), size_x=_f32(size[0], device),
+                         size_y=_f32(size[1], device))
+
+
+class PostProcessParams(NamedTuple):
+    exposure: torch.Tensor
+    tm_operator: int  # 0 linear, 1 reinhard, 2 uncharted2, 3 raw
+
+
+class RenderParams(NamedTuple):
+    """Dynamic render parameters (geom.h:183-203, value part)."""
+    camera: Camera
+    area_light: AreaLight
+    world_radius: torch.Tensor
+    pp: PostProcessParams
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render flags plus film geometry (the reference's kernel
+    defines). The port renders the reference's default configuration: the
+    block-bound pool with the free-running splat, the area light, implicit
+    and explicit light sampling, no Russian roulette, no env map and no
+    denoiser; those switches are not ported yet."""
+    width: int
+    height: int
+    max_bounces: int = 4
+    material_types: int = 0         # OR of BXDF type bits present in scene
+    # block-bound wavefront pool: `groups` groups of pool lanes, each bound
+    # to one contiguous pixel block with its own raygen ring
+    groups: int = 1024
+
+    def block_plan(self, num_tasks: int):
+        from .core.block_splat import plan
+        return plan(self.num_pixels, num_tasks, self.groups)
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+    def replace(self, **kw) -> "RenderConfig":
+        return dataclasses.replace(self, **kw)
+
+
+class Hit(NamedTuple):
+    """Closest-hit record (geom.h:152-161), SoA over a ray batch."""
+    P: Vec3
+    N: Vec3
+    uv_u: torch.Tensor
+    uv_v: torch.Tensor
+    t: torch.Tensor
+    i: torch.Tensor               # triangle index, -1 = miss
+    area_light_hit: torch.Tensor  # int32 0/1
+    mat_id: torch.Tensor
+
+
+class MaterialsSoA(NamedTuple):
+    """Device form of the material table (geom.h:130-143)."""
+    Kd: Vec3
+    Ks: Vec3
+    Ke: Vec3
+    Kt: Vec3
+    Ns: torch.Tensor      # GGX alpha after the toRoughness remap
+    Ni: torch.Tensor
+    d: torch.Tensor       # dissolve
+    map_Kd: torch.Tensor  # int32 texture idx, -1 = none
+    map_Ks: torch.Tensor
+    map_N: torch.Tensor
+    type: torch.Tensor    # int32 BXDF bits

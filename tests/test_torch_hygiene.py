@@ -1,0 +1,92 @@
+"""Boundaries of the PyTorch port: it imports neither JAX nor the JAX
+package, its renderer needs CUDA unless asked for the CPU, and its kernel
+wrappers take the plain version for CPU tensors only."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+# one intra-op thread: the suite runs several test processes at once,
+# and torch's default thread pool per process oversubscribes the cores
+torch.set_num_threads(1)
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PKG = os.path.join(ROOT, "fluctus_tpu_torch")
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import fluctus_tpu_torch
+for m in pkgutil.walk_packages(fluctus_tpu_torch.__path__,
+                               "fluctus_tpu_torch."):
+    importlib.import_module(m.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes",
+                                    "fluctus_tpu"))
+print(len([m for m in sys.modules if m.startswith("fluctus_tpu_torch")]))
+print("bad:" + ",".join(bad))
+"""
+
+
+def test_import_leaves_out_jax():
+    """Importing the package and every submodule, in a fresh interpreter
+    (this process already holds JAX), loads no jax, jaxlib, ml_dtypes or
+    fluctus_tpu module."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True, check=True,
+                         timeout=300)
+    count, bad = out.stdout.strip().splitlines()
+    assert int(count) >= 20
+    assert bad == "bad:"
+
+
+def test_source_scan():
+    """No source of the port (nor chip_smoke.py) names the JAX package or
+    imports JAX."""
+    pat = re.compile(r"fluctus_tpu\.|from fluctus_tpu\b|import fluctus_tpu\b"
+                     r"|import jax|from jax|import ml_dtypes")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh"))]
+    assert len(files) > 20
+    for f in files:
+        with open(f) as fh:
+            for no, line in enumerate(fh, 1):
+                assert not pat.search(line), f"{f}:{no}: {line.strip()}"
+
+
+def test_renderer_requires_cuda(monkeypatch):
+    """Without CUDA the renderer raises unless the caller asks for the
+    CPU; there is no silent fallback."""
+    from fluctus_tpu_torch.renderer import Renderer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Renderer(16, 16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Renderer(16, 16, device="cuda")
+    assert Renderer(16, 16, device="cpu").device.type == "cpu"
+
+
+def test_wrappers_route_by_device():
+    """CPU tensors run the plain version (counted as such, no launch);
+    tensors on any other non-CUDA device are refused."""
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core import block_splat as bs
+    kb.reset_counts()
+    local = torch.tensor([0, -1, 1, 0], dtype=torch.int32)
+    data = torch.ones((4, 4))
+    film = torch.zeros((4, 2 * 128))
+    out = bs.splat(local, data, film, groups=2)
+    assert out[3, 0] == 1.0 and out[3, 1] == 0.0 and out[3, 128] == 1.0
+    assert bs.K4.plain_runs == 1 and bs.K4.launches == 0
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        bs.splat(local.to("meta"), data.to("meta"), film.to("meta"),
+                 groups=2)
+    assert set(kb.KERNELS) >= {"tile_order", "trace_rol", "resolve_v5",
+                               "block_splat"}
