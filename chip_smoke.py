@@ -6,14 +6,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    every kernel of csrc/ built from source in parallel.
-2. kernel vs plain: the inputs K1-K4 receive on the main path (luxball
-   tables, the 1M camera rays of the second segment and the bounce rays of
-   the fourth, as the pair trace sorts them) go through each kernel and
-   through its plain PyTorch version on the card; the outputs are held to
-   the stated tolerances and both are timed (CUDA events, median), with
-   one PyTorch library call computing the same function as a yardstick
-   where one exists.
-3. main path: Renderer(1920, 1080) on luxball with a 1M-path pool, 2
+2. kernel vs plain: the inputs K1-K4 receive on the luxball path (the 1M
+   camera rays of the second segment and the bounce rays of the fourth, as
+   the pair trace sorts them) go through each kernel and through its plain
+   PyTorch version on the card; the outputs are held to the stated
+   tolerances and both are timed (CUDA events, median), with one PyTorch
+   library call computing the same function as a yardstick where one
+   exists.
+3. luxball path: Renderer(1920, 1080) on luxball with a 1M-path pool, 2
    warm-up segments, a fresh pool, then SEGMENTS timed segments; Mrays/s
    (primary + extension + shadow rays, as bench.py counts them),
    ms/segment, peak memory; every kernel's launch count must equal
@@ -24,6 +24,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4. whole-path parity: 4 segments at 256x144 with 64k paths through the
    kernels and, from the same reset, through the plain versions on the
    card.
+2b, 3b, 4b: the same three phases on the large-scene path: the 8x8
+   luxball grid (361,088 triangles, 2,056 clusters, past both tier
+   switches), so each segment runs K1 over superclusters, K5 twice, K6
+   and K4. 2b holds K1, K5 (both modes) and K6 to their plain versions
+   and times K3 on K6's inputs; 3b times LARGE_SEGMENTS segments and
+   checks the primary-hit share.
 5. the kernels line, the card line, then the final result line.
 
 Prints nothing of the result and exits non-zero without CUDA or without
@@ -38,19 +44,32 @@ import sys
 import time
 
 SEGMENTS = 24
+LARGE_SEGMENTS = 12
 LUXBALL = "data/luxball/luxball.obj"
+LARGE = "fluctus_tpu_torch/scenes/luxball_grid_8x8.sc.json"
+# camera (pos, dir) and area light (pos, half size); N (0,-1,0), E 50
+VIEWS = {LUXBALL: ((0.0, 1.6, 4.5), (0.0, -0.12, -1.0), (0, 4, 0),
+                   (0.5, 0.5)),
+         LARGE: ((0.0, 34.0, 48.0), (0.0, -1.0, -1.0), (0, 20, 0),
+                 (6.0, 6.0))}
 PEAK_FP32 = 67e12          # H100 SXM FP32 (non-tensor) FLOP/s, data sheet
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s, data sheet
 PER_SEGMENT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
-               "block_splat": 1}
+               "block_splat": 1, "trace_rol_sc": 0, "resolve_v5s": 0}
+PER_SEGMENT_LARGE = {"tile_order": 2, "trace_rol_sc": 2, "resolve_v5s": 1,
+                     "block_splat": 1, "trace_rol": 0, "resolve_v5": 0}
 SOURCES = {"tile_order": "fluctus_tpu_torch/csrc/tile_order.cu",
            "trace_rol": "fluctus_tpu_torch/csrc/trace_rol.cu",
            "resolve_v5": "fluctus_tpu_torch/csrc/resolve_v5.cu",
-           "block_splat": "fluctus_tpu_torch/csrc/block_splat.cu"}
+           "block_splat": "fluctus_tpu_torch/csrc/block_splat.cu",
+           "trace_rol_sc": "fluctus_tpu_torch/csrc/trace_rol_sc.cu",
+           "resolve_v5s": "fluctus_tpu_torch/csrc/resolve_v5s.cu"}
 REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "trace_rol": "fluctus_tpu/accel/mxu_trace.py:736",
             "resolve_v5": "fluctus_tpu/accel/mxu_trace.py:1745",
-            "block_splat": "fluctus_tpu/core/block_splat.py:103"}
+            "block_splat": "fluctus_tpu/core/block_splat.py:103",
+            "trace_rol_sc": "fluctus_tpu/accel/mxu_trace.py:832",
+            "resolve_v5s": "fluctus_tpu/accel/mxu_trace.py:1894"}
 
 
 def emit(obj):
@@ -65,19 +84,21 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def make_renderer(width, height, device):
-    """The main path's renderer: luxball with the camera of
-    tools/make_goldens.py and an area light above the ball."""
+def make_renderer(width, height, device, scene=LUXBALL):
+    """A main path's renderer: luxball with the camera of
+    tools/make_goldens.py and an area light above the ball, or the 8x8
+    grid seen from above its near edge with a 12x12 light over its
+    centre."""
     from fluctus_tpu_torch.renderer import Renderer
     from fluctus_tpu_torch.settings import Settings
+    pos, dir_, lpos, lsize = VIEWS[scene]
     s = Settings()
-    s.camera.pos = (0.0, 1.6, 4.5)
-    s.camera.dir = (0.0, -0.12, -1.0)
+    s.camera.pos, s.camera.dir = pos, dir_
     a = s.area_light
-    a.pos, a.N, a.right, a.up = (0, 4, 0), (0, -1, 0), (1, 0, 0), (0, 0, 1)
-    a.E, a.size = (50.0, 50.0, 50.0), (0.5, 0.5)
+    a.pos, a.N, a.right, a.up = lpos, (0, -1, 0), (1, 0, 0), (0, 0, 1)
+    a.E, a.size = (50.0, 50.0, 50.0), lsize
     r = Renderer(width, height, settings=s, device=device)
-    r.load_scene(LUXBALL)
+    r.load_scene(scene)
     return r
 
 
@@ -89,7 +110,8 @@ class Recorder:
         from fluctus_tpu_torch.accel import mxu_trace as mt
         from fluctus_tpu_torch.core import block_splat as bs
         self.targets = [(mt, "tile_order"), (mt, "trace_rol"),
-                        (mt, "resolve_v5"), (bs, "splat")]
+                        (mt, "resolve_v5"), (bs, "splat"),
+                        (mt, "trace_rol_sc"), (mt, "resolve_v5s")]
         self.calls = {}
         self.active = None
 
@@ -120,7 +142,9 @@ def plain_versions():
     swaps = [(mt, "tile_order", mt.tile_order_plain),
              (mt, "trace_rol", mt.trace_rol_plain),
              (mt, "resolve_v5", mt.resolve_v5_plain),
-             (bs, "splat", bs.splat_plain)]
+             (bs, "splat", bs.splat_plain),
+             (mt, "trace_rol_sc", mt.trace_rol_sc_plain),
+             (mt, "resolve_v5s", mt.resolve_v5s_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -158,27 +182,21 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def trace_plain_chunked(mt, rays, tm, order, cons, t12, boxes, ncl, tc,
-                        any_hit, chunk=256):
-    """K2's plain version over all tiles, a chunk of tiles at a time (the
-    tiles are independent; this bounds the [tiles, tc, rt] temporaries)."""
+def trace_plain_chunked(plain, rays, tm, order, cons, *rest, chunk=256):
+    """A trace kernel's plain version over all tiles, a chunk of tiles at a
+    time (the tiles are independent; this bounds the [tiles, tc, rt]
+    temporaries)."""
     import torch
-    outs = [mt.trace_rol_plain(rays[k:k + chunk], tm[k:k + chunk],
-                               order[k:k + chunk], cons[k:k + chunk], t12,
-                               boxes, ncl, tc, any_hit)
+    outs = [plain(rays[k:k + chunk], tm[k:k + chunk], order[k:k + chunk],
+                  cons[k:k + chunk], *rest)
             for k in range(0, rays.shape[0], chunk)]
     return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
 
 
-def phase_kernels(r, rec_calls):
-    """Phase 2: every recorded kernel call vs its plain version."""
+def check_tile_order(mt, rec_calls):
+    """K1 vs plain on every recorded call of segments 2 and 4 (cons and
+    the sorted order equal); returns the timing dict of segment 4's."""
     import torch
-    from fluctus_tpu_torch.accel import mxu_trace as mt
-    from fluctus_tpu_torch.core import block_splat as bs
-    res = {}
-
-    # K1: tile order
-    worst = 0.0
     for seg in (2, 4):
         for args, _ in rec_calls[(seg, "tile_order")]:
             rays, tm, boxes = args
@@ -194,67 +212,100 @@ def phase_kernels(r, rec_calls):
     ncl = boxes.shape[0]
     cons = mt.tile_order(rays, tm, boxes)
     b_ms, b_by = bound(nt * ncl * rt * 25, nbytes(rays, tm, boxes, cons))
-    res["tile_order"] = dict(
-        max_abs_err=worst, ms=time_ms(lambda: mt.tile_order(rays, tm, boxes)),
+    return dict(
+        max_abs_err=0.0, ms=time_ms(lambda: mt.tile_order(rays, tm, boxes)),
         plain_ms=time_ms(lambda: mt.tile_order_plain(rays, tm, boxes), 3, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"{nt} tiles x {rt} rays x {ncl} clusters")
+        shape=f"{nt} tiles x {rt} rays x {ncl} boxes")
 
-    # K2: trace, closest (extension) and any-hit (shadow) calls
-    worst = 0.0
-    agree = []
-    k2 = []
+
+def check_trace(name, kernel, plain, rec_calls, chunk):
+    """A trace kernel vs its plain version on every recorded call of
+    segments 2 and 4: winner columns / verdicts equal on >= 0.9999 of the
+    rays (1.0 expected), t equal where they agree, visit counts equal.
+    Returns (timing dict of segment 4's closest-hit call, segment 2's
+    closest-hit kernel output)."""
+    import torch
+    worst, agree, calls, seg2 = 0.0, [], [], None
     for seg in (2, 4):
-        for args, _ in rec_calls[(seg, "trace_rol")]:
-            got = mt.trace_rol(*args)
-            ref = trace_plain_chunked(mt, *args)
+        for args, _ in rec_calls[(seg, name)]:
+            got = kernel(*args)
+            ref = trace_plain_chunked(plain, *args, chunk=chunk)
             same = got[1] == ref[1]
             frac = float(same.float().mean())
             agree.append(frac)
             if frac < 0.9999:
-                raise AssertionError(f"K2 col agreement {frac} (segment {seg},"
-                                     f" any_hit={args[-1]})")
+                raise AssertionError(f"{name} col agreement {frac} (segment "
+                                     f"{seg}, any_hit={args[-1]})")
             if not torch.equal(got[2], ref[2]):
-                raise AssertionError(f"K2 visit counts differ (segment {seg})")
+                raise AssertionError(f"{name} visit counts differ (segment "
+                                     f"{seg})")
             worst = max(worst, float((got[0] - ref[0])[same].abs().max()))
-            k2.append((seg, args, int(got[2].sum())))
-    seg, args, visits = k2[-2]          # segment 4, closest-hit
-    rays, tm, order, cons_, t12, boxes, ncl_, tc, _ = args
+            calls.append((seg, args, int(got[2].sum())))
+            if seg == 2 and not args[-1]:
+                seg2 = got
+    seg, args, visits = calls[-2]          # segment 4, closest-hit
+    rays, order, tc = args[0], args[2], args[-2]
     nt, _, rt = rays.shape
-    b_ms, b_by = bound(visits * tc * rt * 30,
-                       nbytes(rays, tm, order, cons_, t12, boxes) +
-                       nt * rt * 8)
-    res["trace_rol"] = dict(
-        max_abs_err=worst, ms=time_ms(lambda: mt.trace_rol(*args)),
-        plain_ms=time_ms(lambda: trace_plain_chunked(mt, *args), 2, 1),
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    b_ms, b_by = bound(visits * tc * rt * 30, nbytes(*tensors) + nt * rt * 8)
+    return dict(
+        max_abs_err=worst, ms=time_ms(lambda: kernel(*args)),
+        plain_ms=time_ms(lambda: trace_plain_chunked(plain, *args,
+                                                     chunk=chunk), 2, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         col_agreement_min=min(agree), visited_clusters=visits,
-        shape=f"{nt} tiles x {rt} rays, closest-hit, bounce rays")
+        shape=f"{nt} tiles x {rt} rays x {order.shape[1]} candidates, "
+              "closest-hit, bounce rays"), seg2
 
-    # K3: resolve
+
+def check_resolve(name, kernel, plain, rec_calls):
+    """A resolve kernel vs its plain version on every recorded call of
+    segments 2 and 4: integer rows equal, floats rtol 1e-6. Returns the
+    timing dict of segment 4's call and its arguments."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
     worst = 0.0
     ints = [mt.ATTR_MAT, mt.ATTR_TYPE, mt.ATTR_MAP_KD, mt.ATTR_MAP_KS,
             mt.ATTR_MAP_N, mt.ATTR_TRI]
     for seg in (2, 4):
-        for args, _ in rec_calls[(seg, "resolve_v5")]:
-            got = mt.resolve_v5(*args)
-            ref = mt.resolve_v5_plain(*args)
+        for args, _ in rec_calls[(seg, name)]:
+            got = kernel(*args)
+            ref = plain(*args)
             if not torch.equal(got[ints], ref[ints]):
-                raise AssertionError(f"K3 integer rows differ (segment {seg})")
+                raise AssertionError(f"{name} integer rows differ (segment "
+                                     f"{seg})")
             torch.testing.assert_close(got, ref, rtol=1e-6, atol=0.0)
             worst = max(worst, float((got - ref).abs().max()))
-    args = rec_calls[(4, "resolve_v5")][0][0]
+    args = rec_calls[(4, name)][0][0]
     col, o4, d4, b16r, t16r = args
     b = col.shape[0]
     safe = col.clamp_min(0)
-    b_ms, b_by = bound(b * 60, b * (4 + 32 + 160) + nbytes(b16r, t16r))
-    res["resolve_v5"] = dict(
-        max_abs_err=worst, ms=time_ms(lambda: mt.resolve_v5(*args)),
-        plain_ms=time_ms(lambda: mt.resolve_v5_plain(*args), 3, 1),
+    hit = col >= 0
+    winners = int(torch.unique(col[hit]).numel())
+    # each input read once: the column, the rays, every distinct winner's
+    # B16 row and transform row; the [40, b] output written once
+    b_ms, b_by = bound(b * 60, b * (4 + 32 + 160) + winners * (256 + 64))
+    return dict(
+        max_abs_err=worst, ms=time_ms(lambda: kernel(*args)),
+        plain_ms=time_ms(lambda: plain(*args), 3, 1),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.index_select(b16r, 0, safe)),
         library_call="torch.index_select of the winners' B16 rows",
-        shape=f"{b} rays, {int((col >= 0).sum())} hits")
+        shape=f"{b} rays, {int(hit.sum())} hits, {winners} distinct "
+              f"winners, table {b16r.shape[0]} rows"), args
+
+
+def phase_kernels(r, rec_calls):
+    """Phase 2: every recorded kernel call vs its plain version."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    from fluctus_tpu_torch.core import block_splat as bs
+    res = {"tile_order": check_tile_order(mt, rec_calls)}
+    res["trace_rol"], _ = check_trace("trace_rol", mt.trace_rol,
+                                      mt.trace_rol_plain, rec_calls, 256)
+    res["resolve_v5"], _ = check_resolve("resolve_v5", mt.resolve_v5,
+                                         mt.resolve_v5_plain, rec_calls)
 
     # K4: splat
     worst = 0.0
@@ -290,8 +341,27 @@ def phase_kernels(r, rec_calls):
     return res
 
 
-def phase_main(r, card):
-    """Phase 3: the main path at 1080p with 1M paths."""
+def phase_kernels_large(r, rec_calls):
+    """Phase 2b: the large path's recorded K1 (over superclusters), K5 and
+    K6 calls vs their plain versions; K3 timed on K6's inputs. Returns
+    (results, primary-hit share of segment 2's camera rays)."""
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    res = {"tile_order": check_tile_order(mt, rec_calls)}
+    res["trace_rol_sc"], seg2 = check_trace(
+        "trace_rol_sc", mt.trace_rol_sc, mt.trace_rol_sc_plain, rec_calls,
+        512)
+    res["resolve_v5s"], args = check_resolve(
+        "resolve_v5s", mt.resolve_v5s, mt.resolve_v5s_plain, rec_calls)
+    res["resolve_v5_on_large"] = dict(
+        ms=time_ms(lambda: mt.resolve_v5(*args)),
+        shape=res["resolve_v5s"]["shape"])
+    # segment 2 traces the camera rays of every lane (segment 1 gives each
+    # pre-birth lane its first camera ray)
+    return res, float((seg2[1] >= 0).float().mean())
+
+
+def phase_main(r, card, scene, segments, per_segment, extra=None):
+    """Phase 3 / 3b: a main path at 1080p with 1M paths."""
     import torch
     from fluctus_tpu_torch import kernel_build as kb
     r.init_wavefront(1 << 20)
@@ -301,7 +371,7 @@ def phase_main(r, card):
     torch.cuda.reset_peak_memory_stats()
     kb.reset_counts()
     t0 = time.perf_counter()
-    r.render_wavefront(SEGMENTS)          # ends in torch.cuda.synchronize
+    r.render_wavefront(segments)          # ends in torch.cuda.synchronize
     elapsed = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kb.KERNELS.values()}
     plain = {k.name: k.plain_runs for k in kb.KERNELS.values()}
@@ -312,21 +382,21 @@ def phase_main(r, card):
                   and torch.isfinite(film.color.y).all()
                   and torch.isfinite(film.color.z).all())
     covered = float((film.weight > 0).float().mean())
-    out = dict(phase="main_path", scene=LUXBALL, width=r.width,
-               height=r.height, paths=1 << 20, segments=SEGMENTS,
+    out = dict(phase="main_path", scene=scene, width=r.width,
+               height=r.height, paths=1 << 20, segments=segments,
                seconds=elapsed, mrays_per_s=rays / elapsed / 1e6,
-               ms_per_segment=elapsed / SEGMENTS * 1e3,
+               ms_per_segment=elapsed / segments * 1e3,
                peak_mem_bytes=torch.cuda.max_memory_allocated(),
                rays=dict(primary=st.primary_rays,
                          extension=st.extension_rays,
                          shadow=st.shadow_rays, samples=st.samples),
                launches=launches, plain_runs=plain, film_finite=finite,
-               pixels_covered=covered, card=card)
+               pixels_covered=covered, card=card, **(extra or {}))
     emit(out)
-    for name, per in PER_SEGMENT.items():
-        if launches.get(name) != per * SEGMENTS:
+    for name, per in per_segment.items():
+        if launches.get(name) != per * segments:
             raise AssertionError(f"{name}: {launches.get(name)} launches, "
-                                 f"expected {per * SEGMENTS}")
+                                 f"expected {per * segments}")
     if any(plain.values()):
         raise AssertionError(f"a plain version ran on the main path: {plain}")
     if not finite or covered < 0.99:
@@ -338,13 +408,24 @@ def phase_main(r, card):
 def profile_segments(r, card, ms_per_segment, n=2):
     """Device time by kernel over n more segments (torch.profiler, CUPTI):
     where a segment's time goes. The busy share divides the device time
-    per segment by phase 3's unprofiled wall time per segment."""
+    per segment by the timed run's unprofiled wall time per segment; the
+    profiled segments' own wall time (profiler overhead included) stands
+    beside it, since later segments of a pool can cost more than the
+    timed run's average. The kernels' own launch counts over the same
+    segments stand beside the profiler's call counts, which show any
+    events the profiler lost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from fluctus_tpu_torch import kernel_build as kb
     torch.cuda.synchronize()
+    kb.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        r.render_wavefront(n)
+        t0 = time.perf_counter()
+        r.render_wavefront(n)             # ends in torch.cuda.synchronize
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    launches = {k.name: k.launches / n for k in kb.KERNELS.values()
+                if k.launches}
     rows = []
     for e in prof.key_averages():
         dt = getattr(e, "self_device_time_total", 0) or 0
@@ -355,27 +436,31 @@ def profile_segments(r, card, ms_per_segment, n=2):
     emit(dict(phase="profile", segments=n, card=card,
               device_ms_per_segment=dev_ms,
               device_busy_share=dev_ms / ms_per_segment,
+              profiled_wall_ms_per_segment=wall_ms,
+              launches_per_segment=launches,
               top=[dict(name=k[:90], us_per_segment=dt / n,
                         calls_per_segment=c / n)
                    for dt, k, c in rows[:14]]))
 
 
-def phase_parity(width=256, height=144, paths=1 << 16, device="cuda"):
-    """Phase 4: 4 segments through the kernels and through the plain
+def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
+                 device="cuda"):
+    """Phase 4 / 4b: 4 segments through the kernels and through the plain
     versions on the card, from the same reset."""
     import torch
     runs = []
     for use_plain in (False, True):
         undo = plain_versions() if use_plain else (lambda: None)
         try:
-            r = make_renderer(width, height, device)
+            r = make_renderer(width, height, device, scene)
             r.init_wavefront(paths)
             r.render_wavefront(4)
             runs.append((r._wf_state, r.wavefront_stats()))
         finally:
             undo()
     (a, sa), (b, sb) = runs
-    out = dict(phase="parity", width=width, height=height, paths=paths,
+    out = dict(phase="parity", scene=scene, width=width, height=height,
+               paths=paths,
                segments=4, counters_kernel=list(sa), counters_plain=list(sb))
     for name in ("pixel_index", "seed", "path_len"):
         frac = float((getattr(a.pool, name) == getattr(b.pool, name))
@@ -391,6 +476,34 @@ def phase_parity(width=256, height=144, paths=1 << 16, device="cuda"):
     if sa != sb:
         raise AssertionError(f"parity: counters {sa} != {sb}")
     torch.testing.assert_close(fa, fb, rtol=1e-4, atol=1e-6)
+
+
+def kernels_line(kres, launches):
+    """One entry per ported kernel: its checks and times from phase 2 (K1-K4,
+    luxball) or 2b (K5, K6), and its launches summed over the two main-path
+    runs (each counted from 0)."""
+    out = []
+    for name in SOURCES:
+        k = kres[name]
+        out.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+            bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            library_ms=k["library_ms"]))
+    return {"kernels": out}
+
+
+def record_segments(r):
+    """Segments 1-4 from a fresh 1M-path pool, the kernel wrappers'
+    arguments recorded in segments 2 and 4."""
+    with Recorder() as rec:
+        r.init_wavefront(1 << 20)
+        for seg in range(1, 5):
+            rec.active = seg if seg in (2, 4) else None
+            r.render_wavefront(1)
+        rec.active = None
+    return rec.calls
 
 
 def main():
@@ -414,39 +527,52 @@ def main():
               ptxas=regs, device=torch.cuda.get_device_name(0), card=card,
               torch=torch.__version__, cuda=torch.version.cuda))
 
-    # phase 2: kernels vs plain on the main path's inputs
+    # phase 2: kernels vs plain on the luxball path's inputs
     r = make_renderer(1920, 1080, "cuda")
-    with Recorder() as rec:
-        r.init_wavefront(1 << 20)
-        for seg in range(1, 5):
-            rec.active = seg if seg in (2, 4) else None
-            r.render_wavefront(1)
-        rec.active = None
-    kres = phase_kernels(r, rec.calls)
-    del rec
-    emit(dict(phase="kernels_vs_plain", card=card, **{
-        k: {kk: vv for kk, vv in v.items()} for k, v in kres.items()}))
+    kres = phase_kernels(r, record_segments(r))
+    emit(dict(phase="kernels_vs_plain", card=card, scene=LUXBALL, **kres))
 
-    # phase 3: main path, then a profiled look at two more segments
-    launches, main = phase_main(r, card)
+    # phase 3: luxball path, then a profiled look at two more segments
+    launches, main = phase_main(r, card, LUXBALL, SEGMENTS, PER_SEGMENT)
     profile_segments(r, card, main["ms_per_segment"])
     del r
     torch.cuda.empty_cache()
 
     # phase 4: whole-path parity, kernels vs plain versions
-    phase_parity()
+    phase_parity(LUXBALL)
+
+    # phase 2b: the large path's kernels vs plain
+    t0 = time.perf_counter()
+    r = make_renderer(1920, 1080, "cuda", LARGE)
+    host_s = time.perf_counter() - t0
+    sc = r.device_scene.mxu
+    scene_info = dict(triangles=r.scene.num_triangles,
+                      n_clusters=sc.n_clusters,
+                      n_superclusters=sc.n_superclusters,
+                      host_seconds=host_s, host_steps=r.load_seconds)
+    kres_l, primary_hit = phase_kernels_large(r, record_segments(r))
+    emit(dict(phase="kernels_vs_plain", card=card, scene=LARGE, **scene_info,
+              **{k: v for k, v in kres_l.items() if k != "tile_order"},
+              tile_order_on_supers=kres_l["tile_order"]))
+    kres.update(trace_rol_sc=kres_l["trace_rol_sc"],
+                resolve_v5s=kres_l["resolve_v5s"])
+
+    # phase 3b: the large path
+    launches_l, main_l = phase_main(
+        r, card, LARGE, LARGE_SEGMENTS, PER_SEGMENT_LARGE,
+        extra=dict(scene_info, primary_hit_share=primary_hit))
+    if primary_hit < 0.9:
+        raise AssertionError(f"primary-hit share {primary_hit} < 0.9")
+    profile_segments(r, card, main_l["ms_per_segment"])
+    del r
+    torch.cuda.empty_cache()
+
+    # phase 4b: whole-path parity on the large path
+    phase_parity(LARGE)
 
     # phase 5: result lines
-    kernels = []
-    for name in PER_SEGMENT:
-        k = kres[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
-            bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-            library_ms=k["library_ms"]))
-    emit({"kernels": kernels})
+    emit(kernels_line(kres, {k: launches[k] + launches_l[k]
+                             for k in SOURCES}))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

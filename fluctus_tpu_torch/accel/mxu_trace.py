@@ -1,22 +1,27 @@
 """Cluster-table ray tracing: the port of the reference package's
-accel/mxu_trace.py (flat rays-on-lanes tier and resident-table resolve).
+accel/mxu_trace.py (the rays-on-lanes trace tiers and the B16 resolve).
 
 Triangles are cut into clusters of ``cluster_size`` (the subtrees of a SAH
 BVH cut at that many refs). Each triangle carries the affine map that
 takes world points to its unit right triangle: for a ray (o, d),
 t = -o'_w / d'_w, u = o'_u + t d'_u, v = o'_v + t d'_v, hit iff t > 0,
 u, v >= 0, u + v <= 1. Rays are sorted by a coherence key and cut into
-tiles; each tile gets a private front-to-back candidate cluster list
-(K1 + a stable sort), walked by the trace kernel (K2) with per-ray t_best
-pruning and a tile-level early-out. A resolve kernel (K3) turns the winner
+tiles; each tile gets a private front-to-back candidate list (K1 + a
+stable sort), walked by the trace kernel with per-ray t_best pruning and a
+tile-level early-out. Up to SC_THRESHOLD clusters the list holds clusters
+(K2); past it, superclusters of up to SC_CLUSTERS clusters, each of whose
+members is culled on its own (K5). A resolve kernel turns the winner
 column into exact t/u/v, interpolated vertex attributes and the baked
-material parameters.
+material parameters: K3, or K6 once the tables pass the reference's
+48 MiB resident budget.
 
 Kernels (each launched on CUDA tensors; its plain PyTorch twin runs on CPU
 tensors):
-  K1 ``tile_order``  csrc/tile_order.cu  (ref _tile_order_kernel)
-  K2 ``trace_rol``   csrc/trace_rol.cu   (ref _trace_kernel_rol)
-  K3 ``resolve_v5``  csrc/resolve_v5.cu  (ref _resolve_kernel_v5)
+  K1 ``tile_order``    csrc/tile_order.cu    (ref _tile_order_kernel)
+  K2 ``trace_rol``     csrc/trace_rol.cu     (ref _trace_kernel_rol)
+  K3 ``resolve_v5``    csrc/resolve_v5.cu    (ref _resolve_kernel_v5)
+  K5 ``trace_rol_sc``  csrc/trace_rol_sc.cu  (ref _trace_kernel_rol_sc)
+  K6 ``resolve_v5s``   csrc/resolve_v5s.cu   (ref _resolve_kernel_v5s)
 
 The host table build (``MXUScene.build``) reproduces the reference's
 tables bit for bit, with bf16 rounding done by torch (round to nearest
@@ -39,8 +44,7 @@ F32_MAX = np.float32(3.4028235e38)
 _CULL_INF = np.float32(1e30)
 
 # supercluster granularity (member clusters per super) and the cluster
-# count above which the reference switches to its two-level kernel (K5,
-# not ported yet)
+# count above which the trace switches to the two-level kernel (K5)
 SC_CLUSTERS = 64
 SC_THRESHOLD = 96
 RAY_TILE = 512
@@ -256,10 +260,13 @@ class MXUScene:
               cluster_size: int = 256, normals: Optional[np.ndarray] = None,
               uvs: Optional[np.ndarray] = None,
               mat_ids: Optional[np.ndarray] = None,
-              materials=None):
+              materials=None, slim: bool = False):
         """positions: [M,3,3] world-space triangle vertices; materials: an
-        optional HostMaterial list, baked per triangle. Returns
-        (host dict of numpy arrays, statics dict)."""
+        optional HostMaterial list, baked per triangle. ``slim`` (the
+        renderer sets it past 65,536 triangles) leaves out the tables no
+        path of the port reads at that scale, as the reference does:
+        ``attrs``, ``attr_b16`` and ``tx/ty/tz``, and ``txy_t`` past
+        12 MiB. Returns (host dict of numpy arrays, statics dict)."""
         p = np.asarray(positions, np.float64)
         lo = p.reshape(-1, 3).min(0)
         hi = p.reshape(-1, 3).max(0)
@@ -346,9 +353,10 @@ class MXUScene:
             a[:, :, ATTR_TRI] = order[:, None].astype(np.float32)
             a[~used] = 0.0
             a_tri = a
-            attrs = a.reshape(n_clusters, cluster_size, 3, ATTR_COLS) \
-                .transpose(0, 2, 1, 3).reshape(
-                    n_clusters * 3 * cluster_size, ATTR_COLS)
+            if not slim:
+                attrs = a.reshape(n_clusters, cluster_size, 3, ATTR_COLS) \
+                    .transpose(0, 2, 1, 3).reshape(
+                        n_clusters * 3 * cluster_size, ATTR_COLS)
 
         txy_t = np.concatenate([t4[:, :, 0], t4[:, :, 1], t4[:, :, 2]],
                                axis=1).astype(np.float32)  # [Mpad, 12]
@@ -372,9 +380,15 @@ class MXUScene:
                 .transpose(0, 2, 1)
                 .reshape(n_clusters * B16.COLS, cluster_size))
 
-        tx = np.ascontiguousarray(t4[:, :, 0].T, np.float32)
-        ty = np.ascontiguousarray(t4[:, :, 1].T, np.float32)
-        tz = np.ascontiguousarray(t4[:, :, 2].T, np.float32)
+        tx = ty = tz = None
+        if slim:
+            attr_b16 = None
+            if txy_t.size * 4 > (12 << 20):
+                txy_t = None
+        else:
+            tx = np.ascontiguousarray(t4[:, :, 0].T, np.float32)
+            ty = np.ascontiguousarray(t4[:, :, 1].T, np.float32)
+            tz = np.ascontiguousarray(t4[:, :, 2].T, np.float32)
 
         host = dict(
             sc_box=sc_box, sub_box=None, fine_box=None,
@@ -392,17 +406,20 @@ class MXUSceneT(NamedTuple):
     """Device tables of the port.
 
     cluster_box [ncl, 8] f32   bmin3 bmax3 pad2 (centered)
-    t12   [12, Mpad] f32       coefficient-major transforms (K2)
-    t12b  [ncl*16, tc] f32     cluster-blocked transforms (reference layout)
-    b16t  [ncl*128, tc] bf16   cluster-blocked B16 table (reference layout)
-    b16r  [Mpad, 128] bf16     the same bits, row-major (K3 row reads)
-    t16r  [Mpad, 16] f32       t12b's bits, row-major (K3 transform reads)
+    sc_box  [n_sc, 8] f32      supercluster bmin3 bmax3, first member
+                               cluster, member count (None for one cluster)
+    t12   [12, Mpad] f32       coefficient-major transforms (K2, K5)
+    b16r  [Mpad, 128] bf16     the B16 table, row-major (K3/K6 row reads)
+    t16r  [Mpad, 16] f32       transforms, row-major (K3/K6)
     tri_map [Mpad] i32, center [3] f32, lo/hi [3] f32 scene bounds
+
+    The reference's cluster-blocked ``b16t``/``t12b`` layouts are re-packed
+    into ``b16r``/``t16r`` on the host and not uploaded: no kernel reads
+    them.
     """
     cluster_box: torch.Tensor
+    sc_box: Optional[torch.Tensor]
     t12: torch.Tensor
-    t12b: torch.Tensor
-    b16t: torch.Tensor
     b16r: torch.Tensor
     t16r: torch.Tensor
     tri_map: torch.Tensor
@@ -418,8 +435,7 @@ def _bf16_tensor(a, device):
     a = np.ascontiguousarray(a)
     if a.dtype != np.uint16:        # ml_dtypes.bfloat16 from the reference
         a = a.view(np.uint16)
-    return torch.from_numpy(a.view(np.int16).copy()).view(
-        torch.bfloat16).to(device)
+    return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
 
 
 def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
@@ -431,7 +447,7 @@ def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
     tc = statics["cluster_size"]
     f32 = lambda k: torch.from_numpy(
         np.ascontiguousarray(host[k], np.float32)).to(device)
-    b16t = np.ascontiguousarray(host["b16t"])
+    b16t = np.asarray(host["b16t"])
     if b16t.dtype != np.uint16:
         b16t = b16t.view(np.uint16)
     b16r = b16t.reshape(ncl, B16.COLS, tc).transpose(0, 2, 1).reshape(
@@ -440,8 +456,9 @@ def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
     t16r = t12b.reshape(ncl, 16, tc).transpose(0, 2, 1).reshape(ncl * tc, 16)
     boxes = f32("cluster_box")
     return MXUSceneT(
-        cluster_box=boxes, t12=f32("t12"), t12b=f32("t12b"),
-        b16t=_bf16_tensor(b16t, device), b16r=_bf16_tensor(b16r, device),
+        cluster_box=boxes,
+        sc_box=f32("sc_box") if host.get("sc_box") is not None else None,
+        t12=f32("t12"), b16r=_bf16_tensor(b16r, device),
         t16r=torch.from_numpy(np.ascontiguousarray(t16r)).to(device),
         tri_map=torch.from_numpy(
             np.ascontiguousarray(host["tri_map"], np.int32)).to(device),
@@ -449,6 +466,12 @@ def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
         lo=boxes[:, 0:3].amin(0), hi=boxes[:, 3:6].amax(0),
         n_clusters=ncl, cluster_size=tc,
         n_superclusters=statics["n_superclusters"])
+
+
+def resolve_table_bytes(n_clusters: int, tc: int) -> int:
+    """The reference's byte count of its resolve tables (``b16t`` bf16 +
+    ``t12b`` f32, mxu_trace.py:2025), from the statics alone."""
+    return n_clusters * B16.COLS * tc * 2 + n_clusters * 16 * tc * 4
 
 
 # ---------------------------------------------------------------------------
@@ -557,79 +580,97 @@ K2 = kb.Kernel("trace_rol", "trace_rol.cu", "trace_rol_launch",
                + [ctypes.c_longlong, ctypes.c_int])
 
 
+class _TraceState:
+    """The per-tile state the plain trace versions advance: rays [nt, rt]
+    components, t_best / i_best [nt, rt], visits [nt]."""
+
+    def __init__(self, rays, tm, tc):
+        nt, _, rt = rays.shape
+        dev = rays.device
+        self.o = [rays[:, k] for k in (0, 1, 2)]
+        self.d = [rays[:, k] for k in (4, 5, 6)]
+        self.inv = _inv_dirs(rays)
+        self.t_best = tm.clone()
+        self.i_best = torch.full((nt, rt), -1, dtype=torch.int32, device=dev)
+        self.visits = torch.zeros(nt, dtype=torch.int32, device=dev)
+        self.tc = tc
+        self.row = torch.arange(tc, dtype=torch.int32,
+                                device=dev).view(1, tc, 1)
+
+    def box_hit(self, box, any_hit):
+        """Per-ray slab test of one box per tile (box [nt, >=6]) against
+        the current t_best (and, any-hit, only for unblocked rays)."""
+        tnear, tfar = _slab([box[:, k, None] for k in range(6)], *self.o,
+                            *self.inv)
+        hit = (tfar >= 0.0) & (tnear <= tfar) & (tnear < self.t_best)
+        if any_hit:
+            hit &= self.i_best < 0
+        return hit
+
+    def stop_at(self, order, cons, slot):
+        t_worst = self.t_best.amax(dim=1)
+        return ((order[:, slot] < 0) | (cons[:, slot] > t_worst)
+                | (t_worst <= 0.0))
+
+    def sweep(self, live, c, t12c, any_hit):
+        """Every ray of each live tile against all tc triangles of its
+        cluster c [nt] (the kernels' arithmetic, term for term)."""
+        idx = live.nonzero()[:, 0]
+        if not idx.numel():
+            return
+        tc = self.tc
+        rowbits = tc - 1
+        self.visits[idx] += 1
+        T = t12c[:, c[idx]].permute(1, 0, 2)[..., None]      # [L,12,tc,1]
+        ol = [x[idx][:, None, :] for x in self.o]             # [L, 1, rt]
+        dl = [x[idx][:, None, :] for x in self.d]
+        oz = ol[0] * T[:, 8] + ol[1] * T[:, 9] + ol[2] * T[:, 10] + T[:, 11]
+        dz = dl[0] * T[:, 8] + dl[1] * T[:, 9] + dl[2] * T[:, 10]
+        t = -oz / torch.where(dz == 0.0, 1.0, dz)
+        ox = ol[0] * T[:, 0] + ol[1] * T[:, 1] + ol[2] * T[:, 2] + T[:, 3]
+        dx = dl[0] * T[:, 0] + dl[1] * T[:, 1] + dl[2] * T[:, 2]
+        u = ox + t * dx
+        oy = ol[0] * T[:, 4] + ol[1] * T[:, 5] + ol[2] * T[:, 6] + T[:, 7]
+        dy = dl[0] * T[:, 4] + dl[1] * T[:, 5] + dl[2] * T[:, 6]
+        v = oy + t * dy
+        valid = (dz != 0.0) & (t > 0.0) & (
+            torch.minimum(torch.minimum(u, v), 1.0 - u - v) >= 0.0)
+        tb = self.t_best[idx]
+        ib = self.i_best[idx]
+        if any_hit:
+            tcand = torch.where(valid, t, float(F32_MAX))
+            blocked = tcand.amin(dim=1) < tb
+            self.i_best[idx] = torch.where(blocked, 1, ib)
+            self.t_best[idx] = torch.where(blocked, 0.0, tb)
+        else:
+            key = (t.view(torch.int32) & ~rowbits) | self.row
+            key = torch.where(valid, key, 0x7F800000)
+            kmin = key.amin(dim=1)                            # [L, rt]
+            tmin = (kmin & ~rowbits).view(torch.float32)
+            better = tmin < tb
+            self.t_best[idx] = torch.where(better, tmin, tb)
+            self.i_best[idx] = torch.where(
+                better, (kmin & rowbits) + c[idx, None].int() * tc, ib)
+
+
 def trace_rol_plain(rays, tm, order, cons, t12, boxes, n_clusters: int,
                     tc: int, any_hit: bool):
     """Plain PyTorch K2, all tiles advanced slot by slot together.
     Returns (t [nt, rt] f32, i [nt, rt] i32, visits [nt] i32 — the live
     cluster visits of each tile)."""
     K2.plain_runs += 1
-    nt, _, rt = rays.shape
-    dev = rays.device
-    o = [rays[:, k] for k in (0, 1, 2)]                    # [nt, rt]
-    d = [rays[:, k] for k in (4, 5, 6)]
-    inv = _inv_dirs(rays)
-    t_best = tm.clone()
-    i_best = torch.full((nt, rt), -1, dtype=torch.int32, device=dev)
-    visits = torch.zeros(nt, dtype=torch.int32, device=dev)
-    rowbits = tc - 1
-    row = torch.arange(tc, dtype=torch.int32, device=dev).view(1, tc, 1)
+    st = _TraceState(rays, tm, tc)
     t12c = t12.view(12, n_clusters, tc)
-
-    def stop_at(slot):
-        t_worst = t_best.amax(dim=1)
-        return ((order[:, slot] < 0) | (cons[:, slot] > t_worst)
-                | (t_worst <= 0.0))
-
-    stop = stop_at(0)
+    stop = st.stop_at(order, cons, 0)
     for slot in range(n_clusters):
         run = ~stop
         if not bool(run.any()):
             break
         c = order[:, slot].long()
-        box = boxes[c.clamp_min(0)]                         # [nt, 8]
-        tnear, tfar = _slab([box[:, k, None] for k in range(6)], *o, *inv)
-        box_hit = (tfar >= 0.0) & (tnear <= tfar) & (tnear < t_best)
-        if any_hit:
-            box_hit &= i_best < 0
-        live = box_hit.any(dim=1) & (c >= 0) & run
-        idx = live.nonzero()[:, 0]
-        if idx.numel():
-            visits[idx] += 1
-            T = t12c[:, c[idx]].permute(1, 0, 2)[..., None]  # [L,12,tc,1]
-            ol = [x[idx][:, None, :] for x in o]             # [L, 1, rt]
-            dl = [x[idx][:, None, :] for x in d]
-            oz = ol[0] * T[:, 8] + ol[1] * T[:, 9] + ol[2] * T[:, 10] \
-                + T[:, 11]
-            dz = dl[0] * T[:, 8] + dl[1] * T[:, 9] + dl[2] * T[:, 10]
-            t = -oz / torch.where(dz == 0.0, 1.0, dz)
-            ox = ol[0] * T[:, 0] + ol[1] * T[:, 1] + ol[2] * T[:, 2] \
-                + T[:, 3]
-            dx = dl[0] * T[:, 0] + dl[1] * T[:, 1] + dl[2] * T[:, 2]
-            u = ox + t * dx
-            oy = ol[0] * T[:, 4] + ol[1] * T[:, 5] + ol[2] * T[:, 6] \
-                + T[:, 7]
-            dy = dl[0] * T[:, 4] + dl[1] * T[:, 5] + dl[2] * T[:, 6]
-            v = oy + t * dy
-            valid = (dz != 0.0) & (t > 0.0) & (
-                torch.minimum(torch.minimum(u, v), 1.0 - u - v) >= 0.0)
-            tb = t_best[idx]
-            ib = i_best[idx]
-            if any_hit:
-                tcand = torch.where(valid, t, float(F32_MAX))
-                blocked = tcand.amin(dim=1) < tb
-                i_best[idx] = torch.where(blocked, 1, ib)
-                t_best[idx] = torch.where(blocked, 0.0, tb)
-            else:
-                key = (t.view(torch.int32) & ~rowbits) | row
-                key = torch.where(valid, key, 0x7F800000)
-                kmin = key.amin(dim=1)                       # [L, rt]
-                tmin = (kmin & ~rowbits).view(torch.float32)
-                better = tmin < tb
-                t_best[idx] = torch.where(better, tmin, tb)
-                i_best[idx] = torch.where(
-                    better, (kmin & rowbits) + c[idx, None].int() * tc, ib)
-        stop = stop | stop_at(min(slot + 1, n_clusters - 1))
-    return t_best, i_best, visits
+        hit = st.box_hit(boxes[c.clamp_min(0)], any_hit)
+        st.sweep(hit.any(dim=1) & (c >= 0) & run, c, t12c, any_hit)
+        stop = stop | st.stop_at(order, cons, min(slot + 1, n_clusters - 1))
+    return st.t_best, st.i_best, st.visits
 
 
 def trace_rol(rays, tm, order, cons, t12, boxes, n_clusters: int, tc: int,
@@ -672,13 +713,97 @@ def _trace_rol(o4, d4, tmax_col, t12, boxes, scene_static, any_hit,
     return t.reshape(b, 1), i.reshape(b, 1)
 
 
+# ---------------------------------------------------------------------------
+# K5: two-level (supercluster) rays-on-lanes trace
+# ---------------------------------------------------------------------------
+
+K5 = kb.Kernel("trace_rol_sc", "trace_rol_sc.cu", "trace_rol_sc_launch",
+               [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+               + [ctypes.c_longlong, ctypes.c_int])
+
+
+def trace_rol_sc_plain(rays, tm, order, cons, t12, boxes, sc_box, tc: int,
+                       any_hit: bool):
+    """Plain PyTorch K5. The candidate lists (order/cons [nt, nsc_pad])
+    hold superclusters; a live one (some ray of the tile enters its box)
+    has each member cluster c0 + k, k < cnt (sc_box columns 6 and 7) culled
+    on its own against the updated t_best — live when some ray enters the
+    box and the tile's largest t_best is > 0 — and swept as in K2. All
+    tiles advance slot by slot and member by member together, the ragged
+    member counts masked. Returns (t, i, visits — the live member-cluster
+    visits of each tile)."""
+    K5.plain_runs += 1
+    st = _TraceState(rays, tm, tc)
+    n_clusters = boxes.shape[0]
+    t12c = t12.view(12, n_clusters, tc)
+    n_slots = order.shape[1]
+    stop = st.stop_at(order, cons, 0)
+    for slot in range(n_slots):
+        run = ~stop
+        if not bool(run.any()):
+            break
+        s = order[:, slot].long()
+        srow = sc_box[s.clamp_min(0)]                          # [nt, 8]
+        live_sc = st.box_hit(srow, any_hit).any(dim=1) & (s >= 0) & run
+        c0 = srow[:, 6].to(torch.int64)
+        cnt = torch.where(live_sc, srow[:, 7].to(torch.int64), 0)
+        for k in range(int(cnt.max())):
+            c = c0 + k
+            box = boxes[torch.where(k < cnt, c, 0)]
+            live = (st.box_hit(box, any_hit).any(dim=1)
+                    & (st.t_best.amax(dim=1) > 0.0) & (k < cnt))
+            st.sweep(live, c, t12c, any_hit)
+        stop = stop | st.stop_at(order, cons, min(slot + 1, n_slots - 1))
+    return st.t_best, st.i_best, st.visits
+
+
+def trace_rol_sc(rays, tm, order, cons, t12, boxes, sc_box, tc: int,
+                 any_hit: bool):
+    """K5: trace a batch of ray tiles against their candidate
+    superclusters (see ``trace_rol_sc_plain``). Returns (t, i, visits)."""
+    if rays.device.type == "cpu":
+        return trace_rol_sc_plain(rays, tm, order, cons, t12, boxes, sc_box,
+                                  tc, any_hit)
+    kb.check_cuda("trace_rol_sc", rays, tm, order, cons, t12, boxes, sc_box,
+                  dtypes=(torch.float32, torch.float32, torch.int32,
+                          torch.float32, torch.float32, torch.float32,
+                          torch.float32))
+    nt, _, rt = rays.shape
+    if rt % 32 or rt > 1024 or tc & (tc - 1):
+        raise ValueError(f"trace_rol_sc: ray tile {rt} / cluster size {tc} "
+                         "unsupported")
+    dev = rays.device
+    t = torch.empty((nt, rt), dtype=torch.float32, device=dev)
+    i = torch.empty((nt, rt), dtype=torch.int32, device=dev)
+    visits = torch.empty(nt, dtype=torch.int32, device=dev)
+    K5(kb.ptr(rays), kb.ptr(tm), kb.ptr(order), kb.ptr(cons), kb.ptr(t12),
+       kb.ptr(boxes), kb.ptr(sc_box), kb.ptr(t), kb.ptr(i), kb.ptr(visits),
+       nt, rt, order.shape[1], tc, t12.shape[1], int(any_hit))
+    return t, i, visits
+
+
+def _trace_rol_sc(o4, d4, tmax_col, t12, boxes, sc_box, tc, any_hit,
+                  ray_tile):
+    """Two-level trace of [b,4] rays: supercluster candidate lists (K1 on
+    ``sc_box`` + the stable sort), then K5. Returns (t [b,1], i [b,1])."""
+    rt = ray_tile
+    b = o4.shape[0]
+    nt = b // rt
+    rays = _pack_rays(o4, d4, rt)
+    tm = tmax_col.reshape(nt, rt).contiguous()
+    order, cons = _candidate_order(tile_order(rays, tm, sc_box))
+    t, i, _ = trace_rol_sc(rays, tm, order, cons, t12, boxes, sc_box, tc,
+                           any_hit)
+    return t.reshape(b, 1), i.reshape(b, 1)
+
+
 def _dispatch_trace(o4, d4, tmax_col, scene: MXUSceneT, any_hit):
-    """The flat rays-on-lanes tier; the two-level tier (K5) that the
-    reference uses past SC_THRESHOLD clusters is not ported yet."""
+    """The two-level tier past SC_THRESHOLD clusters (as the reference,
+    mxu_trace.py:1297-1303), else the flat rays-on-lanes tier."""
     if scene.n_clusters > SC_THRESHOLD:
-        raise NotImplementedError(
-            f"{scene.n_clusters} clusters > SC_THRESHOLD={SC_THRESHOLD}: the "
-            "two-level supercluster trace is not ported yet")
+        return _trace_rol_sc(o4, d4, tmax_col, scene.t12, scene.cluster_box,
+                             scene.sc_box, scene.cluster_size, any_hit,
+                             ROL_TILE)
     return _trace_rol(o4, d4, tmax_col, scene.t12, scene.cluster_box,
                       (scene.n_clusters, scene.cluster_size), any_hit,
                       ROL_TILE)
@@ -834,17 +959,22 @@ def trace_pair_mxu(eorig: Vec3, edir: Vec3, sorig: Vec3, sdir: Vec3,
 
 
 # ---------------------------------------------------------------------------
-# K3: winner-attribute resolve
+# K3 / K6: winner-attribute resolve
 # ---------------------------------------------------------------------------
+
+# past this many bytes of resolve tables (resolve_table_bytes) the
+# reference streams them from HBM (K6) instead of keeping them resident
+RESOLVE_RESIDENT_BYTES = 48 << 20
 
 K3 = kb.Kernel("resolve_v5", "resolve_v5.cu", "resolve_v5_launch",
                [ctypes.c_void_p] * 6 + [ctypes.c_int])
+K6 = kb.Kernel("resolve_v5s", "resolve_v5s.cu", "resolve_v5s_launch",
+               [ctypes.c_void_p] * 6 + [ctypes.c_int])
 
 
-def resolve_v5_plain(col, o4, d4, b16r, t16r):
-    """Plain PyTorch K3: gather each winner's B16 row and transform row,
-    then the reference epilogue (_b16_epilogue_t). Returns [40, b]."""
-    K3.plain_runs += 1
+def _resolve_plain(col, o4, d4, b16r, t16r):
+    """Gather each winner's B16 row and transform row, then the reference
+    epilogue (_b16_epilogue_t). Returns [40, b]."""
     active = col >= 0
     safe = col.clamp_min(0).long()
     acc = b16r[safe].to(torch.float32).T                     # [128, b]
@@ -889,29 +1019,58 @@ def resolve_v5_plain(col, o4, d4, b16r, t16r):
     return torch.where(active[None, :], res, 0.0)
 
 
+def _resolve_launch(kernel, col, o4, d4, b16r, t16r):
+    kb.check_cuda(kernel.name, col, o4, d4, b16r, t16r,
+                  dtypes=(torch.int32, torch.float32, torch.float32,
+                          torch.bfloat16, torch.float32))
+    b = col.shape[0]
+    out = torch.empty((ATTR_COLS, b), dtype=torch.float32, device=col.device)
+    kernel(kb.ptr(col), kb.ptr(o4), kb.ptr(d4), kb.ptr(b16r), kb.ptr(t16r),
+           kb.ptr(out), b)
+    return out
+
+
+def resolve_v5_plain(col, o4, d4, b16r, t16r):
+    """Plain PyTorch K3 (see ``_resolve_plain``)."""
+    K3.plain_runs += 1
+    return _resolve_plain(col, o4, d4, b16r, t16r)
+
+
 def resolve_v5(col, o4, d4, b16r, t16r):
     """K3: winner attributes as the SoA [ATTR_COLS, b] matrix (see
     ``resolve_v5_plain``). col: int32 [b] winner column, -1 = miss."""
     if col.device.type == "cpu":
         return resolve_v5_plain(col, o4, d4, b16r, t16r)
-    kb.check_cuda("resolve_v5", col, o4, d4, b16r, t16r,
-                  dtypes=(torch.int32, torch.float32, torch.float32,
-                          torch.bfloat16, torch.float32))
-    b = col.shape[0]
-    out = torch.empty((ATTR_COLS, b), dtype=torch.float32, device=col.device)
-    K3(kb.ptr(col), kb.ptr(o4), kb.ptr(d4), kb.ptr(b16r), kb.ptr(t16r),
-       kb.ptr(out), b)
-    return out
+    return _resolve_launch(K3, col, o4, d4, b16r, t16r)
+
+
+def resolve_v5s_plain(col, o4, d4, b16r, t16r):
+    """Plain PyTorch K6: K3's function (the reference's v5s differs from
+    v5 only in how its tables reach the kernel)."""
+    K6.plain_runs += 1
+    return _resolve_plain(col, o4, d4, b16r, t16r)
+
+
+def resolve_v5s(col, o4, d4, b16r, t16r):
+    """K6: K3's contract for tables past RESOLVE_RESIDENT_BYTES, read with
+    streaming loads (see csrc/resolve_v5s.cu)."""
+    if col.device.type == "cpu":
+        return resolve_v5s_plain(col, o4, d4, b16r, t16r)
+    return _resolve_launch(K6, col, o4, d4, b16r, t16r)
 
 
 def resolve_hits_mxu(orig: Vec3, d: Vec3, t, col, scene: MXUSceneT,
                      ray_tile: int = RAY_TILE):
     """Per-ray winner attributes as the SoA matrix [ATTR_COLS, n] (ATTR_*
     rows), including the exact t and barycentric u, v. col: winner column
-    (-1 = miss -> zero column)."""
+    (-1 = miss -> zero column). K3 while the reference would keep its
+    tables resident, K6 past that (mxu_trace.py:2024-2034)."""
     n = col.shape[0]
     o4, d4, _ = _ray_inputs(orig, d, scene, None, ray_tile)
     col2, _ = _pad_rays(col.to(torch.int32), ray_tile)
-    out = resolve_v5(col2.contiguous(), o4.contiguous(), d4.contiguous(),
-                     scene.b16r, scene.t16r)
+    resolve = (resolve_v5s if resolve_table_bytes(
+        scene.n_clusters, scene.cluster_size) > RESOLVE_RESIDENT_BYTES
+        else resolve_v5)
+    out = resolve(col2.contiguous(), o4.contiguous(), d4.contiguous(),
+                  scene.b16r, scene.t16r)
     return out[:, :n]

@@ -28,21 +28,9 @@
 // t_best after each slot. Any-hit threads leave the sweep at their first
 // blocking triangle and skip it once blocked (t_best = 0 admits nothing),
 // which returns exactly the reference's min-then-compare result. The
-// arithmetic is the reference's, operation for operation (-fmad=false).
+// arithmetic is the reference's, operation for operation (-fmad=false);
+// the slab test and the triangle sweep live in common.cuh, shared with K5.
 #include "common.cuh"
-
-__device__ __forceinline__ float block_max(float v, float* sred) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, off));
-  __syncthreads();   // the previous call's readers are done with sred
-  if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float m = sred[0];
-  const int nwarps = blockDim.x >> 5;
-  for (int w = 1; w < nwarps; ++w) m = fmaxf(m, sred[w]);
-  return m;
-}
 
 template <bool ANY_HIT>
 __global__ void trace_rol_kernel(const float* __restrict__ rays,
@@ -61,92 +49,25 @@ __global__ void trace_rol_kernel(const float* __restrict__ rays,
   const int r = threadIdx.x;
   const size_t tile = blockIdx.x;
 
-  const float* R = rays + tile * 8 * rt;
-  const float o0 = R[0 * rt + r], o1 = R[1 * rt + r], o2 = R[2 * rt + r];
-  const float d0 = R[4 * rt + r], d1 = R[5 * rt + r], d2 = R[6 * rt + r];
-  const float i0 = safe_inv(d0), i1 = safe_inv(d1), i2 = safe_inv(d2);
+  const Ray y = load_ray(rays + tile * 8 * rt, rt, r);
   float t_best = tm[tile * rt + r];
   int i_best = -1;
   const int* ord = order + tile * ncl_pad;
   const float* cn = cons + tile * ncl_pad;
-  const int rowbits = tc - 1;
   int n_live = 0;
 
   float t_worst = block_max(t_best, sred);
   bool stop = (ord[0] < 0) || (cn[0] > t_worst) || (t_worst <= 0.0f);
   for (int slot = 0; slot < n_clusters && !stop; ++slot) {
     const int c = ord[slot];
-    const float* box = boxes + (size_t)max(c, 0) * 8;
-    const float ax = (box[0] - o0) * i0;
-    const float bx = (box[3] - o0) * i0;
-    const float ay = (box[1] - o1) * i1;
-    const float by = (box[4] - o1) * i1;
-    const float az = (box[2] - o2) * i2;
-    const float bz = (box[5] - o2) * i2;
-    const float tnear = jmax(jmax(jmin(ax, bx), jmin(ay, by)), jmin(az, bz));
-    const float tfar = jmin(jmin(jmax(ax, bx), jmax(ay, by)), jmax(az, bz));
-    bool box_hit = (tfar >= 0.0f) && (tnear <= tfar) && (tnear < t_best);
+    bool box_hit = slab_hit(boxes + (size_t)max(c, 0) * 8, y, t_best);
     if (ANY_HIT) box_hit = box_hit && (i_best < 0);
     const bool live = __syncthreads_or(box_hit) && (c >= 0);
 
     if (live) {
       ++n_live;
-      const float* src = t12 + (size_t)c * tc;
-      for (int k = r; k < 12 * tc; k += blockDim.x)
-        sT[k] = src[(size_t)(k / tc) * m_pad + (k % tc)];
-      __syncthreads();
-      if (ANY_HIT) {
-        if (i_best < 0) {
-          for (int j = 0; j < tc; ++j) {
-            const float* T = sT + j;
-            const float oz = o0 * T[8 * tc] + o1 * T[9 * tc] +
-                             o2 * T[10 * tc] + T[11 * tc];
-            const float dz = d0 * T[8 * tc] + d1 * T[9 * tc] + d2 * T[10 * tc];
-            const float t = -oz / (dz == 0.0f ? 1.0f : dz);
-            const float ox = o0 * T[0] + o1 * T[tc] + o2 * T[2 * tc] +
-                             T[3 * tc];
-            const float dx = d0 * T[0] + d1 * T[tc] + d2 * T[2 * tc];
-            const float u = ox + t * dx;
-            const float oy = o0 * T[4 * tc] + o1 * T[5 * tc] +
-                             o2 * T[6 * tc] + T[7 * tc];
-            const float dy = d0 * T[4 * tc] + d1 * T[5 * tc] + d2 * T[6 * tc];
-            const float v = oy + t * dy;
-            const bool valid = (dz != 0.0f) && (t > 0.0f) &&
-                               (jmin(jmin(u, v), 1.0f - u - v) >= 0.0f);
-            if (valid && t < t_best) {
-              i_best = 1;
-              t_best = 0.0f;
-              break;
-            }
-          }
-        }
-      } else {
-        int kmin = 0x7F800000;
-        for (int j = 0; j < tc; ++j) {
-          const float* T = sT + j;
-          const float oz = o0 * T[8 * tc] + o1 * T[9 * tc] + o2 * T[10 * tc] +
-                           T[11 * tc];
-          const float dz = d0 * T[8 * tc] + d1 * T[9 * tc] + d2 * T[10 * tc];
-          const float t = -oz / (dz == 0.0f ? 1.0f : dz);
-          const float ox = o0 * T[0] + o1 * T[tc] + o2 * T[2 * tc] + T[3 * tc];
-          const float dx = d0 * T[0] + d1 * T[tc] + d2 * T[2 * tc];
-          const float u = ox + t * dx;
-          const float oy = o0 * T[4 * tc] + o1 * T[5 * tc] + o2 * T[6 * tc] +
-                           T[7 * tc];
-          const float dy = d0 * T[4 * tc] + d1 * T[5 * tc] + d2 * T[6 * tc];
-          const float v = oy + t * dy;
-          const bool valid = (dz != 0.0f) && (t > 0.0f) &&
-                             (jmin(jmin(u, v), 1.0f - u - v) >= 0.0f);
-          const int key =
-              valid ? ((__float_as_int(t) & ~rowbits) | j) : 0x7F800000;
-          kmin = min(kmin, key);
-        }
-        const float tmin = __int_as_float(kmin & ~rowbits);
-        if (tmin < t_best) {
-          t_best = tmin;
-          i_best = (kmin & rowbits) + c * tc;
-        }
-      }
+      stage_cluster(sT, t12, c, tc, m_pad);
+      sweep_cluster<ANY_HIT>(sT, tc, c, y, t_best, i_best);
       __syncthreads();   // all sweeps done before sT is restaged
     }
     const int guard = min(slot + 1, n_clusters - 1);

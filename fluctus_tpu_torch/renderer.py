@@ -9,6 +9,7 @@ Without CUDA and without ``device="cpu"`` it raises.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 
 from .accel import build_bvh
 from .accel import mxu_trace as mt
+from .native import build_bvh_native
 from .bsdf import check_lobes
 from .core.integrator_mk import Film, RenderStats
 from .core.integrator_wf import (unpad_pixels, wf_reset, wf_shade_phase,
@@ -55,21 +57,32 @@ class Renderer:
 
     # -- scene lifecycle (Tracer::init) -------------------------------------
     def load_scene(self, scene_file: str):
-        """Load an OBJ scene, build its SAH BVH and cluster tables, and
-        upload them. Env maps, saved render state and table caches are not
-        ported yet."""
+        """Load an OBJ or ``.sc.json`` scene, build its SAH BVH (the native
+        builder past 20,000 triangles, as the reference) and cluster
+        tables (slim past 65,536), and upload them. Env maps, saved render
+        state and BVH/table caches are not ported yet. ``load_seconds``
+        keeps the host time of each step."""
+        t0 = time.perf_counter()
         scene = Scene()
         scene.load_model(scene_file)
         check_lobes(scene.material_types)
         self.scene = scene
         p, nrm, uv, mid = scene.triangle_arrays()
-        bvh = build_bvh(p)
+        t1 = time.perf_counter()
+        bvh = build_bvh_native(p) if p.shape[0] > 20000 else build_bvh(p)
+        t2 = time.perf_counter()
         host, statics = mt.MXUScene.build(
             p, bvh, normals=nrm, uvs=uv, mat_ids=mid,
-            materials=scene.materials)
+            materials=scene.materials, slim=p.shape[0] > 65536)
+        t3 = time.perf_counter()
+        if p.shape[0] > 65536:
+            print(f"MXU tables: {statics['n_clusters']} clusters, "
+                  f"{statics['n_superclusters']} supers ({t3 - t2:.2f}s)")
         self.device_scene = DeviceScene(
             mxu=mt.tables_from_numpy(host, statics, self.device),
             material_types=scene.material_types)
+        self.load_seconds = dict(load=t1 - t0, bvh=t2 - t1, tables=t3 - t2,
+                                 upload=time.perf_counter() - t3)
         self.world_radius = scene.world_radius()
         self._derive_config()
         self.params = self._make_params()

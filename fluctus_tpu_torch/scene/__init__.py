@@ -1,5 +1,5 @@
 from .material import HostMaterial, default_material, infer_type, to_roughness
-from .scene import Scene
+from .scene import ModelTransform, Scene
 
-__all__ = ["HostMaterial", "Scene", "default_material", "infer_type",
-           "to_roughness"]
+__all__ = ["HostMaterial", "ModelTransform", "Scene", "default_material",
+           "infer_type", "to_roughness"]

@@ -75,8 +75,10 @@ def parse_mtl(path: str) -> List[HostMaterial]:
     return mats
 
 
-def load_obj(path: str, scene):
-    """Load an OBJ file into the given Scene (appends triangles/materials)."""
+def load_obj(path: str, scene, transform=None):
+    """Load an OBJ file into the given Scene (appends triangles/materials);
+    a ``ModelTransform`` moves the positions (normals stay as they are:
+    the transform is a uniform scale + translation)."""
     folder = os.path.dirname(path)
     mat_offset = len(scene.materials)
 
@@ -150,6 +152,8 @@ def load_obj(path: str, scene):
     fm = np.asarray(face_m, np.int64).reshape(-1)
 
     p = P[fv]                                   # [M,3,3]
+    if transform is not None:
+        p = transform.apply(p)
 
     n = np.zeros_like(p)
     has_n = (fn >= 0).all(axis=1) & (len(N) > 0)

@@ -88,5 +88,15 @@ def test_wrappers_route_by_device():
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         bs.splat(local.to("meta"), data.to("meta"), film.to("meta"),
                  groups=2)
-    assert set(kb.KERNELS) >= {"tile_order", "trace_rol", "resolve_v5",
-                               "block_splat"}
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    col = torch.tensor([0, -1], dtype=torch.int32)
+    rays = torch.zeros((2, 4))
+    b16r = torch.zeros((1, 128), dtype=torch.bfloat16)
+    t16r = torch.zeros((1, 16))
+    assert mt.resolve_v5s(col, rays, rays, b16r, t16r).shape == (40, 2)
+    assert mt.K6.plain_runs == 1 and mt.K6.launches == 0
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        mt.resolve_v5s(*(t.to("meta") for t in (col, rays, rays, b16r,
+                                                 t16r)))
+    assert set(kb.KERNELS) == {"tile_order", "trace_rol", "resolve_v5",
+                               "block_splat", "trace_rol_sc", "resolve_v5s"}

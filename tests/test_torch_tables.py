@@ -95,18 +95,26 @@ def test_bf16_split_matches_ml_dtypes():
 
 def test_tables_from_numpy_layouts(luxball):
     """tables_from_numpy on the JAX host dict: the row-major re-packs K3
-    reads (b16r, t16r) hold the same bits as the reference layouts."""
+    reads (b16r, t16r) hold the same bits as the reference layouts (the
+    cluster-blocked b16t/t12b stay on the host and are compared there)."""
     js, _ = luxball
     p, n, uv, mid = js.triangle_arrays()
     jh, jst = jmt.MXUScene.build(p, jbuild_bvh(p), normals=n, uvs=uv,
                                  mat_ids=mid, materials=js.materials,
                                  return_host=True)
     sc = tmt.tables_from_numpy(jh, jst, "cpu")
+    b16r = sc.b16r.view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(b16r, _bits(jh["attr_b16"]))
+    ncl, tc = jst["n_clusters"], jst["cluster_size"]
     np.testing.assert_array_equal(
-        sc.b16r.view(torch.int16).numpy().view(np.uint16), _bits(jh["attr_b16"]))
+        b16r.reshape(ncl, tc, tmt.B16.COLS).transpose(0, 2, 1).reshape(
+            ncl * tmt.B16.COLS, tc), _bits(jh["b16t"]))
     np.testing.assert_array_equal(
-        sc.b16t.view(torch.int16).numpy().view(np.uint16), _bits(jh["b16t"]))
+        sc.t16r.numpy().reshape(ncl, tc, 16).transpose(0, 2, 1).reshape(
+            ncl * 16, tc), jh["t12b"])
     np.testing.assert_array_equal(sc.t16r[:, :12].numpy(), jh["txy_t"])
+    np.testing.assert_array_equal(sc.sc_box.numpy(), jh["sc_box"])
+    assert not hasattr(sc, "b16t") and not hasattr(sc, "t12b")
     np.testing.assert_array_equal(sc.t12.numpy(), jh["t12"])
     np.testing.assert_array_equal(sc.lo.numpy(),
                                   jh["cluster_box"][:, 0:3].min(0))
