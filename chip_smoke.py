@@ -10,9 +10,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    camera rays of the second segment and the bounce rays of the fourth, as
    the pair trace sorts them) go through each kernel and through its plain
    PyTorch version on the card; the outputs are held to the stated
-   tolerances and both are timed (CUDA events, median), with one PyTorch
-   library call computing the same function as a yardstick where one
-   exists.
+   tolerances and both are timed (CUDA events, median; a spin kernel
+   queued first hides the host's launch, and a kernel's time with its
+   launch stands beside), with one PyTorch library call computing the
+   same function as a yardstick where one exists.
 3. luxball path: Renderer(1920, 1080) on luxball with a 1M-path pool, 2
    warm-up segments, a fresh pool, then SEGMENTS timed segments; Mrays/s
    (primary + extension + shadow rays, as bench.py counts them),
@@ -30,7 +31,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and K4. 2b holds K1, K5 (both modes) and K6 to their plain versions
    and times K3 on K6's inputs; 3b times LARGE_SEGMENTS segments and
    checks the primary-hit share.
-5. the kernels line, the card line, then the final result line.
+5. exact-spp (Renderer.render_single, the capped wavefront) on luxball at
+   1080p with 1M paths: a first render records K7's and K8's arguments in
+   segment 2 and in the last segment where budgets bind, held bit for bit
+   to their plain versions and timed (5a); then, from reset(), a timed
+   render_single(EXACT_SPP): spp and film weight equal the target on
+   every true pixel, 0 weight on parked padded slots (the reference's
+   wf_reset leaves the first slot of a group without pixels live; those
+   "phantom" slots are counted and reported), launches per segment K1 2,
+   K2 2, K3 1, K7 1, K8 1, K4 0; a second call accumulates to twice the
+   target (profiled: device time by kernel and busy share), and
+   render_wavefront re-inits with the cap off (5b); and the
+   exact render at 256x144 with 64k paths through the kernels and through
+   the plain versions, film and spp equal (5c).
+6. the microkernel megastep (flags.FORCE_MK) at 1080p: MK_SPP samples,
+   weight MK_SPP everywhere, launches per sample (depth + 1) x (K1 2, K2 2,
+   K3 1), its image mean within 15% of the exact render's, and one more
+   sample profiled (6a); the same
+   with flags.SORT_RAYS off, which traces in lane order through K1 and K9
+   in both modes: one closest-hit and one any-hit K9 call held to
+   trace_ros_plain (columns and t bit-equal) and timed beside K2 on the
+   same rays sorted (6b); pick_single at the image centre against
+   closest_hit_mxu_full (6c).
+7. the kernels line, the card line, then the final result line.
 
 Prints nothing of the result and exits non-zero without CUDA or without
 the package beside it.
@@ -38,6 +61,7 @@ the package beside it.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -54,22 +78,42 @@ VIEWS = {LUXBALL: ((0.0, 1.6, 4.5), (0.0, -0.12, -1.0), (0, 4, 0),
                  (6.0, 6.0))}
 PEAK_FP32 = 67e12          # H100 SXM FP32 (non-tensor) FLOP/s, data sheet
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s, data sheet
+EXACT_SPP = 16
+MK_SPP = 2
+MK_MEAN_GATE = 0.15        # tests/test_render_single_wf.py:35-38
+_ZERO = {"trace_rol_sc": 0, "resolve_v5s": 0, "block_splat_capped": 0,
+         "fetch": 0, "trace_ros": 0}
 PER_SEGMENT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
-               "block_splat": 1, "trace_rol_sc": 0, "resolve_v5s": 0}
+               "block_splat": 1, **_ZERO}
 PER_SEGMENT_LARGE = {"tile_order": 2, "trace_rol_sc": 2, "resolve_v5s": 1,
-                     "block_splat": 1, "trace_rol": 0, "resolve_v5": 0}
+                     "block_splat": 1, "trace_rol": 0, "resolve_v5": 0,
+                     "block_splat_capped": 0, "fetch": 0, "trace_ros": 0}
+PER_SEGMENT_EXACT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
+                     "block_splat": 0, "trace_rol_sc": 0, "resolve_v5s": 0,
+                     "block_splat_capped": 1, "fetch": 1, "trace_ros": 0}
+# per bounce of a sample: one extension and one shadow trace, one resolve
+PER_BOUNCE_MK = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
+                 "block_splat": 0, **_ZERO}
+PER_BOUNCE_ROS = {**PER_BOUNCE_MK, "trace_rol": 0, "trace_ros": 2}
 SOURCES = {"tile_order": "fluctus_tpu_torch/csrc/tile_order.cu",
            "trace_rol": "fluctus_tpu_torch/csrc/trace_rol.cu",
            "resolve_v5": "fluctus_tpu_torch/csrc/resolve_v5.cu",
            "block_splat": "fluctus_tpu_torch/csrc/block_splat.cu",
            "trace_rol_sc": "fluctus_tpu_torch/csrc/trace_rol_sc.cu",
-           "resolve_v5s": "fluctus_tpu_torch/csrc/resolve_v5s.cu"}
+           "resolve_v5s": "fluctus_tpu_torch/csrc/resolve_v5s.cu",
+           "block_splat_capped":
+               "fluctus_tpu_torch/csrc/block_splat_capped.cu",
+           "fetch": "fluctus_tpu_torch/csrc/fetch.cu",
+           "trace_ros": "fluctus_tpu_torch/csrc/trace_ros.cu"}
 REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "trace_rol": "fluctus_tpu/accel/mxu_trace.py:736",
             "resolve_v5": "fluctus_tpu/accel/mxu_trace.py:1745",
             "block_splat": "fluctus_tpu/core/block_splat.py:103",
             "trace_rol_sc": "fluctus_tpu/accel/mxu_trace.py:832",
-            "resolve_v5s": "fluctus_tpu/accel/mxu_trace.py:1894"}
+            "resolve_v5s": "fluctus_tpu/accel/mxu_trace.py:1894",
+            "block_splat_capped": "fluctus_tpu/core/block_splat.py:116",
+            "fetch": "fluctus_tpu/core/block_splat.py:147",
+            "trace_ros": "fluctus_tpu/accel/mxu_trace.py:630"}
 
 
 def emit(obj):
@@ -135,16 +179,23 @@ class Recorder:
 
 
 def plain_versions():
-    """Swap every kernel wrapper for its plain PyTorch version (phase 4's
-    reference run); returns the undo function."""
+    """Swap every kernel wrapper for its plain PyTorch version (the parity
+    phases' reference runs); returns the undo function."""
     from fluctus_tpu_torch.accel import mxu_trace as mt
     from fluctus_tpu_torch.core import block_splat as bs
+
+    def splat(local, data, film, groups, remaining=None):
+        if remaining is None:
+            return bs.splat_plain(local, data, film, groups)
+        return bs.splat_capped_plain(local, data, film, groups, remaining)
     swaps = [(mt, "tile_order", mt.tile_order_plain),
              (mt, "trace_rol", mt.trace_rol_plain),
              (mt, "resolve_v5", mt.resolve_v5_plain),
-             (bs, "splat", bs.splat_plain),
+             (bs, "splat", splat),
              (mt, "trace_rol_sc", mt.trace_rol_sc_plain),
-             (mt, "resolve_v5s", mt.resolve_v5s_plain)]
+             (mt, "resolve_v5s", mt.resolve_v5s_plain),
+             (bs, "fetch", bs.fetch_plain),
+             (mt, "trace_ros", mt.trace_ros_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -155,8 +206,14 @@ def plain_versions():
     return undo
 
 
-def time_ms(fn, reps=10, warm=2):
-    """Median ms of fn() on the card (CUDA events around each call)."""
+SPIN_CYCLES = 2_000_000    # ~1 ms of GPU clock: longer than a launch
+
+
+def time_ms(fn, reps=10, warm=2, spin=True):
+    """Median ms of fn() on the card (CUDA events around each call). With
+    ``spin`` a spin kernel queued before the first event keeps the card
+    busy while the host launches fn, so the events bracket device time
+    only; without it they also hold the host's launch latency."""
     import torch
     for _ in range(warm):
         fn()
@@ -164,12 +221,21 @@ def time_ms(fn, reps=10, warm=2):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_ms(fn, reps=10):
+    """A kernel's device time (``ms``) and its time with the host launch
+    (``ms_with_launch``)."""
+    return dict(ms=time_ms(fn, reps), ms_with_launch=time_ms(fn, reps,
+                                                             spin=False))
 
 
 def bound(ops, nbytes):
@@ -213,7 +279,7 @@ def check_tile_order(mt, rec_calls):
     cons = mt.tile_order(rays, tm, boxes)
     b_ms, b_by = bound(nt * ncl * rt * 25, nbytes(rays, tm, boxes, cons))
     return dict(
-        max_abs_err=0.0, ms=time_ms(lambda: mt.tile_order(rays, tm, boxes)),
+        max_abs_err=0.0, **kernel_ms(lambda: mt.tile_order(rays, tm, boxes)),
         plain_ms=time_ms(lambda: mt.tile_order_plain(rays, tm, boxes), 3, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"{nt} tiles x {rt} rays x {ncl} boxes")
@@ -250,7 +316,7 @@ def check_trace(name, kernel, plain, rec_calls, chunk):
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     b_ms, b_by = bound(visits * tc * rt * 30, nbytes(*tensors) + nt * rt * 8)
     return dict(
-        max_abs_err=worst, ms=time_ms(lambda: kernel(*args)),
+        max_abs_err=worst, **kernel_ms(lambda: kernel(*args)),
         plain_ms=time_ms(lambda: trace_plain_chunked(plain, *args,
                                                      chunk=chunk), 2, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -287,7 +353,7 @@ def check_resolve(name, kernel, plain, rec_calls):
     # B16 row and transform row; the [40, b] output written once
     b_ms, b_by = bound(b * 60, b * (4 + 32 + 160) + winners * (256 + 64))
     return dict(
-        max_abs_err=worst, ms=time_ms(lambda: kernel(*args)),
+        max_abs_err=worst, **kernel_ms(lambda: kernel(*args)),
         plain_ms=time_ms(lambda: plain(*args), 3, 1),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.index_select(b16r, 0, safe)),
@@ -331,8 +397,8 @@ def phase_kernels(r, rec_calls):
         return film + acc.index_add_(1, pid, data)[:, :g * pk]
     b_ms, b_by = bound(n * c, nbytes(local, data) + 2 * nbytes(film))
     res["block_splat"] = dict(
-        max_abs_err=worst, ms=time_ms(lambda: bs.splat(local, data, film,
-                                                      groups=g)),
+        max_abs_err=worst, **kernel_ms(lambda: bs.splat(local, data, film,
+                                                          groups=g)),
         plain_ms=time_ms(lambda: bs.splat_plain(local, data, film, g), 3, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
         library_call="Tensor.index_add_ on the flattened film",
@@ -405,9 +471,11 @@ def phase_main(r, card, scene, segments, per_segment, extra=None):
     return launches, out
 
 
-def profile_segments(r, card, ms_per_segment, n=2):
-    """Device time by kernel over n more segments (torch.profiler, CUPTI):
-    where a segment's time goes. The busy share divides the device time
+def profile_segments(r, card, ms_per_segment, n=2, run=None,
+                     unit="segment"):
+    """Device time by kernel over n more segments (torch.profiler, CUPTI),
+    or over the segments (or mk samples, ``unit``) ``run()`` advances (it
+    returns their count): where a segment's time goes. The busy share divides the device time
     per segment by the timed run's unprofiled wall time per segment; the
     profiled segments' own wall time (profiler overhead included) stands
     beside it, since later segments of a pool can cost more than the
@@ -422,7 +490,11 @@ def profile_segments(r, card, ms_per_segment, n=2):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        r.render_wavefront(n)             # ends in torch.cuda.synchronize
+        if run is None:
+            r.render_wavefront(n)
+        else:
+            n = run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / n * 1e3
     launches = {k.name: k.launches / n for k in kb.KERNELS.values()
                 if k.launches}
@@ -433,11 +505,17 @@ def profile_segments(r, card, ms_per_segment, n=2):
             rows.append((dt, e.key, e.count))
     rows.sort(reverse=True)
     dev_ms = sum(dt for dt, _, _ in rows) / n / 1e3
-    emit(dict(phase="profile", segments=n, card=card,
+    ours = {}                   # the port's kernels, by csrc function name
+    for dt, key, _ in rows:
+        m = re.search(r"(?:^|\s)(\w+)_kernel[<(]", key)
+        if m and m.group(1) in kb.KERNELS:
+            ours[m.group(1)] = ours.get(m.group(1), 0.0) + dt / n
+    emit(dict(phase="profile", segments=n, unit=unit, card=card,
               device_ms_per_segment=dev_ms,
               device_busy_share=dev_ms / ms_per_segment,
               profiled_wall_ms_per_segment=wall_ms,
               launches_per_segment=launches,
+              kernels_us_per_segment=ours,
               top=[dict(name=k[:90], us_per_segment=dt / n,
                         calls_per_segment=c / n)
                    for dt, k, c in rows[:14]]))
@@ -477,11 +555,441 @@ def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
         raise AssertionError(f"parity: counters {sa} != {sb}")
     torch.testing.assert_close(fa, fb, rtol=1e-4, atol=1e-6)
 
+# ---------------------------------------------------------------------------
+# Phase 5: exact-spp rendering (K7, K8)
+# ---------------------------------------------------------------------------
+
+def _candidate_pids(local, groups, pk):
+    """Padded pixel id of each splat candidate (local >= 0), else the
+    dump id groups * pk."""
+    import torch
+    n = local.shape[0]
+    lane = torch.arange(n, device=local.device, dtype=torch.int64)
+    pid = (lane // (n // groups)) * pk + local.long()
+    return torch.where(local >= 0, pid, groups * pk)
+
+
+class ExactRecorder:
+    """Record the capped splat's and the fetch's arguments of segment 2 and
+    of the last segment in which some pixel had more candidates than its
+    remaining budget (the wrappers run as usual)."""
+
+    def __init__(self):
+        self.seg = 0
+        self.fetch_args = None
+        self.early = self.tail = None
+
+    def __enter__(self):
+        from fluctus_tpu_torch.core import block_splat as bs
+        self.bs = bs
+        self.orig = (bs.splat, bs.fetch)
+        splat, fetch = self.orig
+
+        def rec_fetch(local, table, groups):
+            self.fetch_args = (local, table, groups)
+            return fetch(local, table, groups)
+
+        def rec_splat(local, data, film, groups, remaining=None):
+            if remaining is not None:
+                self.seg += 1
+                rec = (self.seg, (local, data, film, groups, remaining),
+                       self.fetch_args)
+                if self.seg == 2:
+                    self.early = rec
+                elif self._binds(local, groups, film.shape[1] // groups,
+                                 remaining):
+                    self.tail = rec
+            return splat(local, data, film, groups, remaining=remaining)
+        bs.splat, bs.fetch = rec_splat, rec_fetch
+        return self
+
+    @staticmethod
+    def _binds(local, groups, pk, remaining):
+        import torch
+        pid = _candidate_pids(local, groups, pk)
+        count = torch.bincount(pid, minlength=groups * pk + 1)[:-1]
+        return bool((count > remaining[0]).any())
+
+    def __exit__(self, *exc):
+        self.bs.splat, self.bs.fetch = self.orig
+
+
+def check_exact_kernels(rec):
+    """K7 and K8 vs their plain versions on the recorded calls: K7's film
+    bit-equal, each pixel's weight delta = min(candidates, remaining); K8
+    bit-equal. Returns (K7 timing dict, K8 timing dict)."""
+    import torch
+    from fluctus_tpu_torch.core import block_splat as bs
+    segs = {}
+    for seg, (local, data, film, g, rem), fargs in (rec.early, rec.tail):
+        got = bs.splat(local, data, film, groups=g, remaining=rem)
+        ref = bs.splat_capped_plain(local, data, film, g, rem)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K7 differs from its plain version "
+                                 f"(segment {seg})")
+        pk = film.shape[1] // g
+        pid = _candidate_pids(local, g, pk)
+        count = torch.bincount(pid, minlength=g * pk + 1)[:-1].float()
+        if not torch.equal(got[3] - film[3], torch.minimum(count, rem[0])):
+            raise AssertionError(f"K7 admitted set wrong (segment {seg})")
+        if not torch.equal(bs.fetch(*fargs), bs.fetch_plain(*fargs)):
+            raise AssertionError(f"K8 differs from its plain version "
+                                 f"(segment {seg})")
+        segs[seg] = dict(candidates=int((local >= 0).sum()),
+                          over_budget_pixels=int((count > rem[0]).sum()))
+    (seg, (local, data, film, g, rem), fargs) = rec.early
+    c, n = data.shape
+    pk = film.shape[1] // g
+    pid = _candidate_pids(local, g, pk)
+    # the admitted records, for the library yardstick: rank within the
+    # pixel by a stable sort, admitted while rank < remaining
+    _, order = torch.sort(pid, stable=True)
+    sp = pid[order]
+    pos = torch.arange(n, device=pid.device)
+    start = torch.where(torch.cat([sp.new_ones(1, dtype=torch.bool),
+                                   sp[1:] != sp[:-1]]), pos, 0)
+    rank = torch.empty_like(pos)
+    rank[order] = pos - torch.cummax(start, 0).values
+    rem_ext = torch.cat([rem[0], rem.new_zeros(1)])
+    ok = rank.float() < rem_ext[pid]
+    pid_ok = torch.where(ok, pid, g * pk)
+
+    def library():
+        acc = torch.zeros((c, g * pk + 1), device=film.device)
+        return film + acc.index_add_(1, pid_ok, data)[:, :g * pk]
+    if not torch.equal(library()[3], bs.splat_capped_plain(
+            local, data, film, g, rem)[3]):
+        raise AssertionError("K7 yardstick admits another set")
+    b7 = bound(n * c, nbytes(local, data, rem) + 2 * nbytes(film))
+    k7 = dict(max_abs_err=0.0,
+              **kernel_ms(lambda: bs.splat(local, data, film, groups=g,
+                                              remaining=rem)),
+              plain_ms=time_ms(lambda: bs.splat_capped_plain(
+                  local, data, film, g, rem), 3, 1),
+              bound_ms=b7[0], bound_by=b7[1], library_ms=time_ms(library),
+              library_call="Tensor.index_add_ of the admitted records "
+                           "(the admission has no one-call equivalent)",
+              shape=f"{g} groups x {n // g} lanes, Pk={pk}",
+              segments=segs)
+    flocal, table, fg = fargs
+    fpid = (torch.arange(n, device=flocal.device) // (n // fg)) * pk \
+        + flocal.long()
+    nread = int(torch.unique(fpid).numel())
+    b8 = bound(n, nbytes(flocal) + n * 4 + nread * 4)
+    k8 = dict(max_abs_err=0.0,
+              **kernel_ms(lambda: bs.fetch(flocal, table, groups=fg)),
+              plain_ms=time_ms(lambda: bs.fetch_plain(flocal, table, fg)),
+              bound_ms=b8[0], bound_by=b8[1],
+              library_ms=time_ms(lambda: torch.take(table, fpid)),
+              library_call="torch.take of the table at the lanes' pixels",
+              shape=f"{n} lanes, {nread} distinct pixels read")
+    return k7, k8
+
+
+def check_launches(launches, plain, per, units, what):
+    for name, k in per.items():
+        if launches.get(name) != k * units:
+            raise AssertionError(f"{what}: {name} {launches.get(name)} "
+                                 f"launches, expected {k * units}")
+    if any(plain.values()):
+        raise AssertionError(f"{what}: a plain version ran: {plain}")
+
+
+def counts():
+    from fluctus_tpu_torch import kernel_build as kb
+    return ({k.name: k.launches for k in kb.KERNELS.values()},
+            {k.name: k.plain_runs for k in kb.KERNELS.values()})
+
+
+def phase_exact(r, card):
+    """Phase 5a/5b on a 1080p luxball renderer with a 1M-path pool.
+    Returns (kernel results, K7/K8 launches of the timed render, the
+    exact image's mean)."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.integrator_wf import _block_geom, unpad_pixels
+    r.reset()
+    with ExactRecorder() as rec:
+        r.render_single(EXACT_SPP)
+    k7, k8 = check_exact_kernels(rec)
+    emit(dict(phase="exact_kernels_vs_plain", card=card,
+              early_segment=rec.early[0], tail_segment=rec.tail[0],
+              segments=rec.seg, block_splat_capped=k7, fetch=k8))
+
+    r.reset()
+    torch.cuda.synchronize()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    film = r.render_single(EXACT_SPP)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches, plain = counts()
+    segments = len(r._wf_counters)
+    st = r.stats
+    mrays = r.perf_mrays(elapsed)
+    state = r._wf_state
+    spp = unpad_pixels(state.spp, r.config)
+    dead_w = state.film.weight[state.spp >= (1 << 29)]
+    # padded slots by the block geometry; the first slot of a group that
+    # owns no true pixel is not parked dead, by the reference's wf_reset,
+    # so its ring renders it like a pixel (a "phantom" slot)
+    p_true, pk = _block_geom(r.config)
+    slot = torch.arange(state.spp.numel(), device=state.spp.device)
+    padded = (slot % pk) >= (r.config.num_pixels
+                             - (slot // pk) * p_true).clamp(0, p_true)
+    phantom = padded & (state.spp < (1 << 29))
+    exact = bool((spp == EXACT_SPP).all() and (film.weight == EXACT_SPP).all()
+                 and (dead_w == 0).all())
+    mean = float(r.hdr_image().mean())
+    out = dict(phase="exact_path", scene=LUXBALL, width=r.width,
+               height=r.height, paths=r.settings.wf_buffer_size,
+               spp=EXACT_SPP,
+               seconds=elapsed, segments=segments,
+               mrays_per_s=mrays["total"], samples_per_s=st.samples / elapsed,
+               rays=st._asdict(), launches=launches, plain_runs=plain,
+               spp_and_weight_exact=exact, padded_slots=int(padded.sum()),
+               parked_slots=int(dead_w.numel()),
+               phantom_slots=int(phantom.sum()),
+               phantom_weights=torch.unique(
+                   state.film.weight[phantom]).tolist(),
+               image_mean=mean, card=card)
+    emit(out)
+    check_launches(launches, plain, PER_SEGMENT_EXACT, segments,
+                   "exact path")
+    if not exact:
+        raise AssertionError("exact path: spp/weight differ from the target")
+
+    def accumulate():
+        r.render_single(EXACT_SPP)
+        return len(r._wf_counters)
+    # the second render runs under the profiler
+    profile_segments(r, card, elapsed / segments * 1e3, run=accumulate)
+    film = r.film
+    again = len(r._wf_counters)
+    spp = unpad_pixels(r._wf_state.spp, r.config)
+    acc = bool((spp == 2 * EXACT_SPP).all()
+               and (film.weight == 2 * EXACT_SPP).all())
+    r.render_wavefront(2)
+    reinit = (r._wf_cfg.max_spp == 0 and not r._wf_exact_mode
+              and float(r.current_film().weight.sum()) > 0)
+    emit(dict(phase="exact_accumulate", segments=again,
+              wavefront_segments=len(r._wf_counters), accumulated_exact=acc,
+              wavefront_reinit=reinit, card=card))
+    if not (acc and reinit):
+        raise AssertionError(f"exact path: accumulate {acc}, re-init "
+                             f"{reinit}")
+    return dict(block_splat_capped=k7, fetch=k8), launches, mean
+
+
+def phase_exact_parity(width=256, height=144, paths=1 << 16, spp=4):
+    """Phase 5c: render_single(spp) through the kernels and, from the same
+    reset, through the plain versions."""
+    import torch
+    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    runs = []
+    for use_plain in (False, True):
+        undo = plain_versions() if use_plain else (lambda: None)
+        try:
+            r = make_renderer(width, height, "cuda")
+            r.settings.wf_buffer_size = paths
+            film = r.render_single(spp)
+            runs.append((film, unpad_pixels(r._wf_state.spp, r.config),
+                         r.stats))
+        finally:
+            undo()
+    (fa, sa, ca), (fb, sb, cb) = runs
+    ma = torch.stack([*fa.color, fa.weight])
+    mb = torch.stack([*fb.color, fb.weight])
+    out = dict(phase="exact_parity", width=width, height=height,
+               paths=paths, spp=spp, stats_kernel=list(ca),
+               stats_plain=list(cb), spp_equal=bool(torch.equal(sa, sb)),
+               film_equal=bool(torch.equal(ma, mb)),
+               film_max_abs_err=float((ma - mb).abs().max()))
+    emit(out)
+    if not (out["spp_equal"] and out["film_equal"] and ca == cb
+            and bool((sa == spp).all())):
+        raise AssertionError("exact parity failed")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the microkernel megastep and the rays-on-sublanes trace (K9)
+# ---------------------------------------------------------------------------
+
+class RosRecorder:
+    """Record the arguments of K9 calls number ``keep`` (counted from 0;
+    per bounce the extension trace, then the shadow trace)."""
+
+    def __init__(self, keep):
+        self.keep = keep
+        self.n = 0
+        self.calls = {}
+
+    def __enter__(self):
+        from fluctus_tpu_torch.accel import mxu_trace as mt
+        self.mt = mt
+        self.orig = mt.trace_ros
+
+        def rec(*args):
+            if self.n in self.keep:
+                self.calls[self.n] = args
+            self.n += 1
+            return self.orig(*args)
+        mt.trace_ros = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mt.trace_ros = self.orig
+
+
+def ros_plain_chunked(args, chunk=256):
+    """trace_ros_plain over all tiles, a chunk of tiles at a time."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    o4, d4, tm, order, cons = args[:5]
+    rt = o4.shape[0] // order.shape[0]
+    outs = []
+    for k in range(0, order.shape[0], chunk):
+        sl = slice(k * rt, (k + chunk) * rt)
+        outs.append(mt.trace_ros_plain(o4[sl], d4[sl], tm[sl],
+                                       order[k:k + chunk],
+                                       cons[k:k + chunk], *args[5:]))
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
+
+
+def check_ros(r, calls):
+    """K9 vs its plain version on the recorded calls (columns, t and visit
+    counts bit-equal); timing of the closest-hit call, and K2 on the same
+    rays as the sorted single-set trace hands them to it."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    res = {}
+    for idx, args in sorted(calls.items()):
+        got = mt.trace_ros(*args)
+        ref = ros_plain_chunked(args)
+        for a, b, what in zip(got, ref, ("t", "columns", "visits")):
+            if a.dtype == torch.float32:          # bit for bit, NaN too
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"K9 {what} differ from the plain version (call {idx}, "
+                    f"any_hit={bool(args[-1])}): {int((a != b).sum())} of "
+                    f"{a.numel()}")
+        res[idx] = dict(any_hit=bool(args[-1]),
+                        visits=int(got[2].sum()),
+                        hits=int((got[1] >= 0).sum()))
+    args = calls[min(calls)]                    # closest-hit
+    o4, d4, tm, order = args[:4]
+    tc = args[-2]
+    nt, rt = order.shape[0], o4.shape[0] // order.shape[0]
+    visits = res[min(calls)]["visits"]
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    b_ms, b_by = bound(visits * tc * rt * 30, nbytes(*tensors) + nt * rt * 8)
+    # K2 on the same rays, sorted as _sorted_trace sorts them
+    rec = Recorder()
+    rec.targets = [(mt, "trace_rol")]
+    with rec:
+        rec.active = 0
+        scene = r.device_scene.mxu
+        mt._sorted_trace(o4, d4, None, scene, False)
+    k2_args = rec.calls[(0, "trace_rol")][0][0]
+    k2_visits = int(mt.trace_rol(*k2_args)[2].sum())
+    return dict(
+        max_abs_err=0.0, **kernel_ms(lambda: mt.trace_ros(*args), 5),
+        plain_ms=time_ms(lambda: ros_plain_chunked(args), 1, 0),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        visited_clusters=visits, calls=res,
+        k2_sorted_ms=time_ms(lambda: mt.trace_rol(*k2_args)),
+        k2_sorted_visited_clusters=k2_visits,
+        shape=f"{nt} tiles x {rt} rays in lane order x {order.shape[1]} "
+              "candidates, closest-hit, bounce 2")
+
+
+def phase_mk(r, card, exact_mean):
+    """Phase 6a/6b/6c on the 1080p luxball renderer. Returns (K9 results,
+    K9 launches of the rays-on-sublanes render)."""
+    import torch
+    from fluctus_tpu_torch import flags
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.camera import generate_camera_rays
+    depth = r.config.max_bounces
+    saved = flags.FORCE_MK, flags.SORT_RAYS
+    flags.FORCE_MK = True
+    try:
+        r.reset()
+        torch.cuda.synchronize()
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        film = r.render_single(MK_SPP)
+        elapsed = time.perf_counter() - t0
+        launches, plain = counts()
+        mean = float(r.hdr_image().mean())
+        rel = abs(mean - exact_mean) / max(exact_mean, 1e-9)
+        weight_ok = bool((film.weight == MK_SPP).all())
+        emit(dict(phase="mk_path", width=r.width, height=r.height,
+                  spp=MK_SPP, depth=depth, seconds=elapsed,
+                  seconds_per_sample=elapsed / MK_SPP,
+                  mrays_per_s=r.perf_mrays(elapsed)["total"],
+                  rays=r.stats._asdict(), launches=launches,
+                  plain_runs=plain, weight_exact=weight_ok,
+                  image_mean=mean, exact_image_mean=exact_mean,
+                  mean_rel_diff=rel, card=card))
+        check_launches(launches, plain, PER_BOUNCE_MK, (depth + 1) * MK_SPP,
+                       "mk path")
+        if not weight_ok or rel > MK_MEAN_GATE:
+            raise AssertionError(f"mk path: weight exact {weight_ok}, mean "
+                                 f"differs by {rel}")
+
+        def one_sample():
+            r.render_single(1)
+            return 1
+        profile_segments(r, card, elapsed / MK_SPP * 1e3, run=one_sample,
+                         unit="mk sample")
+
+        flags.SORT_RAYS = False
+        r.reset()
+        torch.cuda.synchronize()
+        kb.reset_counts()
+        with RosRecorder(keep=(4, 5)) as rec:
+            t0 = time.perf_counter()
+            film = r.render_single(1)
+            elapsed = time.perf_counter() - t0
+        ros_launches, plain = counts()
+        emit(dict(phase="rays_on_sublanes_path", depth=depth, spp=1,
+                  seconds=elapsed,
+                  mrays_per_s=r.perf_mrays(elapsed)["total"],
+                  rays=r.stats._asdict(), launches=ros_launches,
+                  plain_runs=plain,
+                  weight_exact=bool((film.weight == 1).all()), card=card))
+        check_launches(ros_launches, plain, PER_BOUNCE_ROS, depth + 1,
+                       "rays-on-sublanes path")
+        k9 = check_ros(r, rec.calls)
+    finally:
+        flags.FORCE_MK, flags.SORT_RAYS = saved
+    emit(dict(phase="trace_ros_vs_plain", card=card, trace_ros=k9))
+
+    ok, t, tri = r.pick_single(0.5, 0.5)
+    px, py = int(0.5 * (r.width - 1)), int(0.5 * (r.height - 1))
+    pixel = torch.tensor([py * r.width + px], dtype=torch.int32,
+                         device=r.device)
+    orig, d, _ = generate_camera_rays(
+        pixel, r.params.camera, r.width, r.height, r.params.world_radius,
+        torch.zeros(1, dtype=torch.int64, device=r.device))
+    ft, ftri, _, _, _ = mt.closest_hit_mxu_full(orig, d, r.device_scene.mxu)
+    emit(dict(phase="pick", hit=ok, t=t, tri=tri, full_t=float(ft[0]),
+              full_tri=int(ftri[0])))
+    if not ok or tri != int(ftri[0]) or abs(t - float(ft[0])) > 1e-6 * t:
+        raise AssertionError("pick_single disagrees with "
+                             "closest_hit_mxu_full")
+    return k9, ros_launches
+
 
 def kernels_line(kres, launches):
     """One entry per ported kernel: its checks and times from phase 2 (K1-K4,
-    luxball) or 2b (K5, K6), and its launches summed over the two main-path
-    runs (each counted from 0)."""
+    luxball), 2b (K5, K6), 5a (K7, K8) or 6b (K9), and its launches on its
+    main path, counted from 0: K1-K6 summed over the two free-running runs
+    (3, 3b), K7 and K8 in the timed exact render (5b), K9 in the
+    rays-on-sublanes render (6b)."""
     out = []
     for name in SOURCES:
         k = kres[name]
@@ -492,6 +1000,14 @@ def kernels_line(kres, launches):
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"]))
     return {"kernels": out}
+
+
+def vertex_table_bytes(r):
+    """Device bytes of the rays-on-sublanes trace's tx/ty/tz and of
+    closest_hit_mxu_full's txy_t (slim tables drop them)."""
+    sc = r.device_scene.mxu
+    return nbytes(*(t for t in (sc.tx, sc.ty, sc.tz, sc.txy_t)
+                    if t is not None))
 
 
 def record_segments(r):
@@ -530,7 +1046,8 @@ def main():
     # phase 2: kernels vs plain on the luxball path's inputs
     r = make_renderer(1920, 1080, "cuda")
     kres = phase_kernels(r, record_segments(r))
-    emit(dict(phase="kernels_vs_plain", card=card, scene=LUXBALL, **kres))
+    emit(dict(phase="kernels_vs_plain", card=card, scene=LUXBALL,
+              vertex_table_bytes=vertex_table_bytes(r), **kres))
 
     # phase 3: luxball path, then a profiled look at two more segments
     launches, main = phase_main(r, card, LUXBALL, SEGMENTS, PER_SEGMENT)
@@ -541,6 +1058,15 @@ def main():
     # phase 4: whole-path parity, kernels vs plain versions
     phase_parity(LUXBALL)
 
+    # phases 5 and 6: exact-spp, the megastep, rays on sublanes, pick
+    r = make_renderer(1920, 1080, "cuda")
+    exact_res, launches_x, exact_mean = phase_exact(r, card)
+    phase_exact_parity()
+    kres.update(exact_res)
+    kres["trace_ros"], launches_ros = phase_mk(r, card, exact_mean)
+    del r
+    torch.cuda.empty_cache()
+
     # phase 2b: the large path's kernels vs plain
     t0 = time.perf_counter()
     r = make_renderer(1920, 1080, "cuda", LARGE)
@@ -549,7 +1075,8 @@ def main():
     scene_info = dict(triangles=r.scene.num_triangles,
                       n_clusters=sc.n_clusters,
                       n_superclusters=sc.n_superclusters,
-                      host_seconds=host_s, host_steps=r.load_seconds)
+                      host_seconds=host_s, host_steps=r.load_seconds,
+                      vertex_table_bytes=vertex_table_bytes(r))
     kres_l, primary_hit = phase_kernels_large(r, record_segments(r))
     emit(dict(phase="kernels_vs_plain", card=card, scene=LARGE, **scene_info,
               **{k: v for k, v in kres_l.items() if k != "tile_order"},
@@ -570,9 +1097,12 @@ def main():
     # phase 4b: whole-path parity on the large path
     phase_parity(LARGE)
 
-    # phase 5: result lines
-    emit(kernels_line(kres, {k: launches[k] + launches_l[k]
-                             for k in SOURCES}))
+    # phase 7: result lines
+    main_launches = {k: launches[k] + launches_l[k] for k in SOURCES}
+    main_launches.update(block_splat_capped=launches_x["block_splat_capped"],
+                         fetch=launches_x["fetch"],
+                         trace_ros=launches_ros["trace_ros"])
+    emit(kernels_line(kres, main_launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

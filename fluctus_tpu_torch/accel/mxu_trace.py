@@ -10,9 +10,11 @@ tiles; each tile gets a private front-to-back candidate list (K1 + a
 stable sort), walked by the trace kernel with per-ray t_best pruning and a
 tile-level early-out. Up to SC_THRESHOLD clusters the list holds clusters
 (K2); past it, superclusters of up to SC_CLUSTERS clusters, each of whose
-members is culled on its own (K5). A resolve kernel turns the winner
-column into exact t/u/v, interpolated vertex attributes and the baked
-material parameters: K3, or K6 once the tables pass the reference's
+members is culled on its own (K5). With ``flags.ROL`` off the trace falls
+back to the rays-on-sublanes kernel (K9), which single-set traces also
+take unsorted when ``flags.SORT_RAYS`` is off. A resolve kernel turns the
+winner column into exact t/u/v, interpolated vertex attributes and the
+baked material parameters: K3, or K6 once the tables pass the reference's
 48 MiB resident budget.
 
 Kernels (each launched on CUDA tensors; its plain PyTorch twin runs on CPU
@@ -22,6 +24,7 @@ tensors):
   K3 ``resolve_v5``    csrc/resolve_v5.cu    (ref _resolve_kernel_v5)
   K5 ``trace_rol_sc``  csrc/trace_rol_sc.cu  (ref _trace_kernel_rol_sc)
   K6 ``resolve_v5s``   csrc/resolve_v5s.cu   (ref _resolve_kernel_v5s)
+  K9 ``trace_ros``     csrc/trace_ros.cu     (ref _trace_kernel)
 
 The host table build (``MXUScene.build``) reproduces the reference's
 tables bit for bit, with bf16 rounding done by torch (round to nearest
@@ -36,6 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import flags
 from .. import kernel_build as kb
 from ..vec import Vec3
 from .bvh import BVHArrays
@@ -412,6 +416,10 @@ class MXUSceneT(NamedTuple):
     b16r  [Mpad, 128] bf16     the B16 table, row-major (K3/K6 row reads)
     t16r  [Mpad, 16] f32       transforms, row-major (K3/K6)
     tri_map [Mpad] i32, center [3] f32, lo/hi [3] f32 scene bounds
+    tx/ty/tz [4, Mpad] f32     the x/y/z columns of the transforms (K9);
+                               None on slim tables
+    txy_t [Mpad, 12] f32       transforms row-major (closest_hit_mxu_full's
+                               u/v); None on slim tables past 12 MiB
 
     The reference's cluster-blocked ``b16t``/``t12b`` layouts are re-packed
     into ``b16r``/``t16r`` on the host and not uploaded: no kernel reads
@@ -429,6 +437,10 @@ class MXUSceneT(NamedTuple):
     n_clusters: int
     cluster_size: int
     n_superclusters: int
+    tx: Optional[torch.Tensor] = None
+    ty: Optional[torch.Tensor] = None
+    tz: Optional[torch.Tensor] = None
+    txy_t: Optional[torch.Tensor] = None
 
 
 def _bf16_tensor(a, device):
@@ -447,6 +459,7 @@ def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
     tc = statics["cluster_size"]
     f32 = lambda k: torch.from_numpy(
         np.ascontiguousarray(host[k], np.float32)).to(device)
+    opt = lambda k: f32(k) if host.get(k) is not None else None
     b16t = np.asarray(host["b16t"])
     if b16t.dtype != np.uint16:
         b16t = b16t.view(np.uint16)
@@ -457,7 +470,7 @@ def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
     boxes = f32("cluster_box")
     return MXUSceneT(
         cluster_box=boxes,
-        sc_box=f32("sc_box") if host.get("sc_box") is not None else None,
+        sc_box=opt("sc_box"),
         t12=f32("t12"), b16r=_bf16_tensor(b16r, device),
         t16r=torch.from_numpy(np.ascontiguousarray(t16r)).to(device),
         tri_map=torch.from_numpy(
@@ -465,7 +478,8 @@ def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
         center=f32("center"),
         lo=boxes[:, 0:3].amin(0), hi=boxes[:, 3:6].amax(0),
         n_clusters=ncl, cluster_size=tc,
-        n_superclusters=statics["n_superclusters"])
+        n_superclusters=statics["n_superclusters"],
+        tx=opt("tx"), ty=opt("ty"), tz=opt("tz"), txy_t=opt("txy_t"))
 
 
 def resolve_table_bytes(n_clusters: int, tc: int) -> int:
@@ -653,14 +667,13 @@ class _TraceState:
                 better, (kmin & rowbits) + c[idx, None].int() * tc, ib)
 
 
-def trace_rol_plain(rays, tm, order, cons, t12, boxes, n_clusters: int,
-                    tc: int, any_hit: bool):
-    """Plain PyTorch K2, all tiles advanced slot by slot together.
-    Returns (t [nt, rt] f32, i [nt, rt] i32, visits [nt] i32 — the live
-    cluster visits of each tile)."""
-    K2.plain_runs += 1
-    st = _TraceState(rays, tm, tc)
-    t12c = t12.view(12, n_clusters, tc)
+def _walk_plain(st: _TraceState, order, cons, t12c, boxes, n_clusters: int,
+                any_hit: bool):
+    """The flat trace walk (K2's and K9's contract), all tiles advanced
+    slot by slot together: per slot a per-ray slab cull; a tile whose rays
+    miss the box, or whose slot is the -1 sentinel, skips the sweep; the
+    tile stops at the sentinel, when the next entry bound exceeds its
+    largest t_best, or when that is <= 0."""
     stop = st.stop_at(order, cons, 0)
     for slot in range(n_clusters):
         run = ~stop
@@ -670,6 +683,17 @@ def trace_rol_plain(rays, tm, order, cons, t12, boxes, n_clusters: int,
         hit = st.box_hit(boxes[c.clamp_min(0)], any_hit)
         st.sweep(hit.any(dim=1) & (c >= 0) & run, c, t12c, any_hit)
         stop = stop | st.stop_at(order, cons, min(slot + 1, n_clusters - 1))
+
+
+def trace_rol_plain(rays, tm, order, cons, t12, boxes, n_clusters: int,
+                    tc: int, any_hit: bool):
+    """Plain PyTorch K2 (see ``_walk_plain``). Returns (t [nt, rt] f32,
+    i [nt, rt] i32, visits [nt] i32 — the live cluster visits of each
+    tile)."""
+    K2.plain_runs += 1
+    st = _TraceState(rays, tm, tc)
+    _walk_plain(st, order, cons, t12.view(12, n_clusters, tc), boxes,
+                n_clusters, any_hit)
     return st.t_best, st.i_best, st.visits
 
 
@@ -797,16 +821,101 @@ def _trace_rol_sc(o4, d4, tmax_col, t12, boxes, sc_box, tc, any_hit,
     return t.reshape(b, 1), i.reshape(b, 1)
 
 
-def _dispatch_trace(o4, d4, tmax_col, scene: MXUSceneT, any_hit):
-    """The two-level tier past SC_THRESHOLD clusters (as the reference,
-    mxu_trace.py:1297-1303), else the flat rays-on-lanes tier."""
-    if scene.n_clusters > SC_THRESHOLD:
+# ---------------------------------------------------------------------------
+# K9: rays-on-sublanes cluster trace
+# ---------------------------------------------------------------------------
+
+K9 = kb.Kernel("trace_ros", "trace_ros.cu", "trace_ros_launch",
+               [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+               + [ctypes.c_longlong, ctypes.c_int])
+
+
+def trace_ros_plain(o4, d4, tmax_col, order, cons, tx, ty, tz, boxes,
+                    n_clusters: int, tc: int, any_hit: bool):
+    """Plain PyTorch K9: K2's contract (``_walk_plain``) on the reference's
+    rays-on-sublanes layouts — rays o4/d4 [b, 4] row-major, tmax [b, 1],
+    per-tile order/cons [nt, ncl_pad], transforms as their x/y/z columns
+    tx/ty/tz [4, Mpad]. Returns (t [b, 1] f32, i [b, 1] i32, visits [nt]
+    i32)."""
+    K9.plain_runs += 1
+    b = o4.shape[0]
+    nt = order.shape[0]
+    rt = b // nt
+    st = _TraceState(_pack_rays(o4, d4, rt), tmax_col.reshape(nt, rt), tc)
+    t12c = torch.cat([tx, ty, tz]).view(12, n_clusters, tc)
+    _walk_plain(st, order, cons, t12c, boxes, n_clusters, any_hit)
+    return st.t_best.reshape(b, 1), st.i_best.reshape(b, 1), st.visits
+
+
+def trace_ros(o4, d4, tmax_col, order, cons, tx, ty, tz, boxes,
+              n_clusters: int, tc: int, any_hit: bool):
+    """K9: trace [b, 4] rays, a tile of b / nt at a time, against their
+    tiles' candidate clusters (see ``trace_ros_plain``). Returns (t, i,
+    visits)."""
+    if o4.device.type == "cpu":
+        return trace_ros_plain(o4, d4, tmax_col, order, cons, tx, ty, tz,
+                               boxes, n_clusters, tc, any_hit)
+    kb.check_cuda("trace_ros", o4, d4, tmax_col, order, cons, tx, ty, tz,
+                  boxes, dtypes=(torch.float32,) * 3
+                  + (torch.int32,) + (torch.float32,) * 5)
+    b = o4.shape[0]
+    nt = order.shape[0]
+    rt = b // nt if nt else 0
+    if b != nt * rt or rt % 32 or rt > 1024 or tc & (tc - 1):
+        raise ValueError(f"trace_ros: {b} rays in {nt} tiles / cluster size "
+                         f"{tc} unsupported")
+    dev = o4.device
+    t = torch.empty((b, 1), dtype=torch.float32, device=dev)
+    i = torch.empty((b, 1), dtype=torch.int32, device=dev)
+    visits = torch.empty(nt, dtype=torch.int32, device=dev)
+    K9(kb.ptr(o4), kb.ptr(d4), kb.ptr(tmax_col), kb.ptr(order), kb.ptr(cons),
+       kb.ptr(tx), kb.ptr(ty), kb.ptr(tz), kb.ptr(boxes), kb.ptr(t),
+       kb.ptr(i), kb.ptr(visits), nt, rt, order.shape[1], n_clusters, tc,
+       tx.shape[1], int(any_hit))
+    return t, i, visits
+
+
+def _trace(o4, d4, tmax_col, scene_arrays, scene_static, any_hit, ray_tile):
+    """Rays-on-sublanes trace of [b, 4] rays in lane order (the reference's
+    ``_trace``, mxu_trace.py:1235-1277): candidate lists (K1 + sort), then
+    K9. Returns (t [b, 1], i [b, 1])."""
+    n_clusters, tc = scene_static
+    tx, ty, tz, boxes = scene_arrays
+    order, cons = _tile_order_v2(o4, d4, tmax_col, boxes, ray_tile)
+    t, i, _ = trace_ros(o4.contiguous(), d4.contiguous(),
+                        tmax_col.contiguous(), order, cons, tx, ty, tz,
+                        boxes, n_clusters, tc, any_hit)
+    return t, i
+
+
+def _ros_tables(scene: MXUSceneT, flag: str):
+    """The rays-on-sublanes trace's arguments, or the reference's refusal
+    on slim tables (mxu_trace.py:1308-1310, core/trace.py:131-133)."""
+    if scene.tx is None:
+        raise ValueError(
+            "rays-on-sublanes fallback unavailable on a slim MXUScene "
+            "(vertex tables dropped at >64k tris; "
+            f"{flag})")
+    return ((scene.tx, scene.ty, scene.tz, scene.cluster_box),
+            (scene.n_clusters, scene.cluster_size))
+
+
+def _dispatch_trace(o4, d4, tmax_col, scene: MXUSceneT, any_hit,
+                    ray_tile: int = RAY_TILE):
+    """Select the trace kernel as the reference does (mxu_trace.py:
+    1288-1314): with ``flags.ROL`` the two-level tier past SC_THRESHOLD
+    clusters (K5), else the flat rays-on-lanes tier (K2); without it the
+    rays-on-sublanes kernel (K9), which slim tables cannot run."""
+    if flags.ROL and scene.n_clusters > SC_THRESHOLD:
         return _trace_rol_sc(o4, d4, tmax_col, scene.t12, scene.cluster_box,
                              scene.sc_box, scene.cluster_size, any_hit,
                              ROL_TILE)
-    return _trace_rol(o4, d4, tmax_col, scene.t12, scene.cluster_box,
-                      (scene.n_clusters, scene.cluster_size), any_hit,
-                      ROL_TILE)
+    if flags.ROL:
+        return _trace_rol(o4, d4, tmax_col, scene.t12, scene.cluster_box,
+                          (scene.n_clusters, scene.cluster_size), any_hit,
+                          ROL_TILE)
+    arrays, static = _ros_tables(scene, "use the ROL/SC kernels")
+    return _trace(o4, d4, tmax_col, arrays, static, any_hit, ray_tile)
 
 
 # ---------------------------------------------------------------------------
@@ -903,6 +1012,106 @@ def _perm_unsort2(sidx, t_col, i_col):
     inv = _perm_invert(sidx)
     g = torch.stack([t_col, i_col.view(torch.float32)], dim=1)[inv]
     return g[:, 0], g[:, 1].contiguous().view(torch.int32)
+
+
+def _sorted_trace(o4, d4, tmax_col, scene: MXUSceneT, any_hit,
+                  ray_tile: int = RAY_TILE):
+    """One ray set sorted by the coherence key, traced, and restored to
+    lane order (the reference's single-set ``_sorted_trace``, mxu_trace.py:
+    1406-1505, with its default key and sort-carried permutation). tmax is
+    clamped to the scene exit first; rays left with tmax <= 0 sort last.
+    Closest-hit sorts on the packed 30-bit key (kmaj << 12) | (kmin >> 9)
+    and, when the caller gave no tmax (None), recomputes the clamp on the
+    sorted rays. Any-hit sorts on both keys: one stable sort of the int64
+    key (kmaj << 21) | kmin gives lax.sort(num_keys=2)'s order, kmin being
+    below 2^21. The unsort gathers by the inverse permutation, as the
+    reference's sort by the carried index does. Returns (t [b, 1],
+    i [b, 1]); misses have t = F32_MAX."""
+    b = o4.shape[0]
+    dev = o4.device
+    lo, hi = scene.lo, scene.hi
+    fmax = torch.full((b, 1), float(F32_MAX), dtype=torch.float32,
+                      device=dev)
+    const_tmax = tmax_col is None
+    tmax_col = _exit_clamp(o4, d4, fmax if const_tmax else tmax_col, lo, hi)
+    kmaj, kmin = _sort_key(o4, d4, lo, hi)
+    dead = tmax_col[:, 0] <= 0.0
+    cols = [o4[:, 0], o4[:, 1], o4[:, 2], d4[:, 0], d4[:, 1], d4[:, 2]]
+    if any_hit:
+        kmaj = torch.where(dead, 0x7FFFFFFF, kmaj)
+        key = (kmaj.to(torch.int64) << 21) | kmin.to(torch.int64)
+        const_tmax = False
+    else:
+        key = torch.where(dead, 0x7FFFFFFF, (kmaj << 12) | (kmin >> 9))
+    if not const_tmax:
+        cols.append(tmax_col[:, 0])
+    _, sidx = torch.sort(key, stable=True)
+    g = _perm_apply(sidx, cols)
+    o4s = torch.stack([g[0], g[1], g[2], torch.ones_like(g[0])], dim=1)
+    d4s = torch.stack([g[3], g[4], g[5], torch.zeros_like(g[0])], dim=1)
+    tm = (_exit_clamp(o4s, d4s, fmax, lo, hi) if const_tmax
+          else g[6].reshape(b, 1))
+    t, i = _dispatch_trace(o4s, d4s, tm, scene, any_hit, ray_tile)
+    t_out, i_out = _perm_unsort2(sidx, t[:, 0], i[:, 0])
+    t_out = torch.where(i_out >= 0, t_out, float(F32_MAX))
+    return t_out.reshape(b, 1), i_out.reshape(b, 1)
+
+
+def _single_trace(o4, d4, tmax_col, scene: MXUSceneT, any_hit, ray_tile,
+                  const_tmax=False):
+    """A single-set trace as the reference's entry points take it
+    (mxu_trace.py:1615-1624, 2051-2059): sorted when ``flags.SORT_RAYS``,
+    else the rays-on-sublanes kernel in lane order."""
+    if flags.SORT_RAYS:
+        return _sorted_trace(o4, d4, None if const_tmax else tmax_col,
+                             scene, any_hit, ray_tile)
+    arrays, static = _ros_tables(scene, "unset FLT_SORT_RAYS=0")
+    return _trace(o4, d4, tmax_col, arrays, static, any_hit, ray_tile)
+
+
+def closest_hit_mxu(orig: Vec3, d: Vec3, scene: MXUSceneT, t_max=None,
+                    ray_tile: int = RAY_TILE):
+    """Returns (t, tri_idx, u, v) like traverse.closest_hit."""
+    t, tri, u, v, _ = closest_hit_mxu_full(orig, d, scene, t_max, ray_tile)
+    return t, tri, u, v
+
+
+def closest_hit_mxu_full(orig: Vec3, d: Vec3, scene: MXUSceneT, t_max=None,
+                         ray_tile: int = RAY_TILE):
+    """Returns (t, tri, u, v, col): the winner's original triangle id, and
+    t, u, v recomputed from its transform row (``txy_t``). Slim tables
+    without ``txy_t`` return the trace's packed t and u = v = 0, as the
+    reference (mxu_trace.py:1628-1634)."""
+    n = orig.x.shape[0]
+    o4, d4, tmax_col = _ray_inputs(orig, d, scene, t_max, ray_tile)
+    t, i = _single_trace(o4, d4, tmax_col, scene, False, ray_tile,
+                         const_tmax=t_max is None)
+    t = t[:n, 0]
+    i = i[:n, 0]
+    safe = i.clamp_min(0).long()
+    tri = torch.where(i >= 0, scene.tri_map[safe], -1)
+    if scene.txy_t is None:
+        return t, tri, torch.zeros_like(t), torch.zeros_like(t), i
+    tw = scene.txy_t[safe]                                  # [n, 12]
+    O, D = o4[:n], d4[:n]
+
+    def dot4(a, k):
+        return a[:, 0] * tw[:, k] + a[:, 1] * tw[:, k + 1] \
+            + a[:, 2] * tw[:, k + 2] + a[:, 3] * tw[:, k + 3]
+    oz, dz = dot4(O, 8), dot4(D, 8)
+    t = torch.where(i >= 0, -oz / torch.where(dz == 0.0, 1.0, dz), t)
+    u = dot4(O, 0) + t * dot4(D, 0)
+    v = dot4(O, 4) + t * dot4(D, 4)
+    return t, tri, u, v, i
+
+
+def any_hit_mxu(orig: Vec3, d: Vec3, t_max, scene: MXUSceneT,
+                ray_tile: int = RAY_TILE):
+    """Occlusion query. Returns bool [n]."""
+    n = orig.x.shape[0]
+    o4, d4, tmax_col = _ray_inputs(orig, d, scene, t_max, ray_tile)
+    _, i = _single_trace(o4, d4, tmax_col, scene, True, ray_tile)
+    return i[:n, 0] >= 0
 
 
 def _sorted_trace_pair(eo4, ed4, so4, sd4, sh_tmax_col, scene: MXUSceneT):

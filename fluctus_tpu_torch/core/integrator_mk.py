@@ -1,6 +1,21 @@
-"""Film and render statistics types (from the reference package's
-core/integrator_mk.py). The megastep (mk) integrator itself is not ported
-yet; the wavefront integrator uses these types."""
+"""Exact-spp "megastep" integrator (the reference package's
+core/integrator_mk.py; the reference's microkernel path mk_raygen /
+mk_next_vertex / mk_sample_bsdf / mk_splat, driven by Tracer::renderSingle,
+tracer.cpp:108-182), plus the Film and RenderStats types both integrators
+use.
+
+One ``render_sample`` call renders exactly one sample for every pixel:
+camera rays, then ``max_bounces + 1`` bounces of a Python loop, each
+fusing nextVertex (trace + implicit light with MIS, mk_next_vertex.cl:
+72-117) and sampleBsdf (NEE toward the area light, BSDF continuation,
+mk_sample_bsdf.cl:68-187). The per-pixel phase machine becomes an
+``alive`` mask; every lane is traced every bounce. Ported for the
+configurations the port has: the area light with implicit and explicit
+sampling, no env map, no denoiser, no Russian roulette (render_single
+forces it off). MIS weights, offsets (1e-3 shadow origin, 1e-4
+continuation origin) and the lightPickProb = 1 convention are the
+reference's.
+"""
 
 from __future__ import annotations
 
@@ -8,7 +23,13 @@ from typing import NamedTuple
 
 import torch
 
-from ..vec import Vec3
+from .. import bxdf_types as bx
+from ..bsdf import apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample
+from ..geom import RenderConfig, RenderParams
+from ..sampling import pdf_area_to_solid_angle, sample_area_light
+from ..vec import Vec3, dot, is_zero, length, where as vwhere
+from .camera import generate_camera_rays
+from .trace import tangent_space_normal, trace_extension, trace_shadow
 
 
 class Film(NamedTuple):
@@ -38,3 +59,103 @@ class RenderStats(NamedTuple):
                            self.extension_rays + o.extension_rays,
                            self.shadow_rays + o.shadow_rays,
                            self.samples + o.samples)
+
+
+def _bounce(scene, params: RenderParams, cfg: RenderConfig, b: int, s: dict):
+    """One bounce of every lane (integrator_mk.py:114-283)."""
+    light = params.area_light
+    path_len = b + 1      # nextVertex increments before the implicit logic
+    alive, seed, T, Ei = s["alive"], s["seed"], s["T"], s["Ei"]
+    orig, d = s["orig"], s["dir"]
+
+    hit, sp = trace_extension(orig, d, scene, light, True, want_shading=True)
+    ext_count = s["ext_count"] + alive.sum()
+    alive = alive & ~(hit.i < 0)
+
+    # ---- implicit area light hit (mk_next_vertex.cl:96-117) --------------
+    al_hit = alive & (hit.area_light_hit > 0)
+    pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
+    dist = length(hit.P - orig)
+    pdf_w = pdf_area_to_solid_angle(pdf_a, dist, -dot(d, hit.N))
+    w_mis = s["last_pdf_w"] / torch.clamp_min(s["last_pdf_w"] + pdf_w, 1e-30)
+    use_mis = (path_len > 1) & ~s["last_specular"]
+    mis_w = torch.where(use_mis, w_mis, 1.0)
+    Ei = vwhere(al_hit, Ei + T * light.E * mis_w, Ei)
+    alive = alive & ~al_hit
+
+    # ---- surface shading (mk_sample_bsdf.cl) -----------------------------
+    sp = apply_textures(sp, hit.uv_u, hit.uv_v)
+    nrm = tangent_space_normal(hit)
+    backface = dot(nrm, d) > 0.0
+    nrm = vwhere(backface, -nrm, nrm)
+    nee_orig = hit.P - d * 1e-3
+
+    # implicit triangle emission (weight 1; emissive surfaces are never
+    # NEE-sampled), which ends the path
+    em = alive & (sp.type == bx.BXDF_EMISSIVE)
+    Ei = vwhere(em, Ei + T * sp.Ke, Ei)
+    alive = alive & ~em
+    singular = (sp.type & bx.BXDF_SINGULAR_MASK) != 0
+
+    # ---- NEE toward the area light, lightPickProb = 1 --------------------
+    do_nee = alive & ~singular
+    pdf_a, pos_l, seed = sample_area_light(light, seed)
+    L = pos_l - nee_orig
+    len_l = length(L)
+    L = L * (1.0 / torch.clamp_min(len_l, 1e-30))
+    occluded = trace_shadow(nee_orig, L, len_l, scene, None, False)
+    shadow_count = s["shadow_count"] + do_nee.sum()
+    cos_light = torch.clamp_min(dot(light.N, -L), 0.0)
+    brdf = bxdf_eval(nrm, sp, backface, d, L, cfg.material_types)
+    cos_th = torch.clamp_min(dot(L, nrm), 0.0)
+    direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l, cos_light)
+    bsdf_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, d, L,
+                                        cfg.material_types), 0.0)
+    denom = direct_pdf + bsdf_pdf
+    contrib = brdf * T * light.E * (cos_th / torch.clamp_min(denom, 1e-30))
+    ok = do_nee & ~occluded & (cos_light > 0.0)
+    Ei = vwhere(ok, Ei + contrib, Ei)
+
+    # ---- continuation (mk_sample_bsdf.cl:159-187) ------------------------
+    d_new, pdf_w, f, seed = bxdf_sample(nrm, sp, backface, d, seed,
+                                        cfg.material_types)
+    terminate = ~alive | (pdf_w == 0.0) | is_zero(f)
+    new_T = T * f * (dot(nrm, d_new) / torch.where(pdf_w == 0.0, 1.0, pdf_w))
+    new_orig = hit.P + d_new * 1e-4
+    alive = alive & ~terminate
+    return dict(
+        orig=vwhere(alive, new_orig, orig), dir=vwhere(alive, d_new, d),
+        seed=seed, T=vwhere(alive, new_T, T), Ei=Ei, alive=alive,
+        last_pdf_w=torch.where(alive, pdf_w, s["last_pdf_w"]),
+        last_specular=torch.where(alive, singular, s["last_specular"]),
+        shadow_count=shadow_count, ext_count=ext_count)
+
+
+def render_sample(scene, params: RenderParams, film: Film, seed,
+                  config: RenderConfig):
+    """One sample per pixel. seed: [num_pixels] int64 holding uint32.
+    Returns (film, seed, stats). Extension rays count the lanes alive at
+    each bounce, minus the primary rays, as the reference."""
+    cfg = config
+    n = cfg.num_pixels
+    dev = seed.device
+    pixel_idx = torch.arange(n, dtype=torch.int32, device=dev)
+    orig, d, seed = generate_camera_rays(
+        pixel_idx, params.camera, cfg.width, cfg.height,
+        params.world_radius, seed)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    s = dict(orig=orig, dir=d, seed=seed,
+             T=Vec3.ones(n, dev), Ei=Vec3.zeros(n, dev),
+             alive=torch.ones(n, dtype=torch.bool, device=dev),
+             last_pdf_w=torch.ones(n, dtype=torch.float32, device=dev),
+             last_specular=torch.ones(n, dtype=torch.bool, device=dev),
+             shadow_count=zero, ext_count=zero)
+    for b in range(cfg.max_bounces + 1):
+        s = _bounce(scene, params, cfg, b, s)
+
+    # ---- splat (mk_splat.cl:35-47): every path adds its Ei ---------------
+    film = Film(color=film.color + s["Ei"], weight=film.weight + 1.0)
+    counts = torch.stack([s["ext_count"], s["shadow_count"]]).tolist()
+    stats = RenderStats(primary_rays=n, extension_rays=counts[0] - n,
+                        shadow_rays=counts[1], samples=n)
+    return film, s["seed"], stats

@@ -1,8 +1,11 @@
 """Wavefront (throughput) integrator — the port of the reference package's
-core/integrator_wf.py in its default configuration: the block-bound pool
-with the free-running splat (``max_spp == 0``), the area light with MIS
-between implicit hits and NEE, no Russian roulette, no env map, no
-denoiser.
+core/integrator_wf.py in its default configuration: the block-bound pool,
+the area light with MIS between implicit hits and NEE, no Russian
+roulette, no env map, no denoiser. With ``config.max_spp == 0`` the splat
+runs free (K4); with ``max_spp > 0`` the exact spp cap (CHECK_SPP) is on:
+each segment reads the per-pixel spp of every path's pixel (K8), ends the
+paths of full pixels unsplatted, and splats through the capped kernel
+(K7), which admits exactly the pixels' remaining budgets.
 
 A fixed pool of paths is an SoA of [num_tasks] tensors. Each segment runs
 two phases: ``wf_trace_phase`` (extension + shadow trace of the rays staged
@@ -36,7 +39,7 @@ from . import block_splat as bs
 from .camera import generate_camera_rays
 from .integrator_mk import Film
 from .trace import (DeviceScene, tangent_space_normal, trace_extension,
-                    trace_pair)
+                    trace_extension_raw, trace_pair, trace_shadow)
 
 
 class WfPool(NamedTuple):
@@ -122,8 +125,8 @@ def pad_pixels(arr, config: RenderConfig, fill=0):
     return torch.cat([m, pad], dim=1).reshape((g * pk,) + tail)
 
 
-def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0,
-             device="cpu") -> WfState:
+def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0, *,
+             device) -> WfState:
     """wf_reset.cl: clear film, reset pool, seed = lane id (salted by
     FLT_SEED_SALT when set). path_len = -1 marks paths as pre-birth: the
     first segment regenerates them without splatting. Padded dead pixels'
@@ -163,7 +166,7 @@ def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0,
                    curr_pixel=curr0)
 
 
-def wf_state_from_numpy(st: dict, device="cpu") -> WfState:
+def wf_state_from_numpy(st: dict, *, device) -> WfState:
     """WfState from numpy arrays: ``{"pool": {field: array or (x, y, z)},
     "film": {"color": (x, y, z), "weight": array}, "spp": array,
     "curr_pixel": array}`` — e.g. the reference package's wf_reset state,
@@ -196,20 +199,36 @@ def wf_state_to_numpy(state: WfState) -> dict:
                 spp=n(state.spp), curr_pixel=n(state.curr_pixel))
 
 
+def wf_segment(scene: DeviceScene, params: RenderParams, state: WfState,
+               config: RenderConfig):
+    """Advance the wavefront one segment: the trace phase, then the shade
+    phase (integrator_wf.py:263-279). Returns (state, counters)."""
+    raw, occluded = wf_trace_phase(scene, state.pool, params, config)
+    return wf_shade_phase(scene, params, state, config, raw, occluded)
+
+
 def wf_trace_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
                    config: RenderConfig):
     """Extension + shadow traces of the rays staged last segment
-    (wf_extrays.cl / wf_shadowrays.cl) under one shared sort. Non-pending
-    shadow lanes get tmax = 0. Returns (raw=(t, col), occluded)."""
+    (wf_extrays.cl / wf_shadowrays.cl): under one shared sort, or, with
+    ``flags.SORT_RAYS`` off, one by one in lane order. Non-pending shadow
+    lanes get tmax = 0. Returns (raw=(t, col), occluded)."""
     shadow_tmax = torch.where(pool.shadow_pending, pool.shadow_len, 0.0)
-    return trace_pair(pool.orig, pool.dir, pool.shadow_orig,
-                      pool.shadow_dir, shadow_tmax, scene, params.area_light)
+    if flags.SORT_RAYS:
+        return trace_pair(pool.orig, pool.dir, pool.shadow_orig,
+                          pool.shadow_dir, shadow_tmax, scene,
+                          params.area_light)
+    raw = trace_extension_raw(pool.orig, pool.dir, scene)
+    occluded = trace_shadow(pool.shadow_orig, pool.shadow_dir, shadow_tmax,
+                            scene, params.area_light, True)
+    return raw, occluded
 
 
 def wf_resolve_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
                      config: RenderConfig, raw):
     """Winner-attribute resolve + hit construction. Returns (hit, sp)."""
-    return trace_extension(pool.orig, pool.dir, scene, params.area_light, raw)
+    return trace_extension(pool.orig, pool.dir, scene, params.area_light,
+                           True, want_shading=True, raw=raw)
 
 
 def wf_shade_phase(scene: DeviceScene, params: RenderParams, state: WfState,
@@ -248,6 +267,18 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     if cfg.max_bounces > 0:
         terminate |= plen >= (cfg.max_bounces + 1)
 
+    max_samples_reached = torch.zeros(n, dtype=torch.bool, device=dev)
+    if cfg.max_spp > 0:
+        # the cap's value comes from params (spp retargets), its presence
+        # and fallback value from the config (integrator_wf.py:392-406)
+        cap = torch.as_tensor(params.max_spp, dtype=torch.int32, device=dev)
+        spp_cap = torch.where(cap > 0, cap, cfg.max_spp)
+        pix_spp = bs.fetch(torch.remainder(lpid, pk_).to(torch.int32),
+                           state.spp.to(torch.float32)[None, :],
+                           groups=g_local).to(torch.int32)
+        max_samples_reached = pix_spp >= spp_cap
+        terminate |= max_samples_reached
+
     terminate |= is_zero(T) | (pool.last_pdf_w == 0.0)
     terminate |= hit.i < 0
 
@@ -272,7 +303,7 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     Ei = vwhere(unblocked, Ei + contrib, Ei)
 
     # ---- splat terminated paths (wf_logic.cl:171-205) ---------------------
-    splat = terminate & (plen > 0)
+    splat = terminate & (plen > 0) & ~max_samples_reached
     film = state.film
     data_t = torch.stack([torch.where(splat, Ei.x, 0.0),
                           torch.where(splat, Ei.y, 0.0),
@@ -282,7 +313,20 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         torch.int32)
     fmat = torch.stack([film.color.x, film.color.y, film.color.z,
                         film.weight], dim=0)
-    new_mat = bs.splat(local_col, data_t, fmat, groups=g_local)
+    if cfg.max_spp > 0:
+        # each pixel admits exactly its remaining budget (K7); the weight
+        # deltas are whole numbers below 2^24, so rounding them is exact
+        remaining = torch.clamp_min(spp_cap - state.spp, 0).to(
+            torch.float32)[None, :]
+        new_mat = bs.splat(local_col, data_t, fmat, groups=g_local,
+                           remaining=remaining)
+        delta_w = new_mat[3] - film.weight
+        spp_counts = state.spp + torch.round(delta_w).to(torch.int32)
+        n_splatted = torch.round(delta_w.sum()).to(torch.int32)
+    else:
+        new_mat = bs.splat(local_col, data_t, fmat, groups=g_local)
+        spp_counts = state.spp
+        n_splatted = splat.sum()
     film = Film(color=Vec3(new_mat[0], new_mat[1], new_mat[2]),
                 weight=new_mat[3])
 
@@ -402,7 +446,7 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         # like with the reference)
         extension=torch.tensor(n, dtype=torch.int32, device=dev),
         shadow=shadow_pending.sum(),
-        splatted=splat.sum())
-    new_state = WfState(pool=new_pool, film=film, spp=state.spp,
+        splatted=n_splatted)
+    new_state = WfState(pool=new_pool, film=film, spp=spp_counts,
                         curr_pixel=curr_out)
     return new_state, counters

@@ -2,11 +2,14 @@
 resolve, the implicit area-light intersection, and the conversion of the
 resolve matrix into hit records and shading parameters (the reference
 package's core/trace.py, MXU raw-hit path, wf_extrays.cl:16-35 and
-wf_shadowrays.cl:27-33)."""
+wf_shadowrays.cl:27-33): the wavefront's shared-order pair trace
+(``trace_pair``) and the single-set entry points (``trace_extension_raw``,
+``trace_extension``, ``trace_shadow``) of the microkernel integrator, the
+pick and the wavefront with ``flags.SORT_RAYS`` off."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -58,12 +61,27 @@ def shading_from_attrs(row, col) -> ShadingParams:
         map_Ks=rint(mt.ATTR_MAP_KS))
 
 
+def trace_extension_raw(orig: Vec3, d: Vec3, scene: DeviceScene):
+    """Closest hit without the resolve: (t, winner col) of one ray set
+    (trace.py:118-140) — sorted when ``flags.SORT_RAYS``, else the
+    rays-on-sublanes trace (K9) in lane order, which slim tables refuse."""
+    n = orig.x.shape[0]
+    rt = mt.RAY_TILE
+    o4, d4, tmax_col = mt._ray_inputs(orig, d, scene.mxu, None, rt)
+    t2, col2 = mt._single_trace(o4, d4, tmax_col, scene.mxu, False, rt,
+                                const_tmax=True)
+    return t2[:n, 0], col2[:n, 0]
+
+
 def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
-                    area_light: AreaLight, raw):
-    """Hit record + shading parameters of the closest hits given by a
-    trace's raw (t, winner col), plus the implicit area-light quad
-    (wf_extrays.cl:26-29). Returns (Hit, ShadingParams)."""
-    t, col = raw
+                    area_light: Optional[AreaLight], check_area_light,
+                    want_shading: bool = False, raw=None):
+    """Closest hit + optional implicit area-light quad (wf_extrays.cl:
+    26-29): the winner resolve of ``raw`` = (t, col) from an earlier trace,
+    or of ``trace_extension_raw`` when raw is None. check_area_light: bool
+    (or bool tensor) gating the light (sampleImpl && useAreaLight).
+    Returns Hit, or (Hit, ShadingParams) when want_shading."""
+    t, col = raw if raw is not None else trace_extension_raw(orig, d, scene)
     row = mt.resolve_hits_mxu(orig, d, t, col, scene.mxu)
     t = torch.where(col >= 0, row[mt.ATTR_HITT], t)
     nrm = Vec3(row[mt.ATTR_N], row[mt.ATTR_N + 1], row[mt.ATTR_N + 2])
@@ -74,8 +92,11 @@ def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
               uv_u=row[mt.ATTR_UV], uv_v=row[mt.ATTR_UV + 1],
               t=t, i=tri, area_light_hit=torch.zeros_like(tri),
               mat_id=mat_id)
-    sp = shading_from_attrs(row, col)
+    sp = shading_from_attrs(row, col) if want_shading else None
+    if area_light is None:
+        return (hit, sp) if want_shading else hit
     l_hit, l_t = intersect_area_light(orig, d, area_light, hit.t)
+    l_hit = l_hit & check_area_light
     shp = t.shape
     hit = Hit(
         P=vwhere(l_hit, orig + d * l_t, hit.P),
@@ -87,7 +108,7 @@ def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
         i=torch.where(l_hit, 0, hit.i),            # intersect.cl:152
         area_light_hit=torch.where(l_hit, 1, hit.area_light_hit),
         mat_id=torch.where(l_hit, 0, hit.mat_id))  # intersect.cl:153
-    return hit, sp
+    return (hit, sp) if want_shading else hit
 
 
 def trace_pair(orig: Vec3, d: Vec3, sorig: Vec3, sdir: Vec3, max_len,
@@ -98,6 +119,17 @@ def trace_pair(orig: Vec3, d: Vec3, sorig: Vec3, sdir: Vec3, max_len,
     t, col, occ = mt.trace_pair_mxu(orig, d, sorig, sdir, max_len, scene.mxu)
     l_hit, _ = intersect_area_light(sorig, sdir, area_light, max_len)
     return (t, col), occ | l_hit
+
+
+def trace_shadow(orig: Vec3, d: Vec3, max_len, scene: DeviceScene,
+                 area_light: Optional[AreaLight], check_area_light):
+    """Occlusion query (any_hit_mxu), including the area-light body when a
+    light is given (wf_shadowrays.cl:27-33)."""
+    occ = mt.any_hit_mxu(orig, d, max_len, scene.mxu)
+    if area_light is not None:
+        l_hit, _ = intersect_area_light(orig, d, area_light, max_len)
+        occ = occ | (l_hit & check_area_light)
+    return occ
 
 
 def tangent_space_normal(hit: Hit) -> Vec3:

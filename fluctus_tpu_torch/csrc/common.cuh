@@ -44,6 +44,23 @@ __device__ __forceinline__ Ray load_ray(const float* R, int rt, int r) {
   return y;
 }
 
+// One ray of the reference's row-major [b, 4] layouts: o = (ox oy oz 1),
+// d = (dx dy dz 0) at row r.
+__device__ __forceinline__ Ray load_ray_rows(const float* o4, const float* d4,
+                                             size_t r) {
+  Ray y;
+  y.o0 = o4[4 * r + 0];
+  y.o1 = o4[4 * r + 1];
+  y.o2 = o4[4 * r + 2];
+  y.d0 = d4[4 * r + 0];
+  y.d1 = d4[4 * r + 1];
+  y.d2 = d4[4 * r + 2];
+  y.i0 = safe_inv(y.d0);
+  y.i1 = safe_inv(y.d1);
+  y.i2 = safe_inv(y.d2);
+  return y;
+}
+
 // Exact per-ray slab test of the box b (bmin at b[0..2], bmax at b[3..5]):
 // the ray enters it in front of the origin and before t_best.
 __device__ __forceinline__ bool slab_hit(const float* b, const Ray& y,
@@ -85,15 +102,33 @@ __device__ __forceinline__ void stage_cluster(float* sT, const float* t12,
   __syncthreads();
 }
 
+// Stage cluster c's transforms from their x/y/z columns tx/ty/tz
+// [4, m_pad] (rows of tx are t12's rows 0-3, ty's 4-7, tz's 8-11) into the
+// same [12, tc] shared-memory block as stage_cluster, then wait for the
+// whole block.
+__device__ __forceinline__ void stage_cluster_xyz(
+    float* sT, const float* tx, const float* ty, const float* tz, int c,
+    int tc, long long m_pad) {
+  const long long base = (long long)c * tc;
+  for (int k = threadIdx.x; k < 12 * tc; k += blockDim.x) {
+    const int row = k / tc;
+    const float* src = row < 4 ? tx : (row < 8 ? ty : tz);
+    sT[k] = src[(long long)(row & 3) * m_pad + base + (k % tc)];
+  }
+  __syncthreads();
+}
+
 // One ray against all tc triangles of the staged cluster c:
 //   t = -oz/dz, u = ox + t*dx, v = oy + t*dy,
 //   valid = dz != 0 & t > 0 & min(u, v, 1-u-v) >= 0.
 // Closest hit keeps the minimum packed key (bits(t) & ~(tc-1)) | row
 // (invalid -> 0x7F800000) and updates on a strict tmin < t_best, col =
-// row + c*tc; t_best becomes the quantized key value. Any hit sets i = 1,
-// t = 0 at its first valid t < t_best and leaves, which gives the
-// reference's min-then-compare verdict; a blocked ray (t_best = 0) admits
-// nothing, so it skips the sweep.
+// row + c*tc; t_best becomes the quantized key value. Any hit blocks the
+// ray (i = 1, t = 0) iff min over the cluster of (valid ? t : F32_MAX) <
+// t_best, the reference's verdict: at the first valid t < t_best it leaves
+// early; past the loop only the F32_MAX of an invalid triangle can still
+// be below t_best, which happens when t_best is +inf. A blocked ray
+// (t_best = 0) admits nothing, so it skips the sweep.
 template <bool ANY_HIT>
 __device__ __forceinline__ void sweep_cluster(const float* sT, int tc, int c,
                                               const Ray& y, float& t_best,
@@ -101,6 +136,7 @@ __device__ __forceinline__ void sweep_cluster(const float* sT, int tc, int c,
   const int rowbits = tc - 1;
   if (ANY_HIT) {
     if (i_best >= 0) return;
+    bool any_invalid = false;
     for (int j = 0; j < tc; ++j) {
       const float* T = sT + j;
       const float oz = y.o0 * T[8 * tc] + y.o1 * T[9 * tc] +
@@ -122,6 +158,11 @@ __device__ __forceinline__ void sweep_cluster(const float* sT, int tc, int c,
         t_best = 0.0f;
         return;
       }
+      any_invalid = any_invalid || !valid;
+    }
+    if (any_invalid && F32_MAX < t_best) {
+      i_best = 1;
+      t_best = 0.0f;
     }
   } else {
     int kmin = 0x7F800000;

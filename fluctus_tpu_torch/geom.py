@@ -34,7 +34,7 @@ class Camera(NamedTuple):
 
     @staticmethod
     def make(pos, dir, up, right, fov=60.0, aperture_size=0.0,
-             focal_dist=0.5, device="cpu"):
+             focal_dist=0.5, *, device):
         return Camera(
             pos=Vec3.of(*pos, device=device), dir=Vec3.of(*dir, device=device),
             up=Vec3.of(*up, device=device),
@@ -55,7 +55,7 @@ class AreaLight(NamedTuple):
     size_y: torch.Tensor
 
     @staticmethod
-    def make(pos, N, right, up, E, size, device="cpu"):
+    def make(pos, N, right, up, E, size, *, device):
         v = lambda t: Vec3.of(*t, device=device)
         return AreaLight(pos=v(pos), N=v(N), right=v(right), up=v(up),
                          E=v(E), size_x=_f32(size[0], device),
@@ -73,18 +73,23 @@ class RenderParams(NamedTuple):
     area_light: AreaLight
     world_radius: torch.Tensor
     pp: PostProcessParams
+    # the spp cap's value (0-dim int32, or a plain int): the reference's
+    # params.maxSpp kernel argument; RenderConfig.max_spp > 0 gates it
+    max_spp: torch.Tensor = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render flags plus film geometry (the reference's kernel
     defines). The port renders the reference's default configuration: the
-    block-bound pool with the free-running splat, the area light, implicit
-    and explicit light sampling, no Russian roulette, no env map and no
-    denoiser; those switches are not ported yet."""
+    block-bound pool, the area light, implicit and explicit light sampling,
+    no Russian roulette, no env map and no denoiser; those switches are not
+    ported yet. ``max_spp > 0`` switches on the exact spp cap (CHECK_SPP):
+    its value comes from ``RenderParams.max_spp`` when that is > 0."""
     width: int
     height: int
     max_bounces: int = 4
+    max_spp: int = 0                # 0 = unbounded (CHECK_SPP off)
     material_types: int = 0         # OR of BXDF type bits present in scene
     # block-bound wavefront pool: `groups` groups of pool lanes, each bound
     # to one contiguous pixel block with its own raygen ring

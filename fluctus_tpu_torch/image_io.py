@@ -1,4 +1,5 @@
-"""Image output: an 8-bit RGB PNG writer on zlib alone."""
+"""Image output: an 8-bit RGB PNG writer on zlib alone, and Radiance .hdr
+through rgbe.py."""
 
 from __future__ import annotations
 
@@ -6,6 +7,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from . import rgbe
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -24,3 +27,8 @@ def save_png(path: str, rgb: np.ndarray):
         f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
         f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
         f.write(_chunk(b"IEND", b""))
+
+
+def save_hdr(path: str, rgb: np.ndarray):
+    """rgb: float [H, W, 3] linear radiance."""
+    rgbe.write_hdr(path, np.asarray(rgb, np.float32))

@@ -1,6 +1,8 @@
 """High-level renderer (src/tracer.cpp; the reference package's
 renderer.py): scene load -> BVH -> cluster tables -> device upload, render
-parameters, the free-running wavefront loop and image output.
+parameters, the free-running wavefront loop, exact-spp rendering
+(``render_single``: the capped wavefront, or the microkernel megastep
+under ``flags.FORCE_MK``), picking and image output.
 
 ``Renderer`` runs on ``"cuda"`` unless the caller passes ``device="cpu"``
 (the CPU tests, which then run each kernel's plain PyTorch version).
@@ -15,17 +17,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import flags
 from .accel import build_bvh
 from .accel import mxu_trace as mt
 from .native import build_bvh_native
 from .bsdf import check_lobes
-from .core.integrator_mk import Film, RenderStats
-from .core.integrator_wf import (unpad_pixels, wf_reset, wf_shade_phase,
-                                 wf_trace_phase)
+from .core.camera import generate_camera_rays
+from .core.integrator_mk import Film, RenderStats, render_sample
+from .core.integrator_wf import (unpad_pixels, wf_reset, wf_segment,
+                                 wf_shade_phase, wf_trace_phase)
 from .core.tonemap import postprocess
-from .core.trace import DeviceScene
+from .core.trace import DeviceScene, trace_extension
 from .geom import AreaLight, Camera, PostProcessParams, RenderConfig, RenderParams
-from .image_io import save_png
+from .image_io import save_hdr, save_png
 from .scene import Scene
 from .settings import Settings
 
@@ -52,8 +56,14 @@ class Renderer:
         self.device_scene: Optional[DeviceScene] = None
         self.config: Optional[RenderConfig] = None
         self.params: Optional[RenderParams] = None
+        self.film: Optional[Film] = None
+        self.seed = None
+        self.stats = RenderStats.zeros()
         self.exposure = 1.0
         self._wf_state = None
+        self._wf_cfg: Optional[RenderConfig] = None
+        self._wf_exact_mode = False
+        self._film_src = "mk"
 
     # -- scene lifecycle (Tracer::init) -------------------------------------
     def load_scene(self, scene_file: str):
@@ -61,7 +71,7 @@ class Renderer:
         builder past 20,000 triangles, as the reference) and cluster
         tables (slim past 65,536), and upload them. Env maps, saved render
         state and BVH/table caches are not ported yet. ``load_seconds``
-        keeps the host time of each step."""
+        keeps the host time of each step. Ends with ``reset()``."""
         t0 = time.perf_counter()
         scene = Scene()
         scene.load_model(scene_file)
@@ -86,6 +96,7 @@ class Renderer:
         self.world_radius = scene.world_radius()
         self._derive_config()
         self.params = self._make_params()
+        self.reset()
 
     def _derive_config(self):
         """Static RenderConfig from the settings and film size. The pool
@@ -109,7 +120,7 @@ class Renderer:
                 "block-bound pool; the flat pixel ring is not ported yet")
         self.config = RenderConfig(
             width=self.width, height=self.height,
-            max_bounces=s.max_path_depth,
+            max_bounces=s.max_path_depth, max_spp=s.max_spp,
             material_types=self.scene.material_types, groups=groups)
 
     def _make_params(self) -> RenderParams:
@@ -127,7 +138,91 @@ class Renderer:
             camera=cam, area_light=light,
             world_radius=f32(self.world_radius),
             pp=PostProcessParams(exposure=f32(self.exposure),
-                                 tm_operator=int(s.tonemap)))
+                                 tm_operator=int(s.tonemap)),
+            max_spp=torch.tensor(s.max_spp, dtype=torch.int32, device=dev))
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- exact-spp rendering (Tracer::renderSingle) ---------------------------
+    def reset(self):
+        """Accumulation reset (wf_reset analogue): a zero film, seeds = pixel
+        ids (int64 holding uint32), zero stats, and a fresh start for the
+        exact-spp wavefront's accumulation."""
+        n = self.config.num_pixels
+        self.film = Film.zeros(n, self.device)
+        self.seed = torch.arange(n, dtype=torch.int64, device=self.device)
+        self.stats = RenderStats.zeros()
+        self._wf_exact_state = None
+        self._wf_exact_target = 0
+
+    def render_single(self, spp: int):
+        """Exact-spp batch render (Tracer::renderSingle): ``spp`` more
+        samples for every pixel, accumulated into ``self.film``. The
+        exact-spp wavefront (``render_single_wavefront``), or with
+        ``flags.FORCE_MK`` the microkernel megastep, one ``render_sample``
+        per sample. Russian roulette is off in both, as the reference
+        forces it (the port has none)."""
+        if not flags.FORCE_MK:
+            return self.render_single_wavefront(spp, accumulate=True)
+        for _ in range(spp):
+            self.film, self.seed, st = render_sample(
+                self.device_scene, self.params, self.film, self.seed,
+                self.config)
+            self.stats = self.stats + st
+        self._sync()
+        self._film_src = "mk"
+        return self.film
+
+    def render_single_wavefront(self, spp: int,
+                                num_tasks: Optional[int] = None,
+                                max_segments: int = 100000,
+                                accumulate: bool = False):
+        """Exact-spp render on the wavefront with the CHECK_SPP cap
+        (wf_logic.cl:76-84): segments run, 16 between checks of the least
+        per-pixel spp, until every pixel has its target. With
+        ``accumulate`` the call continues the persistent exact state for
+        ``spp`` more samples per pixel (renderSingle's progressive
+        contract); otherwise it starts from a fresh pool. Leaves the film
+        in ``self.film`` and adds the segments' counters to ``self.stats``.
+        Continuing an accumulation restored into ``self.film`` (the
+        reference's checkpoint branch, renderer.py:629-643) waits for
+        checkpoints to be ported, and raises."""
+        cfg = self.config.replace(max_spp=1)
+        n_tasks = num_tasks or self.settings.wf_buffer_size
+        state = self._wf_exact_state
+        if not accumulate or state is None or \
+                state.pool.seed.shape[0] != n_tasks:
+            if accumulate and float(self.film.weight.max()) > 0:
+                raise NotImplementedError(
+                    "continuing an exact-spp accumulation from self.film "
+                    "(checkpoints, mk renders) is not ported; call reset()")
+            state = wf_reset(cfg, n_tasks, world_radius=self.world_radius,
+                             device=self.device)
+            self._wf_exact_target = 0
+        target = self._wf_exact_target + spp
+        params = self.params._replace(max_spp=torch.tensor(
+            target, dtype=torch.int32, device=self.device))
+        done = 0
+        counters = []
+        while done < max_segments:
+            for _ in range(16):
+                state, c = wf_segment(self.device_scene, params, state, cfg)
+                counters.append(c)
+                done += 1
+            if int(state.spp.min()) >= target:
+                break
+        self.film = self._unpad_film(state.film)
+        self._film_src = "mk"
+        self._wf_exact_state = state
+        self._wf_exact_target = target
+        self._wf_state = state
+        self._wf_cfg = cfg
+        self._wf_exact_mode = True      # render_wavefront must re-init
+        self._wf_counters = counters
+        self.stats = self.stats + self.wavefront_stats()
+        return self.film
 
     # -- wavefront (throughput) mode ------------------------------------------
     def init_wavefront(self, num_tasks: Optional[int] = None):
@@ -135,6 +230,8 @@ class Renderer:
         up camera/light edits made to the settings since load_scene."""
         self.num_tasks = num_tasks or self.settings.wf_buffer_size
         self.params = self._make_params()
+        self._wf_cfg = self.config
+        self._wf_exact_mode = False
         self._wf_state = wf_reset(self.config, self.num_tasks,
                                   world_radius=self.world_radius,
                                   device=self.device)
@@ -142,8 +239,13 @@ class Renderer:
 
     def render_wavefront(self, segments: int, sync: bool = True):
         """Advance the wavefront `segments` steps: per segment the trace
-        phase, then the shade phase (resolve fused with the logic)."""
-        cfg = self.config
+        phase, then the shade phase (resolve fused with the logic). After
+        an exact-spp render the pool is re-initialized first (the capped
+        state would block every splat), as the reference does."""
+        self._film_src = "wf"
+        if self._wf_exact_mode:
+            self.init_wavefront(getattr(self, "num_tasks", None))
+        cfg = self._wf_cfg
         for _ in range(segments):
             raw, occ = wf_trace_phase(self.device_scene, self._wf_state.pool,
                                       self.params, cfg)
@@ -151,8 +253,8 @@ class Renderer:
                 self.device_scene, self.params, self._wf_state, cfg, raw,
                 occ)
             self._wf_counters.append(cnt)
-        if sync and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if sync:
+            self._sync()
         return self._wf_state
 
     def wavefront_stats(self) -> RenderStats:
@@ -165,23 +267,84 @@ class Renderer:
                            for c in self._wf_counters]).sum(dim=0).tolist()
         return RenderStats(*mat)
 
-    def wavefront_film(self) -> Film:
-        film = self._wf_state.film
+    def _unpad_film(self, film: Film) -> Film:
         un = lambda a: unpad_pixels(a, self.config)
         return Film(color=type(film.color)(*(un(a) for a in film.color)),
                     weight=un(film.weight))
 
+    def wavefront_film(self) -> Film:
+        return self._unpad_film(self._wf_state.film)
+
     # -- output --------------------------------------------------------------
+    def current_film(self) -> Film:
+        """The live accumulation: the wavefront state's film while the last
+        render call was a free-running ``render_wavefront``, else the
+        ``self.film`` both render_single routes keep."""
+        if self._film_src == "wf" and self._wf_state is not None:
+            return self.wavefront_film()
+        return self.film
+
     def ldr_image(self) -> np.ndarray:
         """Postprocessed [H, W, 3] float in [0, 1]; row 0 of the film is the
         bottom scanline, images store top-first."""
-        film = self.wavefront_film()
+        film = self.current_film()
         rgb = postprocess(film.color, film.weight, self.params.pp.exposure,
                           self.params.pp.tm_operator)
         arr = torch.stack([rgb.x, rgb.y, rgb.z], dim=-1).cpu().numpy()
         return np.clip(arr.reshape(self.height, self.width, 3)[::-1], 0.0,
                        1.0)
 
+    def hdr_image(self) -> np.ndarray:
+        """The mean radiance per pixel, [H, W, 3] top-first."""
+        film = self.current_film()
+        w = torch.clamp_min(film.weight, 1e-30)
+        arr = torch.stack([film.color.x / w, film.color.y / w,
+                           film.color.z / w], dim=-1).cpu().numpy()
+        return arr.reshape(self.height, self.width, 3)[::-1]
+
     def save_image(self, path: str):
-        """Write the current wavefront film as an 8-bit PNG."""
-        save_png(path, self.ldr_image())
+        """Write the current film: Radiance .hdr for a ``.hdr`` path, else
+        an 8-bit PNG."""
+        if path.endswith(".hdr"):
+            save_hdr(path, self.hdr_image())
+        else:
+            save_png(path, self.ldr_image())
+
+    # -- picking (kernel_pick.cl / Tracer::pickDofDepth) ----------------------
+    def pick_single(self, ndc_x: float, ndc_y: float):
+        """Cast one camera ray through NDC coords (clamped to [0, 1]);
+        returns (hit, t, tri) (CLContext::pickSingle, clcontext.cpp:
+        934-949)."""
+        px = int(min(max(ndc_x, 0.0), 1.0) * (self.width - 1))
+        py = int(min(max(ndc_y, 0.0), 1.0) * (self.height - 1))
+        dev = self.device
+        pixel = torch.tensor([py * self.width + px], dtype=torch.int32,
+                             device=dev)
+        orig, d, _ = generate_camera_rays(
+            pixel, self.params.camera, self.width, self.height,
+            self.params.world_radius, torch.zeros(1, dtype=torch.int64,
+                                                  device=dev))
+        hit = trace_extension(orig, d, self.device_scene, None, False)
+        t, tri = float(hit.t[0]), int(hit.i[0])
+        return tri >= 0, t, tri
+
+    def pick_dof_depth(self, ndc_x: float, ndc_y: float) -> bool:
+        """Set the focal distance from a scene pick (tracer.cpp:
+        1073-1085)."""
+        ok, t, _ = self.pick_single(ndc_x, ndc_y)
+        if ok:
+            self.settings.camera.focal_dist = t
+            self.params = self._make_params()
+        return ok
+
+    # -- perf (clcontext.cpp:666-674 definitions) ----------------------------
+    def perf_mrays(self, elapsed_s: float) -> dict:
+        """Millions of rays (and samples) per second of ``self.stats``."""
+        st = self.stats
+        scale = 1e6 * max(elapsed_s, 1e-9)
+        prim = st.primary_rays / scale
+        ext = st.extension_rays / scale
+        shdw = st.shadow_rays / scale
+        samp = st.samples / scale
+        return dict(primary=prim, extension=ext, shadow=shdw, samples=samp,
+                    total=prim + ext + shdw)

@@ -86,7 +86,7 @@ def infer_type(m: HostMaterial, shader_set_ok: bool) -> int:
     return t
 
 
-def materials_to_soa(materials: List[HostMaterial], device="cpu"):
+def materials_to_soa(materials: List[HostMaterial], *, device):
     """Host material list -> device MaterialsSoA of tensors."""
     import torch
     from ..geom import MaterialsSoA

@@ -194,8 +194,8 @@ class Scene:
         return lut if hit else None
 
     # -- device upload ------------------------------------------------------
-    def device_materials(self, device="cpu"):
-        return materials_to_soa(self.materials, device)
+    def device_materials(self, *, device):
+        return materials_to_soa(self.materials, device=device)
 
     def scene_bounds(self):
         p, _, _, _ = self.triangle_arrays()

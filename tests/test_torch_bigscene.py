@@ -397,15 +397,15 @@ def test_g_wavefront_slice(grid, tables, reference_sc_kernels):
                  use_area_light=True, material_types=types, backend="mxu",
                  block_ring=True, groups=GROUPS)
     ts = TDeviceScene(mxu=tsc, material_types=types)
-    tp = TParams(camera=TCamera.make(**CAM),
-                 area_light=TAreaLight.make(**LIGHT),
+    tp = TParams(camera=TCamera.make(**CAM, device="cpu"),
+                 area_light=TAreaLight.make(**LIGHT, device="cpu"),
                  world_radius=torch.tensor(wr, dtype=torch.float32),
                  pp=TPP(torch.tensor(1.0), 2))
     tc = TConfig(width=W, height=H, max_bounces=10, material_types=types,
                  groups=GROUPS)
 
     jst = jwf.wf_reset(jc, PATHS, world_radius=wr)
-    tst = twf.wf_state_from_numpy(_jax_state_to_numpy(jst))
+    tst = twf.wf_state_from_numpy(_jax_state_to_numpy(jst), device="cpu")
     from fluctus_tpu_torch.kernel_build import reset_counts
     reset_counts()
     for seg in range(4):

@@ -99,4 +99,37 @@ def test_wrappers_route_by_device():
         mt.resolve_v5s(*(t.to("meta") for t in (col, rays, rays, b16r,
                                                  t16r)))
     assert set(kb.KERNELS) == {"tile_order", "trace_rol", "resolve_v5",
-                               "block_splat", "trace_rol_sc", "resolve_v5s"}
+                               "block_splat", "trace_rol_sc", "resolve_v5s",
+                               "block_splat_capped", "fetch", "trace_ros"}
+    rem = torch.zeros((1, 2 * 128))
+    assert bs.splat(local, data, film, groups=2, remaining=rem).sum() == 0
+    assert bs.fetch(local, film[3:], groups=2).shape == (4,)
+    assert (bs.K7.plain_runs, bs.K8.plain_runs, bs.K4.plain_runs) == (1, 1, 1)
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        bs.fetch(local.to("meta"), film[3:].to("meta"), groups=2)
+
+
+def test_helpers_require_a_device():
+    """The constructors of render state take the device as a required
+    keyword: leaving it out is a TypeError, never a CPU default."""
+    from fluctus_tpu_torch.core import integrator_wf as wf
+    from fluctus_tpu_torch.geom import AreaLight, Camera, RenderConfig
+    from fluctus_tpu_torch.scene import Scene
+    from fluctus_tpu_torch.scene.material import (default_material,
+                                                  materials_to_soa)
+    cfg = RenderConfig(width=16, height=8, groups=4)
+    calls = [
+        lambda **k: wf.wf_reset(cfg, 64, **k),
+        lambda **k: wf.wf_state_from_numpy(wf.wf_state_to_numpy(
+            wf.wf_reset(cfg, 64, device="cpu")), **k),
+        lambda **k: Camera.make((0, 0, 0), (0, 0, -1), (0, 1, 0), (1, 0, 0),
+                                **k),
+        lambda **k: AreaLight.make((0, 1, 0), (0, -1, 0), (1, 0, 0),
+                                   (0, 0, 1), (1, 1, 1), (1, 1), **k),
+        lambda **k: materials_to_soa([default_material()], **k),
+        lambda **k: Scene().device_materials(**k),
+    ]
+    for call in calls:
+        with pytest.raises(TypeError, match="device"):
+            call()
+        call(device="cpu")

@@ -72,7 +72,7 @@ def test_camera_rays_within_2ulp():
             jnp.asarray(pid), JCamera.make(**kw), w, h, jnp.float32(2.5),
             jnp.asarray(seeds))
         to, td, ts = tcam.generate_camera_rays(
-            torch.from_numpy(pid), TCamera.make(**kw), w, h,
+            torch.from_numpy(pid), TCamera.make(**kw, device="cpu"), w, h,
             torch.tensor(2.5), torch.from_numpy(seeds.astype(np.int64)))
         np.testing.assert_array_equal(np.asarray(js).astype(np.int64),
                                       ts.numpy())

@@ -126,7 +126,7 @@ def test_materials_to_soa(luxball):
     reference pads its table to 128 rows for the TPU; the port does not)."""
     from fluctus_tpu.scene.material import materials_to_soa as jsoa
     js, ts = luxball
-    j, t = jsoa(js.materials), ts.device_materials("cpu")
+    j, t = jsoa(js.materials), ts.device_materials(device="cpu")
     m = len(ts.materials)
     for name in t._fields:
         a, b = getattr(j, name), getattr(t, name)

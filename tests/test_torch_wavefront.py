@@ -112,8 +112,8 @@ def _setup():
                    block_ring=True, groups=GROUPS)
     tscene = TDeviceScene(mxu=tmt.tables_from_numpy(host, st, "cpu"),
                           material_types=types)
-    tparams = TParams(camera=TCamera.make(**CAM),
-                      area_light=TAreaLight.make(**LIGHT),
+    tparams = TParams(camera=TCamera.make(**CAM, device="cpu"),
+                      area_light=TAreaLight.make(**LIGHT, device="cpu"),
                       world_radius=torch.tensor(wr, dtype=torch.float32),
                       pp=TPP(torch.tensor(1.0), 2))
     tcfg = TConfig(width=W, height=H, max_bounces=10, material_types=types,
@@ -127,7 +127,7 @@ def test_wavefront_slice_matches_reference(reference_kernels):
     exact; film rgb rtol 1e-5 (atol 1e-6 for near-black pixels)."""
     (js, jp, jc), (ts, tp, tc), wr = _setup()
     jst = jwf.wf_reset(jc, PATHS, world_radius=wr)
-    tst = twf.wf_state_from_numpy(_jax_state_to_numpy(jst))
+    tst = twf.wf_state_from_numpy(_jax_state_to_numpy(jst), device="cpu")
     for seg in range(SEGMENTS):
         raw, occ = jwf.wf_trace_phase(js, jst.pool, jp, jc)
         jst, jcnt = jwf.wf_shade_phase(js, jp, jst, jc, raw, occ)
@@ -148,8 +148,8 @@ def test_wavefront_slice_matches_reference(reference_kernels):
 
 def test_state_numpy_round_trip():
     cfg = TConfig(width=W, height=H, groups=GROUPS)
-    st = twf.wf_reset(cfg, PATHS, world_radius=3.0)
-    back = twf.wf_state_from_numpy(twf.wf_state_to_numpy(st))
+    st = twf.wf_reset(cfg, PATHS, world_radius=3.0, device="cpu")
+    back = twf.wf_state_from_numpy(twf.wf_state_to_numpy(st), device="cpu")
     for a, b in zip(torch.utils._pytree.tree_leaves(st),
                     torch.utils._pytree.tree_leaves(back)):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -198,7 +198,8 @@ def test_renderer_cpu_end_to_end(tmp_path):
         assert torch.isfinite(c).all()
     assert float(film.weight.sum()) == st.samples > 0
 
-    state = twf.wf_reset(r.config, 2048, world_radius=r.world_radius)
+    state = twf.wf_reset(r.config, 2048, world_radius=r.world_radius,
+                          device="cpu")
     total = np.zeros(4, np.int64)
     for _ in range(3):
         raw, occ = twf.wf_trace_phase(r.device_scene, state.pool, r.params,
