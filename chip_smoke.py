@@ -53,7 +53,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    trace_ros_plain (columns and t bit-equal) and timed beside K2 on the
    same rays sorted (6b); pick_single at the image centre against
    closest_hit_mxu_full (6c).
-7. the kernels line, the card line, then the final result line.
+8. the K10 route: luxball's tables written as a table cache without B16
+   (0-d b16t/attr_b16, under the reference's file name) load through
+   Renderer.load_scene, so resolve_hits_mxu takes K10 (csrc/resolve_v1.cu)
+   by the tables' content. 8a: K10's recorded inputs of segments 2 and 4
+   held bit for bit to resolve_v1_plain and, on the same winners, to K3 on
+   the B16 tables within the reference's v5-vs-v1 gate; timed. 8b: the
+   1080p/1M wavefront on those tables (launches per segment K1 2, K2 2,
+   K10 1, K4 1, K3 0), its tonemapped mean within 1% of phase 3's B16
+   route after the same segments, one profiled segment (K10's share of
+   device time), and render_single(4) exact. 8c: whole-path parity
+   through the kernels and the plain versions on those tables, film and
+   spp equal. 8d: the 8x8 grid loaded cold, then warm from its BVH and
+   table caches: host seconds, cache hits, device tables and the films
+   of 4 segments equal, the cache files' sizes.
+9. the kernels line, the card line, then the final result line.
+
+Every renderer loads with a fresh temporary ``data_dir`` (removed at the
+end), so phases 2-6 load cold as before (now writing the caches) and
+nothing is written under the repository's data/.
 
 Prints nothing of the result and exits non-zero without CUDA or without
 the package beside it.
@@ -62,9 +80,11 @@ the package beside it.
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEGMENTS = 24
@@ -82,15 +102,23 @@ EXACT_SPP = 16
 MK_SPP = 2
 MK_MEAN_GATE = 0.15        # tests/test_render_single_wf.py:35-38
 _ZERO = {"trace_rol_sc": 0, "resolve_v5s": 0, "block_splat_capped": 0,
-         "fetch": 0, "trace_ros": 0}
+         "fetch": 0, "trace_ros": 0, "resolve_v1": 0}
 PER_SEGMENT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
                "block_splat": 1, **_ZERO}
 PER_SEGMENT_LARGE = {"tile_order": 2, "trace_rol_sc": 2, "resolve_v5s": 1,
                      "block_splat": 1, "trace_rol": 0, "resolve_v5": 0,
-                     "block_splat_capped": 0, "fetch": 0, "trace_ros": 0}
+                     "block_splat_capped": 0, "fetch": 0, "trace_ros": 0,
+                     "resolve_v1": 0}
 PER_SEGMENT_EXACT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
                      "block_splat": 0, "trace_rol_sc": 0, "resolve_v5s": 0,
-                     "block_splat_capped": 1, "fetch": 1, "trace_ros": 0}
+                     "block_splat_capped": 1, "fetch": 1, "trace_ros": 0,
+                     "resolve_v1": 0}
+# the same paths on tables without B16: K10 takes K3's place
+PER_SEGMENT_K10 = {**PER_SEGMENT, "resolve_v5": 0, "resolve_v1": 1}
+PER_SEGMENT_EXACT_K10 = {**PER_SEGMENT_EXACT, "resolve_v5": 0,
+                         "resolve_v1": 1}
+K10_SPP = 4
+BIAS_GATE = 0.01           # the 1% tonemapped-mean bias gate (ROADMAP)
 # per bounce of a sample: one extension and one shadow trace, one resolve
 PER_BOUNCE_MK = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
                  "block_splat": 0, **_ZERO}
@@ -104,7 +132,8 @@ SOURCES = {"tile_order": "fluctus_tpu_torch/csrc/tile_order.cu",
            "block_splat_capped":
                "fluctus_tpu_torch/csrc/block_splat_capped.cu",
            "fetch": "fluctus_tpu_torch/csrc/fetch.cu",
-           "trace_ros": "fluctus_tpu_torch/csrc/trace_ros.cu"}
+           "trace_ros": "fluctus_tpu_torch/csrc/trace_ros.cu",
+           "resolve_v1": "fluctus_tpu_torch/csrc/resolve_v1.cu"}
 REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "trace_rol": "fluctus_tpu/accel/mxu_trace.py:736",
             "resolve_v5": "fluctus_tpu/accel/mxu_trace.py:1745",
@@ -113,7 +142,8 @@ REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "resolve_v5s": "fluctus_tpu/accel/mxu_trace.py:1894",
             "block_splat_capped": "fluctus_tpu/core/block_splat.py:116",
             "fetch": "fluctus_tpu/core/block_splat.py:147",
-            "trace_ros": "fluctus_tpu/accel/mxu_trace.py:630"}
+            "trace_ros": "fluctus_tpu/accel/mxu_trace.py:630",
+            "resolve_v1": "fluctus_tpu/accel/mxu_trace.py:1669"}
 
 
 def emit(obj):
@@ -128,11 +158,20 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def make_renderer(width, height, device, scene=LUXBALL):
+TMP_ROOT = None            # the run's temporary directory (main sets it)
+
+
+def fresh_dir():
+    """A new empty directory under the run's temporary directory."""
+    return tempfile.mkdtemp(dir=TMP_ROOT)
+
+
+def make_renderer(width, height, device, scene=LUXBALL, data_dir=None):
     """A main path's renderer: luxball with the camera of
     tools/make_goldens.py and an area light above the ball, or the 8x8
     grid seen from above its near edge with a 12x12 light over its
-    centre."""
+    centre. Its caches live in ``data_dir``, a fresh (cold) one unless
+    given."""
     from fluctus_tpu_torch.renderer import Renderer
     from fluctus_tpu_torch.settings import Settings
     pos, dir_, lpos, lsize = VIEWS[scene]
@@ -141,7 +180,8 @@ def make_renderer(width, height, device, scene=LUXBALL):
     a = s.area_light
     a.pos, a.N, a.right, a.up = lpos, (0, -1, 0), (1, 0, 0), (0, 0, 1)
     a.E, a.size = (50.0, 50.0, 50.0), lsize
-    r = Renderer(width, height, settings=s, device=device)
+    r = Renderer(width, height, settings=s, device=device,
+                 data_dir=data_dir or fresh_dir())
     r.load_scene(scene)
     return r
 
@@ -155,7 +195,8 @@ class Recorder:
         from fluctus_tpu_torch.core import block_splat as bs
         self.targets = [(mt, "tile_order"), (mt, "trace_rol"),
                         (mt, "resolve_v5"), (bs, "splat"),
-                        (mt, "trace_rol_sc"), (mt, "resolve_v5s")]
+                        (mt, "trace_rol_sc"), (mt, "resolve_v5s"),
+                        (mt, "resolve_v1")]
         self.calls = {}
         self.active = None
 
@@ -195,7 +236,8 @@ def plain_versions():
              (mt, "trace_rol_sc", mt.trace_rol_sc_plain),
              (mt, "resolve_v5s", mt.resolve_v5s_plain),
              (bs, "fetch", bs.fetch_plain),
-             (mt, "trace_ros", mt.trace_ros_plain)]
+             (mt, "trace_ros", mt.trace_ros_plain),
+             (mt, "resolve_v1", mt.resolve_v1_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -448,6 +490,7 @@ def phase_main(r, card, scene, segments, per_segment, extra=None):
                   and torch.isfinite(film.color.y).all()
                   and torch.isfinite(film.color.z).all())
     covered = float((film.weight > 0).float().mean())
+    image_mean = float(r.ldr_image().mean())
     out = dict(phase="main_path", scene=scene, width=r.width,
                height=r.height, paths=1 << 20, segments=segments,
                seconds=elapsed, mrays_per_s=rays / elapsed / 1e6,
@@ -457,7 +500,8 @@ def phase_main(r, card, scene, segments, per_segment, extra=None):
                          extension=st.extension_rays,
                          shadow=st.shadow_rays, samples=st.samples),
                launches=launches, plain_runs=plain, film_finite=finite,
-               pixels_covered=covered, card=card, **(extra or {}))
+               pixels_covered=covered, image_mean=image_mean, card=card,
+               **(extra or {}))
     emit(out)
     for name, per in per_segment.items():
         if launches.get(name) != per * segments:
@@ -475,8 +519,8 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
                      unit="segment"):
     """Device time by kernel over n more segments (torch.profiler, CUPTI),
     or over the segments (or mk samples, ``unit``) ``run()`` advances (it
-    returns their count): where a segment's time goes. The busy share divides the device time
-    per segment by the timed run's unprofiled wall time per segment; the
+    returns their count): where a segment's time goes (returned as well
+    as printed). The busy share divides the device time per segment by the timed run's unprofiled wall time per segment; the
     profiled segments' own wall time (profiler overhead included) stands
     beside it, since later segments of a pool can cost more than the
     timed run's average. The kernels' own launch counts over the same
@@ -510,27 +554,32 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
         m = re.search(r"(?:^|\s)(\w+)_kernel[<(]", key)
         if m and m.group(1) in kb.KERNELS:
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + dt / n
-    emit(dict(phase="profile", segments=n, unit=unit, card=card,
-              device_ms_per_segment=dev_ms,
-              device_busy_share=dev_ms / ms_per_segment,
-              profiled_wall_ms_per_segment=wall_ms,
-              launches_per_segment=launches,
-              kernels_us_per_segment=ours,
-              top=[dict(name=k[:90], us_per_segment=dt / n,
-                        calls_per_segment=c / n)
-                   for dt, k, c in rows[:14]]))
+    out = dict(phase="profile", segments=n, unit=unit, card=card,
+               device_ms_per_segment=dev_ms,
+               device_busy_share=dev_ms / ms_per_segment,
+               profiled_wall_ms_per_segment=wall_ms,
+               launches_per_segment=launches,
+               kernels_us_per_segment=ours,
+               top=[dict(name=k[:90], us_per_segment=dt / n,
+                         calls_per_segment=c / n)
+                    for dt, k, c in rows[:14]])
+    emit(out)
+    return out
 
 
 def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
-                 device="cuda"):
-    """Phase 4 / 4b: 4 segments through the kernels and through the plain
-    versions on the card, from the same reset."""
+                 device="cuda", data_dir=None, exact=False):
+    """Phase 4 / 4b / 8c: 4 segments through the kernels and through the
+    plain versions on the card, from the same reset (both loads from
+    ``data_dir`` when given, else each from a fresh one). With ``exact``
+    the films and per-pixel spp must be equal. Returns the printed
+    object."""
     import torch
     runs = []
     for use_plain in (False, True):
         undo = plain_versions() if use_plain else (lambda: None)
         try:
-            r = make_renderer(width, height, device, scene)
+            r = make_renderer(width, height, device, scene, data_dir)
             r.init_wavefront(paths)
             r.render_wavefront(4)
             runs.append((r._wf_state, r.wavefront_stats()))
@@ -538,7 +587,7 @@ def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
             undo()
     (a, sa), (b, sb) = runs
     out = dict(phase="parity", scene=scene, width=width, height=height,
-               paths=paths,
+               paths=paths, b16_tables=r.device_scene.mxu.b16r is not None,
                segments=4, counters_kernel=list(sa), counters_plain=list(sb))
     for name in ("pixel_index", "seed", "path_len"):
         frac = float((getattr(a.pool, name) == getattr(b.pool, name))
@@ -550,10 +599,15 @@ def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
     fa = torch.stack([*a.film.color, a.film.weight])
     fb = torch.stack([*b.film.color, b.film.weight])
     out["film_max_abs_err"] = float((fa - fb).abs().max())
+    out["film_equal"] = bool(torch.equal(fa, fb))
+    out["spp_equal"] = bool(torch.equal(a.spp, b.spp))
     emit(out)
     if sa != sb:
         raise AssertionError(f"parity: counters {sa} != {sb}")
     torch.testing.assert_close(fa, fb, rtol=1e-4, atol=1e-6)
+    if exact and not (out["film_equal"] and out["spp_equal"]):
+        raise AssertionError("parity: film or spp differ")
+    return out
 
 # ---------------------------------------------------------------------------
 # Phase 5: exact-spp rendering (K7, K8)
@@ -986,10 +1040,11 @@ def phase_mk(r, card, exact_mean):
 
 def kernels_line(kres, launches):
     """One entry per ported kernel: its checks and times from phase 2 (K1-K4,
-    luxball), 2b (K5, K6), 5a (K7, K8) or 6b (K9), and its launches on its
-    main path, counted from 0: K1-K6 summed over the two free-running runs
-    (3, 3b), K7 and K8 in the timed exact render (5b), K9 in the
-    rays-on-sublanes render (6b)."""
+    luxball), 2b (K5, K6), 5a (K7, K8), 6b (K9) or 8a (K10), and its
+    launches on its main path, counted from 0: K1-K6 summed over the two
+    free-running runs (3, 3b), K7 and K8 in the timed exact render (5b),
+    K9 in the rays-on-sublanes render (6b), K10 in the free-running run on
+    tables without B16 (8b)."""
     out = []
     for name in SOURCES:
         k = kres[name]
@@ -1003,10 +1058,11 @@ def kernels_line(kres, launches):
 
 
 def vertex_table_bytes(r):
-    """Device bytes of the rays-on-sublanes trace's tx/ty/tz and of
-    closest_hit_mxu_full's txy_t (slim tables drop them)."""
+    """Device bytes of the rays-on-sublanes trace's tx/ty/tz, of the
+    transform rows txy_t (closest_hit_mxu_full, K10) and of K10's f32
+    attrs (slim tables drop them)."""
     sc = r.device_scene.mxu
-    return nbytes(*(t for t in (sc.tx, sc.ty, sc.tz, sc.txy_t)
+    return nbytes(*(t for t in (sc.tx, sc.ty, sc.tz, sc.txy_t, sc.attrs)
                     if t is not None))
 
 
@@ -1022,8 +1078,217 @@ def record_segments(r):
     return rec.calls
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the K10 route (tables without B16) and the caches
+# ---------------------------------------------------------------------------
+
+def no_b16_cache(scene_file=LUXBALL):
+    """A fresh data_dir holding ``scene_file``'s table cache with the B16
+    tables stored absent (0-d b16t and attr_b16), under the reference's
+    file name. Returns (data_dir, the full tables with B16 on the card)."""
+    from fluctus_tpu_torch.accel import build_bvh
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    from fluctus_tpu_torch.renderer import table_cache_path
+    from fluctus_tpu_torch.scene import Scene
+    scene = Scene()
+    scene.load_model(scene_file)
+    p, nrm, uv, mid = scene.triangle_arrays()
+    slim = p.shape[0] > 65536
+    host, statics = mt.MXUScene.build(p, build_bvh(p), normals=nrm, uvs=uv,
+                                      mat_ids=mid, materials=scene.materials,
+                                      slim=slim)
+    d = fresh_dir()
+    mt.write_table_cache(table_cache_path(d, scene, "sah", slim),
+                         dict(host, b16t=None, attr_b16=None), statics)
+    return d, mt.tables_from_numpy(host, statics, "cuda")
+
+
+def check_resolve_v1(rec_calls, full):
+    """Phase 8a: K10 vs its plain version on every recorded call of
+    segments 2 and 4 (bit for bit), and vs K3 on the B16 tables ``full`` on
+    the same winners: rows MAT, TYPE, MAP_*, TRI equal after rounding; N,
+    UV, KD, NS and HITT within rtol 2e-3, atol 2e-3 (the reference's
+    v5-vs-v1 gate, tests/test_mxu_resolve.py:97-103). Returns K10's timing
+    dict on segment 4's call."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    ints = [mt.ATTR_MAT, mt.ATTR_TYPE, mt.ATTR_MAP_KD, mt.ATTR_MAP_KS,
+            mt.ATTR_MAP_N, mt.ATTR_TRI]
+    gated = ((mt.ATTR_N, 3, "N"), (mt.ATTR_UV, 2, "UV"), (mt.ATTR_KD, 3, "KD"),
+             (mt.ATTR_NS, 1, "NS"), (mt.ATTR_HITT, 1, "HITT"))
+    vs_k3 = {}
+    for seg in (2, 4):
+        for args, _ in rec_calls[(seg, "resolve_v1")]:
+            got = mt.resolve_v1(*args)
+            ref = mt.resolve_v1_plain(*args)
+            diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+            if diff:
+                raise AssertionError(f"K10 differs from its plain version in "
+                                     f"{diff} values (segment {seg})")
+            col, o4, d4 = args[:3]
+            k3 = mt.resolve_v5(col, o4, d4, full.b16r, full.t16r)
+            if not torch.equal(torch.round(got[ints]), torch.round(k3[ints])):
+                raise AssertionError(f"K10 and K3 integer rows differ "
+                                     f"(segment {seg})")
+            for c, w, name in gated:
+                torch.testing.assert_close(got[c:c + w], k3[c:c + w],
+                                           rtol=2e-3, atol=2e-3)
+                vs_k3[name] = max(vs_k3.get(name, 0.0), float(
+                    (got[c:c + w] - k3[c:c + w]).abs().max()))
+    args = rec_calls[(4, "resolve_v1")][0][0]
+    col, o4, d4, txy_t, attrs, tc = args
+    b = col.shape[0]
+    hit = col >= 0
+    safe = col.clamp_min(0).long()
+    winners = int(torch.unique(col[hit]).numel())
+    row = (safe // tc) * (3 * tc) + safe % tc
+
+    def library():
+        return (torch.index_select(attrs, 0, row),
+                torch.index_select(attrs, 0, row + tc),
+                torch.index_select(attrs, 0, row + 2 * tc),
+                torch.index_select(txy_t, 0, safe))
+    # each input read once: the column, the rays, every distinct winner's
+    # three attribute rows and transform row; the [40, b] output written
+    # once. Operations: about 50 for t/u/v and 5 per interpolated column
+    # of each hit.
+    b_ms, b_by = bound(int(hit.sum()) * 250,
+                       b * (4 + 32 + 160) + winners * (3 * 160 + 48))
+    return dict(
+        max_abs_err=0.0, **kernel_ms(lambda: mt.resolve_v1(*args)),
+        plain_ms=time_ms(lambda: mt.resolve_v1_plain(*args), 3, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
+        library_call="three torch.index_select of the winners' attrs rows "
+                     "and one of their txy_t rows",
+        k3_same_winners_ms=time_ms(lambda: mt.resolve_v5(
+            col, o4, d4, full.b16r, full.t16r)),
+        max_abs_diff_vs_k3=vs_k3,
+        shape=f"{b} rays, {int(hit.sum())} hits, {winners} distinct "
+              f"winners, attrs {attrs.shape[0]} rows")
+
+
+def phase_k10(card, b16_main):
+    """Phases 8a-8c on luxball's tables without B16. ``b16_main`` is phase
+    3's main-path line (the B16 route). Returns (K10's timing dict, its
+    launches in the timed run)."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    data_dir, full = no_b16_cache()
+    r = make_renderer(1920, 1080, "cuda", data_dir=data_dir)
+    sc = r.device_scene.mxu
+    if not (r.cache_hit["tables"] and sc.b16r is None
+            and sc.attrs is not None and torch.equal(sc.attrs, full.attrs)
+            and torch.equal(sc.txy_t, full.txy_t)):
+        raise AssertionError(f"no-B16 tables not loaded from the cache: "
+                             f"{r.cache_hit}, b16r {sc.b16r is not None}")
+    k10 = check_resolve_v1(record_segments(r), full)
+    emit(dict(phase="resolve_v1_vs_plain", card=card, scene=LUXBALL,
+              cache_hit=r.cache_hit, host_steps=r.load_seconds,
+              vertex_table_bytes=vertex_table_bytes(r), resolve_v1=k10))
+
+    # 8b: the wavefront on these tables, against the B16 route's mean
+    launches, main = phase_main(r, card, LUXBALL, SEGMENTS, PER_SEGMENT_K10,
+                                extra=dict(tables="no B16 (table cache)"))
+    rel = abs(main["image_mean"] - b16_main["image_mean"]) / \
+        b16_main["image_mean"]
+    prof = profile_segments(r, card, main["ms_per_segment"], n=1)
+    share = prof["kernels_us_per_segment"].get("resolve_v1", 0.0) / 1e3 \
+        / prof["device_ms_per_segment"]
+    r.reset()
+    torch.cuda.synchronize()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    film = r.render_single(K10_SPP)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    x_launches, plain = counts()
+    segments = len(r._wf_counters)
+    spp = unpad_pixels(r._wf_state.spp, r.config)
+    exact = bool((spp == K10_SPP).all() and (film.weight == K10_SPP).all())
+    emit(dict(phase="k10_route", card=card, image_mean=main["image_mean"],
+              b16_image_mean=b16_main["image_mean"], mean_rel_diff=rel,
+              resolve_v1_device_share=share, exact_spp=K10_SPP,
+              exact_seconds=elapsed, exact_segments=segments,
+              exact_launches=x_launches, spp_and_weight_exact=exact))
+    if rel > BIAS_GATE:
+        raise AssertionError(f"K10 route mean differs by {rel} from the "
+                             "B16 route's")
+    check_launches(x_launches, plain, PER_SEGMENT_EXACT_K10, segments,
+                   "K10 exact path")
+    if not exact:
+        raise AssertionError("K10 exact path: spp/weight differ from "
+                             "the target")
+    del r
+    torch.cuda.empty_cache()
+
+    # 8c: whole-path parity on the same tables
+    out = phase_parity(LUXBALL, data_dir=data_dir, exact=True)
+    if out["b16_tables"]:
+        raise AssertionError("K10 parity ran on B16 tables")
+    return k10, launches
+
+
+def same_tables(a, b):
+    """Two MXUSceneT equal field for field (tensors bit for bit)."""
+    import torch
+    for name, x, y in zip(a._fields, a, b):
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            if x.dtype != y.dtype or not torch.equal(
+                    x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                    y.view(torch.int16) if y.dtype == torch.bfloat16 else y):
+                return name
+        elif x != y:
+            return name
+    return None
+
+
+def phase_caches(card):
+    """Phase 8d: the 8x8 grid loaded cold into a fresh data_dir, then warm
+    from the caches the cold load wrote: host seconds (load, and to the end
+    of a first segment), cache hits, the device tables equal field for
+    field, and the films of 4 segments from the same reset equal."""
+    import torch
+    d = fresh_dir()
+    runs = []
+    for kind in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = make_renderer(1920, 1080, "cuda", LARGE, data_dir=d)
+        load_s = time.perf_counter() - t0
+        r.init_wavefront(1 << 20)
+        r.render_wavefront(1)                 # ends in synchronize
+        first_s = time.perf_counter() - t0
+        r.init_wavefront(1 << 20)
+        r.render_wavefront(4)
+        f = r.wavefront_film()
+        runs.append(dict(kind=kind, tables=r.device_scene.mxu,
+                         film=torch.stack([*f.color, f.weight]),
+                         line=dict(load_seconds=r.load_seconds,
+                                   cache_hit=r.cache_hit,
+                                   host_seconds_to_load=load_s,
+                                   host_seconds_to_first_segment=first_s)))
+        del r, f
+    cold, warm = runs
+    files = {os.path.relpath(os.path.join(dp, n), d):
+             os.path.getsize(os.path.join(dp, n))
+             for dp, _, names in os.walk(d) for n in names}
+    diff = same_tables(cold["tables"], warm["tables"])
+    film_equal = bool(torch.equal(cold["film"], warm["film"]))
+    emit(dict(phase="caches", scene=LARGE, card=card, cold=cold["line"],
+              warm=warm["line"], cache_file_bytes=files,
+              tables_equal=diff is None, films_equal=film_equal))
+    if cold["line"]["cache_hit"] != dict(bvh=False, tables=False) or \
+            warm["line"]["cache_hit"] != dict(bvh=True, tables=True):
+        raise AssertionError("caches: cold load hit or warm load missed")
+    if diff is not None or not film_equal:
+        raise AssertionError(f"caches: warm load differs (table {diff}, "
+                             f"films equal {film_equal})")
+
+
 def main():
     import torch
+    global TMP_ROOT
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1031,6 +1296,16 @@ def main():
     os.chdir(here)
     sys.path.insert(0, here)
     from fluctus_tpu_torch import kernel_build as kb
+    TMP_ROOT = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run(kb)
+    finally:
+        shutil.rmtree(TMP_ROOT, ignore_errors=True)
+
+
+def run(kb):
+    """Phases 1-9 (see the module docstring)."""
+    import torch
 
     # phase 1: device and build
     card = card_line()
@@ -1076,6 +1351,7 @@ def main():
                       n_clusters=sc.n_clusters,
                       n_superclusters=sc.n_superclusters,
                       host_seconds=host_s, host_steps=r.load_seconds,
+                      cache_hit=r.cache_hit,
                       vertex_table_bytes=vertex_table_bytes(r))
     kres_l, primary_hit = phase_kernels_large(r, record_segments(r))
     emit(dict(phase="kernels_vs_plain", card=card, scene=LARGE, **scene_info,
@@ -1097,11 +1373,16 @@ def main():
     # phase 4b: whole-path parity on the large path
     phase_parity(LARGE)
 
-    # phase 7: result lines
+    # phase 8: the K10 route (8a-8c) and the caches (8d)
+    kres["resolve_v1"], launches_k10 = phase_k10(card, main)
+    phase_caches(card)
+
+    # phase 9: result lines
     main_launches = {k: launches[k] + launches_l[k] for k in SOURCES}
     main_launches.update(block_splat_capped=launches_x["block_splat_capped"],
                          fetch=launches_x["fetch"],
-                         trace_ros=launches_ros["trace_ros"])
+                         trace_ros=launches_ros["trace_ros"],
+                         resolve_v1=launches_k10["resolve_v1"])
     emit(kernels_line(kres, main_launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

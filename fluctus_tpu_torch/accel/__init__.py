@@ -1,3 +1,3 @@
-from .bvh import BVHArrays, build_bvh
+from .bvh import BVHArrays, build_bvh, export_bvh, import_bvh
 
-__all__ = ["BVHArrays", "build_bvh"]
+__all__ = ["BVHArrays", "build_bvh", "export_bvh", "import_bvh"]

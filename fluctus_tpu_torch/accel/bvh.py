@@ -1,6 +1,6 @@
-"""SAH BVH builder (the port's numpy copy of the SAH path of the reference
-package's accel/bvh.py; its median split modes and binary cache are not
-ported).
+"""SAH BVH builder and binary cache (the port's numpy copy of the SAH path
+and the cache of the reference package's accel/bvh.py; its median split
+modes are not ported).
 
 Re-implements the reference's top-down full-sweep SAH builder
 (src/bvh.cpp:237-440) with numpy-vectorized per-node sweeps: sort refs by
@@ -9,10 +9,15 @@ scans replace the rightBoxes lookup (buildBoxLookup, bvh.cpp:361-369), and the
 same cost model costBox=costTri=1 (bvh.hpp:70-74). Node layout matches
 bvhnode.hpp:50-59: left child = node index + 1, explicit right child, leaves
 hold (iStart, nPrims) into a triangle index list.
+
+The binary cache is BVH::exportTo/importFrom's format (bvh.cpp:106-224),
+byte for byte the reference package's, including the header quirk of
+writing the *index* count in the node-count slot (bvh.cpp:214).
 """
 
 from __future__ import annotations
 
+import struct
 import sys
 from typing import NamedTuple
 
@@ -139,4 +144,54 @@ def build_bvh(positions: np.ndarray) -> BVHArrays:
         right_or_start=right,
         parent=np.asarray(nodes_parent, np.int32),
         n_prims=nprims,
+        indices=indices)
+
+
+# ---------------------------------------------------------------------------
+# Binary cache (bvh.cpp:106-224 format)
+# ---------------------------------------------------------------------------
+
+# one packed little-endian node: box 6f, iStart/right u32, parent i32,
+# nPrims u8 (33 bytes, no padding)
+_NODE = np.dtype([("box_min", "<f4", 3), ("box_max", "<f4", 3),
+                  ("right", "<u4"), ("parent", "<i4"), ("n_prims", "u1")])
+
+
+def export_bvh(bvh: BVHArrays, path: str):
+    """Write ``bvh`` in the reference's binary layout: index count, the
+    indices, the index count again in the node-count slot (the reference's
+    quirk, kept for byte compatibility), then the packed nodes."""
+    nodes = np.empty(bvh.num_nodes, _NODE)
+    nodes["box_min"] = bvh.box_min
+    nodes["box_max"] = bvh.box_max
+    nodes["right"] = bvh.right_or_start
+    nodes["parent"] = bvh.parent
+    nodes["n_prims"] = bvh.n_prims
+    with open(path, "wb") as f:
+        f.write(struct.pack("<I", len(bvh.indices)))
+        f.write(bvh.indices.astype("<u4").tobytes())
+        f.write(struct.pack("<I", len(bvh.indices)))
+        f.write(nodes.tobytes())
+
+
+def import_bvh(path: str) -> BVHArrays:
+    """Read a binary cache: as many nodes as the header's count and the
+    file both hold (the count slot carries the index count)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    (n_idx,) = struct.unpack_from("<I", data, 0)
+    off = 4
+    indices = np.frombuffer(data, "<u4", count=n_idx, offset=off).astype(
+        np.uint32)
+    off += 4 * n_idx
+    (claimed,) = struct.unpack_from("<I", data, off)
+    off += 4
+    n_nodes = min(claimed, (len(data) - off) // _NODE.itemsize)
+    nodes = np.frombuffer(data, _NODE, count=n_nodes, offset=off)
+    return BVHArrays(
+        box_min=nodes["box_min"].astype(np.float32),
+        box_max=nodes["box_max"].astype(np.float32),
+        right_or_start=nodes["right"].astype(np.uint32),
+        parent=nodes["parent"].astype(np.int32),
+        n_prims=nodes["n_prims"].astype(np.uint8),
         indices=indices)

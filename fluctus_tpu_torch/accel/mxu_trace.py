@@ -14,8 +14,10 @@ members is culled on its own (K5). With ``flags.ROL`` off the trace falls
 back to the rays-on-sublanes kernel (K9), which single-set traces also
 take unsorted when ``flags.SORT_RAYS`` is off. A resolve kernel turns the
 winner column into exact t/u/v, interpolated vertex attributes and the
-baked material parameters: K3, or K6 once the tables pass the reference's
-48 MiB resident budget.
+baked material parameters, chosen by what the tables hold, as the
+reference does: from the B16 table K3, or K6 once the tables pass the
+reference's 48 MiB resident budget; from the f32 ``attrs`` table when they
+carry no B16 table (a table cache that stores it absent), K10.
 
 Kernels (each launched on CUDA tensors; its plain PyTorch twin runs on CPU
 tensors):
@@ -25,15 +27,19 @@ tensors):
   K5 ``trace_rol_sc``  csrc/trace_rol_sc.cu  (ref _trace_kernel_rol_sc)
   K6 ``resolve_v5s``   csrc/resolve_v5s.cu   (ref _resolve_kernel_v5s)
   K9 ``trace_ros``     csrc/trace_ros.cu     (ref _trace_kernel)
+  K10 ``resolve_v1``   csrc/resolve_v1.cu    (ref _resolve_kernel)
 
 The host table build (``MXUScene.build``) reproduces the reference's
 tables bit for bit, with bf16 rounding done by torch (round to nearest
 even, as ml_dtypes); bf16 arrays travel as uint16 bit patterns in numpy.
+``MXUScene.build_cached`` keeps the host tables in the reference's npz
+table cache, which both packages read and write.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -53,6 +59,9 @@ SC_CLUSTERS = 64
 SC_THRESHOLD = 96
 RAY_TILE = 512
 ROL_TILE = 512
+# layout version of the table cache (the reference's TABLE_VERSION; part of
+# the cache file name)
+TABLE_VERSION = 4
 
 # attrs column layout (rows of the SoA resolve output)
 ATTR_N = 0        # nx, ny, nz
@@ -405,6 +414,56 @@ class MXUScene:
                        n_superclusters=n_sc, has_tex_meta=False)
         return host, statics
 
+    @staticmethod
+    def build_cached(cache_path: Optional[str], positions, bvh, **kw):
+        """``build`` behind the reference's content-keyed table cache
+        (mxu_trace.py:587-623): a hit loads the npz at ``cache_path`` and
+        builds nothing; a miss builds and writes it. The caller keys the
+        path by scene hash, materials, split mode, cluster size and
+        TABLE_VERSION. Returns (host dict, statics), as ``build``."""
+        if cache_path and os.path.exists(cache_path):
+            return load_table_cache(cache_path)
+        host, statics = MXUScene.build(positions, bvh, **kw)
+        if cache_path:
+            write_table_cache(cache_path, host, statics)
+        return host, statics
+
+
+_HOST_KEYS = ("sc_box", "sub_box", "fine_box", "attr_b16", "attrs", "b16t",
+              "txy_t", "t12", "t12b", "tx", "ty", "tz", "cluster_box",
+              "tri_map", "center")
+_STATIC_KEYS = ("n_clusters", "cluster_size", "n_superclusters",
+                "has_tex_meta")
+
+
+def write_table_cache(path: str, host: dict, statics: dict):
+    """Write host tables in the reference's npz layout: one array per host
+    key, ``np.zeros(())`` for an absent table, the bf16 tables as uint16
+    bit patterns, and the four statics. Written under a temporary name and
+    moved into place, so a concurrent reader never sees half a file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    out = {k: (np.zeros(()) if host.get(k) is None else
+               (np.asarray(host[k]).view(np.uint16)
+                if k in ("attr_b16", "b16t") else host[k]))
+           for k in _HOST_KEYS}
+    out.update({k: statics[k] for k in _STATIC_KEYS})
+    tmp = f"{path}.{os.getpid()}.tmp.npz"   # .npz: savez appends none
+    np.savez(tmp, **out)
+    os.replace(tmp, path)
+
+
+def load_table_cache(path: str):
+    """Read a table cache (either package's): every 0-d entry is an absent
+    table. Returns (host dict, statics); bf16 tables stay uint16 bits."""
+    with np.load(path, allow_pickle=False) as z:
+        host = {k: z[k] for k in _HOST_KEYS}     # each entry read once
+        host = {k: (None if a.ndim == 0 else a) for k, a in host.items()}
+        statics = dict(n_clusters=int(z["n_clusters"]),
+                       cluster_size=int(z["cluster_size"]),
+                       n_superclusters=int(z["n_superclusters"]),
+                       has_tex_meta=bool(z["has_tex_meta"]))
+    return host, statics
+
 
 class MXUSceneT(NamedTuple):
     """Device tables of the port.
@@ -413,13 +472,18 @@ class MXUSceneT(NamedTuple):
     sc_box  [n_sc, 8] f32      supercluster bmin3 bmax3, first member
                                cluster, member count (None for one cluster)
     t12   [12, Mpad] f32       coefficient-major transforms (K2, K5)
-    b16r  [Mpad, 128] bf16     the B16 table, row-major (K3/K6 row reads)
-    t16r  [Mpad, 16] f32       transforms, row-major (K3/K6)
+    b16r  [Mpad, 128] bf16     the B16 table, row-major (K3/K6 row reads);
+                               None when the tables carry no B16 table
+    t16r  [Mpad, 16] f32       transforms, row-major (K3/K6); None with b16r
     tri_map [Mpad] i32, center [3] f32, lo/hi [3] f32 scene bounds
     tx/ty/tz [4, Mpad] f32     the x/y/z columns of the transforms (K9);
                                None on slim tables
     txy_t [Mpad, 12] f32       transforms row-major (closest_hit_mxu_full's
-                               u/v); None on slim tables past 12 MiB
+                               u/v, K10); None on slim tables past 12 MiB
+    attrs [3 Mpad, 40] f32     per-vertex attributes and baked materials
+                               (K10): cluster c's rows [c 3tc, (c+1) 3tc)
+                               hold v0 of its triangles, then v1, then v2;
+                               None on slim tables
 
     The reference's cluster-blocked ``b16t``/``t12b`` layouts are re-packed
     into ``b16r``/``t16r`` on the host and not uploaded: no kernel reads
@@ -428,8 +492,8 @@ class MXUSceneT(NamedTuple):
     cluster_box: torch.Tensor
     sc_box: Optional[torch.Tensor]
     t12: torch.Tensor
-    b16r: torch.Tensor
-    t16r: torch.Tensor
+    b16r: Optional[torch.Tensor]
+    t16r: Optional[torch.Tensor]
     tri_map: torch.Tensor
     center: torch.Tensor
     lo: torch.Tensor
@@ -441,6 +505,7 @@ class MXUSceneT(NamedTuple):
     ty: Optional[torch.Tensor] = None
     tz: Optional[torch.Tensor] = None
     txy_t: Optional[torch.Tensor] = None
+    attrs: Optional[torch.Tensor] = None
 
 
 def _bf16_tensor(a, device):
@@ -454,32 +519,38 @@ def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
     """Upload a host table dict — the port's own ``MXUScene.build`` result
     or the reference package's ``MXUScene.build(..., return_host=True)``
     (its bf16 arrays are read through ``.view(np.uint16)``) — as the
-    port's device tables."""
+    port's device tables. ``b16r``/``t16r`` exist only when the host dict
+    holds ``b16t``; ``attrs`` is uploaded when it holds that."""
     ncl = statics["n_clusters"]
     tc = statics["cluster_size"]
     f32 = lambda k: torch.from_numpy(
         np.ascontiguousarray(host[k], np.float32)).to(device)
     opt = lambda k: f32(k) if host.get(k) is not None else None
-    b16t = np.asarray(host["b16t"])
-    if b16t.dtype != np.uint16:
-        b16t = b16t.view(np.uint16)
-    b16r = b16t.reshape(ncl, B16.COLS, tc).transpose(0, 2, 1).reshape(
-        ncl * tc, B16.COLS)
-    t12b = np.asarray(host["t12b"], np.float32)
-    t16r = t12b.reshape(ncl, 16, tc).transpose(0, 2, 1).reshape(ncl * tc, 16)
+    b16r = t16r = None
+    if host.get("b16t") is not None:
+        b16t = np.asarray(host["b16t"])
+        if b16t.dtype != np.uint16:
+            b16t = b16t.view(np.uint16)
+        b16r = _bf16_tensor(b16t.reshape(ncl, B16.COLS, tc)
+                            .transpose(0, 2, 1).reshape(ncl * tc, B16.COLS),
+                            device)
+        t12b = np.asarray(host["t12b"], np.float32)
+        t16r = torch.from_numpy(np.ascontiguousarray(
+            t12b.reshape(ncl, 16, tc).transpose(0, 2, 1).reshape(
+                ncl * tc, 16))).to(device)
     boxes = f32("cluster_box")
     return MXUSceneT(
         cluster_box=boxes,
         sc_box=opt("sc_box"),
-        t12=f32("t12"), b16r=_bf16_tensor(b16r, device),
-        t16r=torch.from_numpy(np.ascontiguousarray(t16r)).to(device),
+        t12=f32("t12"), b16r=b16r, t16r=t16r,
         tri_map=torch.from_numpy(
             np.ascontiguousarray(host["tri_map"], np.int32)).to(device),
         center=f32("center"),
         lo=boxes[:, 0:3].amin(0), hi=boxes[:, 3:6].amax(0),
         n_clusters=ncl, cluster_size=tc,
         n_superclusters=statics["n_superclusters"],
-        tx=opt("tx"), ty=opt("ty"), tz=opt("tz"), txy_t=opt("txy_t"))
+        tx=opt("tx"), ty=opt("ty"), tz=opt("tz"), txy_t=opt("txy_t"),
+        attrs=opt("attrs"))
 
 
 def resolve_table_bytes(n_clusters: int, tc: int) -> int:
@@ -1168,7 +1239,7 @@ def trace_pair_mxu(eorig: Vec3, edir: Vec3, sorig: Vec3, sdir: Vec3,
 
 
 # ---------------------------------------------------------------------------
-# K3 / K6: winner-attribute resolve
+# K3 / K6 / K10: winner-attribute resolve
 # ---------------------------------------------------------------------------
 
 # past this many bytes of resolve tables (resolve_table_bytes) the
@@ -1179,15 +1250,14 @@ K3 = kb.Kernel("resolve_v5", "resolve_v5.cu", "resolve_v5_launch",
                [ctypes.c_void_p] * 6 + [ctypes.c_int])
 K6 = kb.Kernel("resolve_v5s", "resolve_v5s.cu", "resolve_v5s_launch",
                [ctypes.c_void_p] * 6 + [ctypes.c_int])
+K10 = kb.Kernel("resolve_v1", "resolve_v1.cu", "resolve_v1_launch",
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2)
 
 
-def _resolve_plain(col, o4, d4, b16r, t16r):
-    """Gather each winner's B16 row and transform row, then the reference
-    epilogue (_b16_epilogue_t). Returns [40, b]."""
-    active = col >= 0
-    safe = col.clamp_min(0).long()
-    acc = b16r[safe].to(torch.float32).T                     # [128, b]
-    tw = t16r[safe].T                                        # [16, b]
+def _winner_tuv(o4, d4, tw):
+    """Exact t, u, v of each ray against its winner's affine transform (tw
+    [>=12, b]: the x, y, z rows of four coefficients), in the kernels'
+    operation order (csrc/resolve_common.cuh ``tuv``)."""
     O, D = o4.T, d4.T
 
     def dot4(a, k):
@@ -1198,8 +1268,16 @@ def _resolve_plain(col, o4, d4, b16r, t16r):
     t = -oz / torch.where(dz == 0.0, 1.0, dz)
     ox, dx = dot4(O, 0), dot4(D, 0)
     oy, dy = dot4(O, 4), dot4(D, 4)
-    u = ox + t * dx
-    v = oy + t * dy
+    return t, ox + t * dx, oy + t * dy
+
+
+def _resolve_plain(col, o4, d4, b16r, t16r):
+    """Gather each winner's B16 row and transform row, then the reference
+    epilogue (_b16_epilogue_t). Returns [40, b]."""
+    active = col >= 0
+    safe = col.clamp_min(0).long()
+    acc = b16r[safe].to(torch.float32).T                     # [128, b]
+    t, u, v = _winner_tuv(o4, d4, t16r[safe].T)
     g = lambda a, w: acc[a:a + w]
     cf = g(B16.CF_HI, 15) + g(B16.CF_LO, 15)
     v0 = g(B16.V0_HI, 5) + g(B16.V0_LO, 5)
@@ -1268,18 +1346,68 @@ def resolve_v5s(col, o4, d4, b16r, t16r):
     return _resolve_launch(K6, col, o4, d4, b16r, t16r)
 
 
+def resolve_v1_plain(col, o4, d4, txy_t, attrs, tc: int):
+    """Plain PyTorch K10: each winner's f32 transform row (txy_t [Mpad,
+    12]) gives the exact t, u, v; its three vertex rows of ``attrs``
+    [3 Mpad, 40] (cluster c = col // tc, row c 3tc + k tc + col % tc for
+    vertex k) are interpolated column by column as ((1-u-v) a0 + u a1) +
+    v a2 — material constants included, as the reference's weighted
+    one-hot product does — and rows ATTR_HITU/V/T become u, v, t. A miss
+    (col < 0) gives a zero column. Returns [40, b]."""
+    K10.plain_runs += 1
+    active = col >= 0
+    safe = col.clamp_min(0).long()
+    t, u, v = _winner_tuv(o4, d4, txy_t[safe].T)
+    row = (safe // tc) * (3 * tc) + safe % tc
+    a0, a1, a2 = (attrs[row + k * tc].T for k in range(3))   # [40, b]
+    res = (1.0 - u - v) * a0 + u * a1 + v * a2
+    res[ATTR_HITU] = u
+    res[ATTR_HITV] = v
+    res[ATTR_HITT] = t
+    return torch.where(active[None, :], res, 0.0)
+
+
+def resolve_v1(col, o4, d4, txy_t, attrs, tc: int):
+    """K10: winner attributes from the f32 ``attrs`` table as the SoA
+    [ATTR_COLS, b] matrix (see ``resolve_v1_plain``). The reference's
+    kernel also takes the trace's t, which it does not read."""
+    if col.device.type == "cpu":
+        return resolve_v1_plain(col, o4, d4, txy_t, attrs, tc)
+    kb.check_cuda("resolve_v1", col, o4, d4, txy_t, attrs,
+                  dtypes=(torch.int32,) + (torch.float32,) * 4)
+    b = col.shape[0]
+    if txy_t.shape[1] != 12 or attrs.shape != (3 * txy_t.shape[0],
+                                               ATTR_COLS):
+        raise ValueError(f"resolve_v1: tables {tuple(txy_t.shape)} / "
+                         f"{tuple(attrs.shape)} unsupported")
+    out = torch.empty((ATTR_COLS, b), dtype=torch.float32, device=col.device)
+    K10(kb.ptr(col), kb.ptr(o4), kb.ptr(d4), kb.ptr(txy_t), kb.ptr(attrs),
+        kb.ptr(out), b, tc)
+    return out
+
+
 def resolve_hits_mxu(orig: Vec3, d: Vec3, t, col, scene: MXUSceneT,
                      ray_tile: int = RAY_TILE):
     """Per-ray winner attributes as the SoA matrix [ATTR_COLS, n] (ATTR_*
     rows), including the exact t and barycentric u, v. col: winner column
-    (-1 = miss -> zero column). K3 while the reference would keep its
-    tables resident, K6 past that (mxu_trace.py:2024-2034)."""
+    (-1 = miss -> zero column). The reference's dispatch on what the tables
+    hold (mxu_trace.py:2024-2042): with B16, K3 while the reference would
+    keep its tables resident and K6 past that; without it, K10 on the f32
+    ``attrs``; with neither, the reference's refusal."""
     n = col.shape[0]
     o4, d4, _ = _ray_inputs(orig, d, scene, None, ray_tile)
     col2, _ = _pad_rays(col.to(torch.int32), ray_tile)
-    resolve = (resolve_v5s if resolve_table_bytes(
-        scene.n_clusters, scene.cluster_size) > RESOLVE_RESIDENT_BYTES
-        else resolve_v5)
-    out = resolve(col2.contiguous(), o4.contiguous(), d4.contiguous(),
-                  scene.b16r, scene.t16r)
+    col2, o4, d4 = col2.contiguous(), o4.contiguous(), d4.contiguous()
+    if scene.b16r is not None:
+        resolve = (resolve_v5s if resolve_table_bytes(
+            scene.n_clusters, scene.cluster_size) > RESOLVE_RESIDENT_BYTES
+            else resolve_v5)
+        out = resolve(col2, o4, d4, scene.b16r, scene.t16r)
+    elif scene.attrs is not None:
+        out = resolve_v1(col2, o4, d4, scene.txy_t, scene.attrs,
+                         scene.cluster_size)
+    else:
+        raise ValueError(
+            "slim MXUScene has only the B16 resolve (f32 attrs dropped): "
+            "rebuild with slim=False for interpret-mode (CPU) debugging")
     return out[:, :n]

@@ -38,8 +38,9 @@ from ..vec import Vec3, dot, is_zero, length, where as vwhere
 from . import block_splat as bs
 from .camera import generate_camera_rays
 from .integrator_mk import Film
-from .trace import (DeviceScene, tangent_space_normal, trace_extension,
-                    trace_extension_raw, trace_pair, trace_shadow)
+from .trace import (DeviceScene, has_resolve_tables, tangent_space_normal,
+                    trace_extension, trace_extension_raw, trace_pair,
+                    trace_shadow)
 
 
 class WfPool(NamedTuple):
@@ -212,13 +213,17 @@ def wf_trace_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
     """Extension + shadow traces of the rays staged last segment
     (wf_extrays.cl / wf_shadowrays.cl): under one shared sort, or, with
     ``flags.SORT_RAYS`` off, one by one in lane order. Non-pending shadow
-    lanes get tmax = 0. Returns (raw=(t, col), occluded)."""
+    lanes get tmax = 0. Returns (raw=(t, col), occluded); raw is None when
+    the tables can resolve nothing (the reference's has_raw test,
+    integrator_wf.py:294-296)."""
     shadow_tmax = torch.where(pool.shadow_pending, pool.shadow_len, 0.0)
-    if flags.SORT_RAYS:
+    has_raw = has_resolve_tables(scene)
+    if has_raw and flags.SORT_RAYS:
         return trace_pair(pool.orig, pool.dir, pool.shadow_orig,
                           pool.shadow_dir, shadow_tmax, scene,
                           params.area_light)
-    raw = trace_extension_raw(pool.orig, pool.dir, scene)
+    raw = trace_extension_raw(pool.orig, pool.dir, scene) if has_raw \
+        else None
     occluded = trace_shadow(pool.shadow_orig, pool.shadow_dir, shadow_tmax,
                             scene, params.area_light, True)
     return raw, occluded

@@ -73,6 +73,13 @@ def trace_extension_raw(orig: Vec3, d: Vec3, scene: DeviceScene):
     return t2[:n, 0], col2[:n, 0]
 
 
+def has_resolve_tables(scene: DeviceScene) -> bool:
+    """Whether the tables can resolve a winner column (the f32 ``attrs`` or
+    the B16 table), the reference's test before its raw-hit path
+    (trace.py:155-156, integrator_wf.py:294-296)."""
+    return scene.mxu.attrs is not None or scene.mxu.b16r is not None
+
+
 def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
                     area_light: Optional[AreaLight], check_area_light,
                     want_shading: bool = False, raw=None):
@@ -80,7 +87,15 @@ def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
     26-29): the winner resolve of ``raw`` = (t, col) from an earlier trace,
     or of ``trace_extension_raw`` when raw is None. check_area_light: bool
     (or bool tensor) gating the light (sampleImpl && useAreaLight).
-    Returns Hit, or (Hit, ShadingParams) when want_shading."""
+    Returns Hit, or (Hit, ShadingParams) when want_shading. Tables that
+    can resolve nothing take the reference's third branch
+    (``closest_hit_mxu_full`` + ``reconstruct_hit`` over the triangle
+    arrays, trace.py:178-181), which is not ported, and raise."""
+    if not has_resolve_tables(scene):
+        raise NotImplementedError(
+            "trace_extension without attrs or B16 tables: "
+            "closest_hit_mxu_full + reconstruct_hit over TrianglesDevice "
+            "is not ported")
     t, col = raw if raw is not None else trace_extension_raw(orig, d, scene)
     row = mt.resolve_hits_mxu(orig, d, t, col, scene.mxu)
     t = torch.where(col >= 0, row[mt.ATTR_HITT], t)

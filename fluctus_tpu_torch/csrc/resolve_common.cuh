@@ -1,12 +1,17 @@
-// The winner-resolve epilogue shared by K3 (resolve_v5.cu) and K6
-// (resolve_v5s.cu): the reference's _b16_epilogue_t for one ray.
+// The winner-resolve arithmetic shared by K3 (resolve_v5.cu), K6
+// (resolve_v5s.cu) and K10 (resolve_v1.cu).
 //
-// Given the winner's B16 row (128 bf16, as 64 words w) and the first three
-// float4 of its transform row, recompute the exact t, u, v, sum the hi+lo
-// floats, recombine the 8-bit chunks, interpolate the per-vertex normal
-// and uv barycentrically, and write one column of the SoA [40, b] matrix
-// (ATTR_* rows; map ids are stored +1 and come back -1). bf16 -> f32 is
-// exact (bits << 16). Sums follow the reference's order.
+// tuv: the exact t, u, v of a ray against its winner's affine transform
+// (the x, y, z float4 of the transform row), in the reference's order.
+// bary: ((1-u-v) a0 + u a1) + v a2, the barycentric interpolation both
+// resolves use.
+// epilogue: the reference's _b16_epilogue_t for one ray (K3, K6). Given
+// the winner's B16 row (128 bf16, as 64 words w) and its transform,
+// recompute t, u, v, sum the hi+lo floats, recombine the 8-bit chunks,
+// interpolate the per-vertex normal and uv barycentrically, and write one
+// column of the SoA [40, b] matrix (ATTR_* rows; map ids are stored +1 and
+// come back -1). bf16 -> f32 is exact (bits << 16). Sums follow the
+// reference's order.
 #pragma once
 #include "common.cuh"
 
@@ -19,6 +24,7 @@ constexpr int CF_HI = 24, CF_LO = 39, V0_HI = 54, V0_LO = 59,
               TKS_H = 106, TKS_OFF = 108, TN_W = 111, TN_H = 113,
               TN_OFF = 115;
 constexpr int ATTR_COLS = 40;
+constexpr int ATTR_HITU = 26, ATTR_HITV = 27, ATTR_HITT = 28;
 
 __device__ __forceinline__ float bf(const unsigned int* w, int i) {
   return __uint_as_float((i & 1) ? (w[i >> 1] & 0xFFFF0000u)
@@ -37,19 +43,35 @@ __device__ __forceinline__ void write_miss(float* o, int b) {
   for (int k = 0; k < ATTR_COLS; ++k) o[(size_t)k * b] = 0.0f;
 }
 
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+__device__ __forceinline__ void tuv(float4 O, float4 D, float4 tx,
+                                    float4 ty, float4 tz, float& t,
+                                    float& u, float& v) {
+  const float oz = dot4(O, tz);
+  const float dz = dot4(D, tz);
+  t = -oz / (dz == 0.0f ? 1.0f : dz);
+  const float ox = dot4(O, tx);
+  const float dx = dot4(D, tx);
+  const float oy = dot4(O, ty);
+  const float dy = dot4(D, ty);
+  u = ox + t * dx;
+  v = oy + t * dy;
+}
+
+__device__ __forceinline__ float bary(float b0, float u, float v, float a0,
+                                      float a1, float a2) {
+  return b0 * a0 + u * a1 + v * a2;
+}
+
 // o points at the ray's column of the [40, b] output.
 __device__ __forceinline__ void epilogue(const unsigned int* w, float4 O,
                                          float4 D, float4 tx, float4 ty,
                                          float4 tz, float* o, int b) {
-  const float oz = O.x * tz.x + O.y * tz.y + O.z * tz.z + O.w * tz.w;
-  const float dz = D.x * tz.x + D.y * tz.y + D.z * tz.z + D.w * tz.w;
-  const float t = -oz / (dz == 0.0f ? 1.0f : dz);
-  const float ox = O.x * tx.x + O.y * tx.y + O.z * tx.z + O.w * tx.w;
-  const float dx = D.x * tx.x + D.y * tx.y + D.z * tx.z + D.w * tx.w;
-  const float oy = O.x * ty.x + O.y * ty.y + O.z * ty.z + O.w * ty.w;
-  const float dy = D.x * ty.x + D.y * ty.y + D.z * ty.z + D.w * ty.w;
-  const float u = ox + t * dx;
-  const float v = oy + t * dy;
+  float t, u, v;
+  tuv(O, D, tx, ty, tz, t, u, v);
   const float b0 = 1.0f - u - v;
 
 #pragma unroll
@@ -57,7 +79,7 @@ __device__ __forceinline__ void epilogue(const unsigned int* w, float4 O,
     const float v0 = bf(w, V0_HI + k) + bf(w, V0_LO + k);
     const float v1 = bf(w, V1_HI + k) + bf(w, V1_LO + k);
     const float v2 = bf(w, V2_HI + k) + bf(w, V2_LO + k);
-    o[(size_t)k * b] = b0 * v0 + u * v1 + v * v2;
+    o[(size_t)k * b] = bary(b0, u, v, v0, v1, v2);
   }
   o[(size_t)5 * b] = c2(w, MAT);
 #pragma unroll
@@ -68,9 +90,9 @@ __device__ __forceinline__ void epilogue(const unsigned int* w, float4 O,
   o[(size_t)23 * b] = c2(w, MAP_KS) - 1.0f;
   o[(size_t)24 * b] = c2(w, MAP_N) - 1.0f;
   o[(size_t)25 * b] = c3(w, TRI);
-  o[(size_t)26 * b] = u;
-  o[(size_t)27 * b] = v;
-  o[(size_t)28 * b] = t;
+  o[(size_t)ATTR_HITU * b] = u;
+  o[(size_t)ATTR_HITV * b] = v;
+  o[(size_t)ATTR_HITT * b] = t;
   o[(size_t)29 * b] = c2(w, TKD_W) * 4096.0f + c2(w, TKD_H);
   o[(size_t)30 * b] = c3(w, TKD_OFF);
   o[(size_t)31 * b] = c2(w, TKS_W) * 4096.0f + c2(w, TKS_H);

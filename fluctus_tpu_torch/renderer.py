@@ -1,5 +1,6 @@
 """High-level renderer (src/tracer.cpp; the reference package's
-renderer.py): scene load -> BVH -> cluster tables -> device upload, render
+renderer.py): scene load -> BVH (behind the hierarchy cache) -> cluster
+tables (behind the table cache) -> device upload, render
 parameters, the free-running wavefront loop, exact-spp rendering
 (``render_single``: the capped wavefront, or the microkernel megastep
 under ``flags.FORCE_MK``), picking and image output.
@@ -7,10 +8,18 @@ under ``flags.FORCE_MK``), picking and image output.
 ``Renderer`` runs on ``"cuda"`` unless the caller passes ``device="cpu"``
 (the CPU tests, which then run each kernel's plain PyTorch version).
 Without CUDA and without ``device="cpu"`` it raises.
+
+The caches live under ``data_dir`` (default ``data``, as the reference),
+keyed by the scene's content hash: ``hierarchies/hierarchy_<hash>.bin``
+(the BVH, the reference's binary format) and ``mxu_tables/mxu_<hash>_...
+.npz`` (the host tables, the reference's npz layout). Both packages read
+and write the same files. A miss builds and writes; a hit builds nothing.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import time
 from typing import Optional
 
@@ -18,7 +27,7 @@ import numpy as np
 import torch
 
 from . import flags
-from .accel import build_bvh
+from .accel import build_bvh, export_bvh, import_bvh
 from .accel import mxu_trace as mt
 from .native import build_bvh_native
 from .bsdf import check_lobes
@@ -45,11 +54,27 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def table_cache_path(data_dir: str, scene: Scene, split_mode: str,
+                     slim: bool) -> str:
+    """The reference's table-cache file name (renderer.py:118-131): scene
+    hash, a blake2b-48 of the materials (their parameters are baked into
+    the tables, so an edit misses the cache), split mode, cluster size and
+    supercluster granularity, slim, TABLE_VERSION."""
+    mh = hashlib.blake2b(repr([m.__dict__ for m in scene.materials])
+                         .encode(), digest_size=6).hexdigest()
+    return os.path.join(
+        data_dir, "mxu_tables",
+        f"mxu_{scene.hash}_{mh}_{split_mode}_c256s{mt.SC_CLUSTERS}"
+        f"{'_slim' if slim else ''}_v{mt.TABLE_VERSION}.npz")
+
+
 class Renderer:
     def __init__(self, width: int, height: int,
-                 settings: Optional[Settings] = None, device=None):
+                 settings: Optional[Settings] = None,
+                 data_dir: str = "data", device=None):
         self.device = resolve_device(device)
         self.settings = settings or Settings()
+        self.data_dir = data_dir
         self.width = int(width)
         self.height = int(height)
         self.scene: Optional[Scene] = None
@@ -67,11 +92,14 @@ class Renderer:
 
     # -- scene lifecycle (Tracer::init) -------------------------------------
     def load_scene(self, scene_file: str):
-        """Load an OBJ or ``.sc.json`` scene, build its SAH BVH (the native
-        builder past 20,000 triangles, as the reference) and cluster
-        tables (slim past 65,536), and upload them. Env maps, saved render
-        state and BVH/table caches are not ported yet. ``load_seconds``
-        keeps the host time of each step. Ends with ``reset()``."""
+        """Load an OBJ or ``.sc.json`` scene; its BVH from the hierarchy
+        cache or built (``_init_hierarchy``); its cluster tables (slim past
+        65,536 triangles) from the table cache or built and cached
+        (``MXUScene.build_cached``); and upload them. The tables' content
+        picks the resolve kernel (``resolve_hits_mxu``). Env maps and saved
+        render state are not ported yet. ``load_seconds`` keeps the host
+        time of each step and ``cache_hit`` whether the BVH and the tables
+        came from the caches. Ends with ``reset()``."""
         t0 = time.perf_counter()
         scene = Scene()
         scene.load_model(scene_file)
@@ -79,13 +107,18 @@ class Renderer:
         self.scene = scene
         p, nrm, uv, mid = scene.triangle_arrays()
         t1 = time.perf_counter()
-        bvh = build_bvh_native(p) if p.shape[0] > 20000 else build_bvh(p)
+        bvh, bvh_hit = self._init_hierarchy(scene)
         t2 = time.perf_counter()
-        host, statics = mt.MXUScene.build(
-            p, bvh, normals=nrm, uvs=uv, mat_ids=mid,
-            materials=scene.materials, slim=p.shape[0] > 65536)
+        slim = p.shape[0] > 65536
+        cache = (table_cache_path(self.data_dir, scene,
+                                  self.settings.split_mode, slim)
+                 if scene.hash else None)
+        tables_hit = cache is not None and os.path.exists(cache)
+        host, statics = mt.MXUScene.build_cached(
+            cache, p, bvh, normals=nrm, uvs=uv, mat_ids=mid,
+            materials=scene.materials, slim=slim)
         t3 = time.perf_counter()
-        if p.shape[0] > 65536:
+        if slim:
             print(f"MXU tables: {statics['n_clusters']} clusters, "
                   f"{statics['n_superclusters']} supers ({t3 - t2:.2f}s)")
         self.device_scene = DeviceScene(
@@ -93,10 +126,37 @@ class Renderer:
             material_types=scene.material_types)
         self.load_seconds = dict(load=t1 - t0, bvh=t2 - t1, tables=t3 - t2,
                                  upload=time.perf_counter() - t3)
+        self.cache_hit = dict(bvh=bvh_hit, tables=tables_hit)
         self.world_radius = scene.world_radius()
         self._derive_config()
         self.params = self._make_params()
         self.reset()
+
+    def _init_hierarchy(self, scene: Scene):
+        """BVH behind the binary hierarchy cache (Tracer::initHierarchy,
+        tracer.cpp:934-952; the reference's renderer.py:234-274): a hit on
+        ``data_dir/hierarchies/hierarchy_<hash>[_sbvh].bin`` builds
+        nothing; a miss builds (the native SAH builder past 20,000
+        triangles, the numpy one below; the SBVH builder is not ported and
+        raises) and writes the cache, unless the scene has no hash.
+        Returns (bvh, hit)."""
+        cache_dir = os.path.join(self.data_dir, "hierarchies")
+        sbvh = self.settings.split_mode == "sbvh"
+        cache = os.path.join(cache_dir, f"hierarchy_{scene.hash}"
+                             f"{'_sbvh' if sbvh else ''}.bin")
+        if scene.hash and os.path.exists(cache):
+            return import_bvh(cache), True
+        if sbvh:
+            raise NotImplementedError(
+                "split_mode 'sbvh': the SBVH builder is not ported")
+        p = scene.triangle_arrays()[0]
+        bvh = build_bvh_native(p) if p.shape[0] > 20000 else build_bvh(p)
+        if scene.hash:
+            os.makedirs(cache_dir, exist_ok=True)
+            tmp = f"{cache}.{os.getpid()}.tmp"
+            export_bvh(bvh, tmp)
+            os.replace(tmp, cache)
+        return bvh, False
 
     def _derive_config(self):
         """Static RenderConfig from the settings and film size. The pool

@@ -39,6 +39,9 @@ class Settings:
     max_path_depth: int = 10
     max_spp: int = 0                # 0 = unbounded (CHECK_SPP off)
     tonemap: int = 2                # UC2 default (settings.cpp:39)
+    # hierarchy builder: "sah" (tracer.cpp:949 default) or "sbvh" (not
+    # ported: load_scene raises); part of the table cache's key
+    split_mode: str = "sah"
     camera: CameraSettings = dataclasses.field(default_factory=CameraSettings)
     area_light: AreaLightSettings = dataclasses.field(
         default_factory=AreaLightSettings)

@@ -169,7 +169,8 @@ def test_a_unported_lobe_raises(tmp_path):
     path = _write(tmp_path, [{"file": LUXBALL, "materials": {
         "core": {"shader": "glossy", "Ks": [0.9, 0.9, 0.9]}}}])
     with pytest.raises(NotImplementedError, match="glossy"):
-        Renderer(16, 16, device="cpu").load_scene(path)
+        Renderer(16, 16, data_dir=str(tmp_path), device="cpu").load_scene(
+            path)
 
 
 def test_b_native_bvh_equal(grid):
@@ -427,7 +428,7 @@ def test_g_wavefront_slice(grid, tables, reference_sc_kernels):
                                atol=1e-6)
 
 
-def test_renderer_renders_grid_on_cpu():
+def test_renderer_renders_grid_on_cpu(tmp_path):
     """Renderer(device="cpu") loads the 2x2 composition (129 clusters) and
     runs 4 segments through the two-level tier: a finite film."""
     s = Settings()
@@ -436,7 +437,7 @@ def test_renderer_renders_grid_on_cpu():
     a.pos, a.N, a.right, a.up = (LIGHT["pos"], LIGHT["N"], LIGHT["right"],
                                  LIGHT["up"])
     a.E, a.size = LIGHT["E"], LIGHT["size"]
-    r = Renderer(48, 32, settings=s, device="cpu")
+    r = Renderer(48, 32, settings=s, data_dir=str(tmp_path), device="cpu")
     r.load_scene(GRID)
     assert r.device_scene.mxu.n_clusters == 129
     r.init_wavefront(1024)

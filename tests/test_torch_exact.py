@@ -232,7 +232,7 @@ def test_render_single_wavefront_contract(tmp_path):
                                  LIGHT["up"])
     a.E, a.size = LIGHT["E"], LIGHT["size"]
     s.wf_buffer_size = 1024
-    r = Renderer(16, 8, settings=s, device="cpu")
+    r = Renderer(16, 8, settings=s, data_dir=str(tmp_path), device="cpu")
     r.load_scene(LUXBALL)
     for n in (2, 4):
         film = r.render_single(2)
@@ -252,13 +252,13 @@ def test_render_single_wavefront_contract(tmp_path):
     assert len(r._wf_counters) == 3
 
 
-def test_exact_refuses_to_continue_a_foreign_film():
+def test_exact_refuses_to_continue_a_foreign_film(tmp_path):
     """An accumulation left in self.film by the mk route cannot be
     continued by the exact-spp wavefront (the reference's checkpoint
     branch is not ported): it raises until reset()."""
     s = Settings()
     s.wf_buffer_size = 1024
-    r = Renderer(16, 8, settings=s, device="cpu")
+    r = Renderer(16, 8, settings=s, data_dir=str(tmp_path), device="cpu")
     r.load_scene(LUXBALL)
     r.film = r.film._replace(weight=r.film.weight + 1.0)
     with pytest.raises(NotImplementedError, match="reset"):

@@ -61,16 +61,74 @@ def test_source_scan():
                 assert not pat.search(line), f"{f}:{no}: {line.strip()}"
 
 
-def test_renderer_requires_cuda(monkeypatch):
+_KNOB = re.compile(r"env(?:_bool|_int)?\(\s*[\"']([A-Z0-9_]+)[\"']")
+
+
+def _sources(root):
+    for d, _, names in os.walk(root):
+        for n in names:
+            if n.endswith(".py"):
+                with open(os.path.join(d, n)) as fh:
+                    yield os.path.relpath(os.path.join(d, n), root), fh.read()
+
+
+def test_no_knob_the_reference_lacks():
+    """Every FLT_* override the port reads is one the JAX package reads; the
+    port reads no other environment variable but the CUDA toolkit's
+    location; and every field of its Settings is a field of the JAX
+    package's, with the same default. So K10's route is reached through the
+    tables' content alone."""
+    import dataclasses
+    import inspect
+    from fluctus_tpu import settings as jsettings
+    from fluctus_tpu_torch import kernel_build
+    from fluctus_tpu_torch import settings as tsettings
+    ref = set()
+    for _, text in _sources(os.path.join(ROOT, "fluctus_tpu")):
+        ref |= set(_KNOB.findall(text))
+    ours = set()
+    readers = set()
+    for path, text in _sources(PKG):
+        ours |= set(_KNOB.findall(text))
+        if "os.environ" in text or "getenv(" in text:
+            readers.add(path)
+    assert {"SORT_RAYS", "ROL", "FORCE_MK", "SEED_SALT"} <= ours
+    assert ours <= ref, ours - ref
+    # outside flags.py only nvcc_path reads the environment: the CUDA
+    # toolkit's location (CUDA_HOME, CUDA_PATH), not a switch
+    assert readers == {"flags.py", "kernel_build.py"}, readers
+    src = inspect.getsource(kernel_build)
+    fn = inspect.getsource(kernel_build.nvcc_path)
+    assert "os.environ" not in src.replace(fn, "")
+    assert set(re.findall(r'"([A-Z_]+)"', fn)) == {"CUDA_HOME", "CUDA_PATH"}
+
+    def fields(cls):
+        return {f.name: (f.default if f.default is not dataclasses.MISSING
+                         else f.default_factory())
+                for f in dataclasses.fields(cls)}
+    for ours_cls, ref_cls in ((tsettings.Settings, jsettings.Settings),
+                              (tsettings.CameraSettings,
+                               jsettings.CameraSettings),
+                              (tsettings.AreaLightSettings,
+                               jsettings.AreaLightSettings)):
+        mine, theirs = fields(ours_cls), fields(ref_cls)
+        for name, default in mine.items():
+            assert name in theirs, f"{ours_cls.__name__}.{name}"
+            if not dataclasses.is_dataclass(default):
+                assert default == theirs[name], name
+
+
+def test_renderer_requires_cuda(monkeypatch, tmp_path):
     """Without CUDA the renderer raises unless the caller asks for the
     CPU; there is no silent fallback."""
     from fluctus_tpu_torch.renderer import Renderer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = str(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Renderer(16, 16)
+        Renderer(16, 16, data_dir=d)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Renderer(16, 16, device="cuda")
-    assert Renderer(16, 16, device="cpu").device.type == "cpu"
+        Renderer(16, 16, data_dir=d, device="cuda")
+    assert Renderer(16, 16, data_dir=d, device="cpu").device.type == "cpu"
 
 
 def test_wrappers_route_by_device():
@@ -100,7 +158,8 @@ def test_wrappers_route_by_device():
                                                  t16r)))
     assert set(kb.KERNELS) == {"tile_order", "trace_rol", "resolve_v5",
                                "block_splat", "trace_rol_sc", "resolve_v5s",
-                               "block_splat_capped", "fetch", "trace_ros"}
+                               "block_splat_capped", "fetch", "trace_ros",
+                               "resolve_v1"}
     rem = torch.zeros((1, 2 * 128))
     assert bs.splat(local, data, film, groups=2, remaining=rem).sum() == 0
     assert bs.fetch(local, film[3:], groups=2).shape == (4,)

@@ -337,7 +337,8 @@ def test_pick_single_matches_reference(tmp_path):
     t."""
     s = Settings()
     s.camera.pos, s.camera.dir = CAM["pos"], CAM["dir"]
-    r = Renderer(16, 8, settings=s, device="cpu")
+    r = Renderer(16, 8, settings=s, data_dir=str(tmp_path / "port"),
+                 device="cpu")
     r.load_scene(LUXBALL)
     js = JSettings()
     js.camera.pos, js.camera.dir = CAM["pos"], CAM["dir"]

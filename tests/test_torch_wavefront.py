@@ -172,14 +172,14 @@ def test_pad_unpad_and_true_pid():
         padded.numpy())
 
 
-def _renderer():
+def _renderer(data_dir):
     s = Settings()
     s.camera.pos, s.camera.dir = CAM["pos"], CAM["dir"]
     a = s.area_light
     a.pos, a.N, a.right, a.up = (LIGHT["pos"], LIGHT["N"], LIGHT["right"],
                                  LIGHT["up"])
     a.E, a.size = LIGHT["E"], LIGHT["size"]
-    r = Renderer(64, 36, settings=s, device="cpu")
+    r = Renderer(64, 36, settings=s, data_dir=str(data_dir), device="cpu")
     r.load_scene(LUXBALL)
     return r
 
@@ -188,7 +188,7 @@ def test_renderer_cpu_end_to_end(tmp_path):
     """Renderer(device="cpu") on luxball at 64x36 with 2048 paths, 3
     segments: a finite film, and counters equal to driving the segment
     functions by hand from the same reset."""
-    r = _renderer()
+    r = _renderer(tmp_path)
     r.init_wavefront(2048)
     r.render_wavefront(3)
     st = r.wavefront_stats()
