@@ -5,7 +5,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   every kernel of csrc/ built from source in parallel.
+   every kernel of csrc/ built from source in parallel; for K5 and K9
+   (csrc/sweep_hopper.cuh) the registers, spills and shared memory of each
+   instantiation and the occupancy they allow.
 2. kernel vs plain: the inputs K1-K4 receive on the luxball path (the 1M
    camera rays of the second segment and the bounce rays of the fourth, as
    the pair trace sorts them) go through each kernel and through its plain
@@ -29,8 +31,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    luxball grid (361,088 triangles, 2,056 clusters, past both tier
    switches), so each segment runs K1 over superclusters, K5 twice, K6
    and K4. 2b holds K1, K5 (both modes) and K6 to their plain versions
-   and times K3 on K6's inputs; 3b times LARGE_SEGMENTS segments and
-   checks the primary-hit share.
+   and times K3 on K6's inputs; 3b times LARGE_SEGMENTS segments, checks
+   the primary-hit share, and holds K5's calls of its last segment to the
+   plain version and times them. The trace kernels (K2, K5, K9) are held
+   bit for bit: t as int32 bits, columns and per-tile visit counts; their
+   lines carry the per-tile visits (p50, p99, max) and the (ray, triangle)
+   pairs per second, K5's also the live superclusters and member culls of
+   each tile (counted on the plain walk).
 5. exact-spp (Renderer.render_single, the capped wavefront) on luxball at
    1080p with 1M paths: a first render records K7's and K8's arguments in
    segment 2 and in the last segment where budgets bind, held bit for bit
@@ -53,6 +60,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    trace_ros_plain (columns and t bit-equal) and timed beside K2 on the
    same rays sorted (6b); pick_single at the image centre against
    closest_hit_mxu_full (6c).
+7. edge-case tiles (after phase 2 on luxball's tables, after 2b on the
+   8x8 grid's): K9 and K5, closest-hit and any-hit, bit for bit against
+   their plain versions on tiles made from a numpy seed: tmax = +inf
+   lanes, direction components of 0, origins on a triangle's plane, rays
+   parallel to a triangle, lists that end at once, tiles that stop at
+   once, and K5 walking superclusters of 1 and 64 members first.
 8. the K10 route: luxball's tables written as a table cache without B16
    (0-d b16t/attr_b16, under the reference's file name) load through
    Renderer.load_scene, so resolve_hits_mxu takes K10 (csrc/resolve_v1.cu)
@@ -327,44 +340,133 @@ def check_tile_order(mt, rec_calls):
         shape=f"{nt} tiles x {rt} rays x {ncl} boxes")
 
 
-def check_trace(name, kernel, plain, rec_calls, chunk):
-    """A trace kernel vs its plain version on every recorded call of
-    segments 2 and 4: winner columns / verdicts equal on >= 0.9999 of the
-    rays (1.0 expected), t equal where they agree, visit counts equal.
-    Returns (timing dict of segment 4's closest-hit call, segment 2's
-    closest-hit kernel output)."""
+def trace_diffs(got, ref):
+    """Values of a trace kernel's (t, i, visits) that differ from its plain
+    version's, per output: t compared as int32 bits (NaN too), the columns
+    and the visit counts as integers. All 0 for a kernel that agrees."""
     import torch
-    worst, agree, calls, seg2 = 0.0, [], [], None
-    for seg in (2, 4):
+    out = {}
+    for a, b, what in zip(got, ref, ("t", "columns", "visits")):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        out[what] = 0 if torch.equal(a, b) else int((a != b).sum())
+    return out
+
+
+def visit_stats(visits, tc, rt, ms):
+    """Per-tile visit counts (p50, p99, max), and the (ray, triangle) pairs
+    the visits sweep per second of kernel time ``ms``."""
+    import torch
+    v = visits.double()
+    q = torch.quantile(v, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                       device=v.device))
+    pairs = int(visits.sum()) * tc * rt
+    return dict(visits_p50=float(q[0]), visits_p99=float(q[1]),
+                visits_max=int(visits.max()), pairs=pairs,
+                pairs_per_s=pairs / (ms / 1e3))
+
+
+def check_trace(name, kernel, plain, rec_calls, chunk, segs=(2, 4),
+                walk=None):
+    """A trace kernel vs its plain version on every recorded call of the
+    segments ``segs``: t (as bits), winner columns / verdicts and visit
+    counts bit-equal. Returns (timing dict of the last segment's
+    closest-hit call, with ``walk(args)``'s counters when given, and
+    segment 2's closest-hit kernel output or None)."""
+    calls, seg2 = [], None
+    for seg in segs:
         for args, _ in rec_calls[(seg, name)]:
             got = kernel(*args)
             ref = trace_plain_chunked(plain, *args, chunk=chunk)
-            same = got[1] == ref[1]
-            frac = float(same.float().mean())
-            agree.append(frac)
-            if frac < 0.9999:
-                raise AssertionError(f"{name} col agreement {frac} (segment "
-                                     f"{seg}, any_hit={args[-1]})")
-            if not torch.equal(got[2], ref[2]):
-                raise AssertionError(f"{name} visit counts differ (segment "
-                                     f"{seg})")
-            worst = max(worst, float((got[0] - ref[0])[same].abs().max()))
-            calls.append((seg, args, int(got[2].sum())))
+            diff = trace_diffs(got, ref)
+            if any(diff.values()):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"(segment {seg}, any_hit={args[-1]}): "
+                                     f"{diff}")
+            calls.append((seg, args, got[2]))
             if seg == 2 and not args[-1]:
                 seg2 = got
-    seg, args, visits = calls[-2]          # segment 4, closest-hit
+    seg, args, visits = [c for c in calls if not c[1][-1]][-1]
+    extra = walk(args) if walk else {}
+    res = trace_timing(kernel, plain, args, visits, chunk,
+                       f"closest-hit, rays of segment {seg}",
+                       culls=extra.get("member_culls", 0))
+    _, any_args, any_visits = [c for c in calls if c[1][-1]][-1]
+    any_ms = time_ms(lambda: kernel(*any_args))
+    res["any_hit"] = dict(ms=any_ms, **visit_stats(
+        any_visits, any_args[-2], any_args[0].shape[2], any_ms))
+    return dict(res, **extra), seg2
+
+
+def sc_walk_counts(args, chunk=512):
+    """Where K5's work goes on one call: per tile the live superclusters
+    and the member culls (the slab tests of the members of each live
+    supercluster) of the plain walk, trace_rol_sc_plain's loop counted."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    rays, tm, order, cons, t12, boxes, sc_box, tc, any_hit = args
+    t12c = t12.view(12, boxes.shape[0], tc)
+    lives, culls = [], []
+    for k in range(0, rays.shape[0], chunk):
+        st = mt._TraceState(rays[k:k + chunk], tm[k:k + chunk], tc)
+        o, cn = order[k:k + chunk], cons[k:k + chunk]
+        live_n = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+        cull_n = torch.zeros_like(live_n)
+        n_slots = o.shape[1]
+        stop = st.stop_at(o, cn, 0)
+        for slot in range(n_slots):
+            run = ~stop
+            if not bool(run.any()):
+                break
+            s = o[:, slot].long()
+            srow = sc_box[s.clamp_min(0)]
+            live_sc = st.box_hit(srow, any_hit).any(dim=1) & (s >= 0) & run
+            c0 = srow[:, 6].to(torch.int64)
+            cnt = torch.where(live_sc, srow[:, 7].to(torch.int64), 0)
+            live_n += live_sc
+            cull_n += cnt
+            for m in range(int(cnt.max())):
+                c = c0 + m
+                box = boxes[torch.where(m < cnt, c, 0)]
+                live = (st.box_hit(box, any_hit).any(dim=1)
+                        & (st.t_best.amax(dim=1) > 0.0) & (m < cnt))
+                st.sweep(live, c, t12c, any_hit)
+            stop = stop | st.stop_at(o, cn, min(slot + 1, n_slots - 1))
+        lives.append(live_n)
+        culls.append(cull_n)
+    live_n, cull_n = torch.cat(lives).double(), torch.cat(culls).double()
+    q = torch.tensor([0.5, 0.99], dtype=torch.float64, device=o.device)
+    ql, qc = torch.quantile(live_n, q), torch.quantile(cull_n, q)
+    return dict(live_superclusters=int(live_n.sum()),
+                live_superclusters_p50=float(ql[0]),
+                live_superclusters_p99=float(ql[1]),
+                live_superclusters_max=int(live_n.max()),
+                member_culls=int(cull_n.sum()),
+                member_culls_p50=float(qc[0]), member_culls_p99=float(qc[1]),
+                member_culls_max=int(cull_n.max()))
+
+
+def trace_timing(kernel, plain, args, visits, chunk, what, culls=0):
+    """A trace kernel's time on one call (rays [nt, 8, rt] first, tc last
+    but one), its bound (~30 operations per swept pair, ~20 per ray and
+    member cull ``culls``), plain time, visit statistics and pair rate."""
+    import torch
     rays, order, tc = args[0], args[2], args[-2]
     nt, _, rt = rays.shape
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    b_ms, b_by = bound(visits * tc * rt * 30, nbytes(*tensors) + nt * rt * 8)
+    nvis = int(visits.sum())
+    b_ms, b_by = bound(nvis * tc * rt * 30 + culls * rt * 20,
+                       nbytes(*tensors) + nt * rt * 8)
+    times = kernel_ms(lambda: kernel(*args))
     return dict(
-        max_abs_err=worst, **kernel_ms(lambda: kernel(*args)),
+        max_abs_err=0.0, **times,
         plain_ms=time_ms(lambda: trace_plain_chunked(plain, *args,
                                                      chunk=chunk), 2, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        col_agreement_min=min(agree), visited_clusters=visits,
+        visited_clusters=nvis, member_culls=culls,
+        **visit_stats(visits, tc, rt, times["ms"]),
         shape=f"{nt} tiles x {rt} rays x {order.shape[1]} candidates, "
-              "closest-hit, bounce rays"), seg2
+              f"{what}")
 
 
 def check_resolve(name, kernel, plain, rec_calls):
@@ -457,7 +559,7 @@ def phase_kernels_large(r, rec_calls):
     res = {"tile_order": check_tile_order(mt, rec_calls)}
     res["trace_rol_sc"], seg2 = check_trace(
         "trace_rol_sc", mt.trace_rol_sc, mt.trace_rol_sc_plain, rec_calls,
-        512)
+        512, walk=sc_walk_counts)
     res["resolve_v5s"], args = check_resolve(
         "resolve_v5s", mt.resolve_v5s, mt.resolve_v5s_plain, rec_calls)
     res["resolve_v5_on_large"] = dict(
@@ -466,6 +568,159 @@ def phase_kernels_large(r, rec_calls):
     # segment 2 traces the camera rays of every lane (segment 1 gives each
     # pre-birth lane its first camera ray)
     return res, float((seg2[1] >= 0).float().mean())
+
+
+class LastCalls:
+    """Keep the arguments of the last ``keep`` calls of ``mod.name`` (the
+    wrapper runs as usual)."""
+
+    def __init__(self, mod, name, keep=2):
+        self.mod, self.name, self.keep = mod, name, keep
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = getattr(self.mod, self.name)
+
+        def rec(*args):
+            self.calls = (self.calls + [args])[-self.keep:]
+            return self.orig(*args)
+        setattr(self.mod, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: K5 and K9 on edge-case tiles
+# ---------------------------------------------------------------------------
+
+def edge_rays(sc, nt, seed, rt=512):
+    """[nt * rt, 4] rays (o4, d4) and tmax of edge-case tiles, made from a
+    numpy seed in the tables' (centred) frame: rays from above and around
+    the scene toward random points of its bounds; a tenth each with a
+    direction component of exactly 0, with the origin on a triangle's plane
+    (oz = 0 up to rounding), or parallel to a triangle (dz = 0 up to
+    rounding); tmax +inf on half the lanes. The last three tiles: rays
+    that look up from above the scene (the candidate list ends at once),
+    tmax 0 everywhere (the tile stops at once), and every origin on a
+    triangle's plane with tmax +inf."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    n = nt * rt
+    lo, hi = sc.lo.double().cpu().numpy(), sc.hi.double().cpu().numpy()
+    span = hi - lo
+    target = lo + rng.random((n, 3)) * span
+    orig = lo + (rng.random((n, 3)) * 1.6 - 0.3) * span
+    orig[:, 1] = hi[1] + rng.random(n) * span[1]
+    # triangles' planes from their transforms: M p + b = (u, v, 0)
+    rows = torch.nonzero(sc.tri_map >= 0)[:, 0]
+    pick = rows[torch.from_numpy(rng.integers(0, rows.numel(), n)).to(
+        rows.device)]
+    T = sc.t12[:, pick].double().cpu().numpy().T          # [n, 12]
+    M = T[:, [0, 1, 2, 4, 5, 6, 8, 9, 10]].reshape(n, 3, 3)
+    b = T[:, [3, 7, 11]]
+    uv0 = np.stack([rng.random(n) * 0.5, rng.random(n) * 0.5,
+                    np.zeros(n)], 1)
+    on_plane = np.linalg.solve(M, (uv0 - b)[..., None])[..., 0]
+    nrm = M[:, 2]                                          # dz = d . nrm
+    d = target - orig
+    kind = rng.integers(0, 10, n)
+    zero = kind == 0
+    d[zero, rng.integers(0, 3, int(zero.sum()))] = 0.0
+    plane = kind == 1
+    orig[plane] = on_plane[plane]
+    par = kind == 2
+    d[par] = np.cross(nrm[par], rng.normal(size=(int(par.sum()), 3)))
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-30)
+    tm = np.where(rng.random(n) < 0.5, np.inf,
+                  rng.random(n) * span.max() * 2.0)
+    up, zero_t, inf_plane = (slice(k * rt, (k + 1) * rt)
+                             for k in (nt - 3, nt - 2, nt - 1))
+    orig[up] = target[up] + [0.0, 2.0 * span[1], 0.0]
+    d[up] = [0.0, 1.0, 0.0]
+    tm[zero_t] = 0.0
+    orig[inf_plane] = on_plane[inf_plane]
+    tm[inf_plane] = np.inf
+    o4 = np.concatenate([orig, np.ones((n, 1))], 1).astype(np.float32)
+    d4 = np.concatenate([d, np.zeros((n, 1))], 1).astype(np.float32)
+    dev = sc.t12.device
+    return (torch.from_numpy(o4).to(dev), torch.from_numpy(d4).to(dev),
+            torch.from_numpy(tm.astype(np.float32)).to(dev)[:, None])
+
+
+def synthetic_supers(sc):
+    """An sc_box that cuts the clusters into a supercluster of 1 member,
+    then superclusters of 64 (SC_CLUSTERS) and the remainder, boxes the
+    union of their members'."""
+    import torch
+    ncl = sc.n_clusters
+    cuts = [0] + list(range(1, ncl, 64)) + [ncl]
+    box = sc.cluster_box
+    out = torch.zeros((len(cuts) - 1, 8), device=box.device)
+    for s, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+        out[s, 0:3] = box[a:b, 0:3].amin(0)
+        out[s, 3:6] = box[a:b, 3:6].amax(0)
+        out[s, 6], out[s, 7] = a, b - a
+    return out
+
+
+def check_edges(sc, scene, seed, nt=64):
+    """Phase 7 on one scene's tables: K9 (from tx/ty/tz, or t12's rows on
+    slim tables) and K5 (on the scene's superclusters and on synthetic ones
+    of 1 and 64 members) against their plain versions on edge-case tiles,
+    closest-hit and any-hit, t / columns / visits bit for bit."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    rt = mt.ROL_TILE
+    o4, d4, tmax = edge_rays(sc, nt, seed, rt)
+    rays = mt._pack_rays(o4, d4, rt)
+    tm = tmax.reshape(nt, rt).contiguous()
+    tc = sc.cluster_size
+    txyz = ((sc.tx, sc.ty, sc.tz) if sc.tx is not None else
+            tuple(sc.t12[k:k + 4] for k in (0, 4, 8)))
+    order, cons = mt._candidate_order(mt.tile_order(rays, tm, sc.cluster_box))
+    supers = {"scene": sc.sc_box, "synthetic": synthetic_supers(sc)}
+    counts = {k: v[:, 7].long().tolist() for k, v in supers.items()}
+    out = dict(scene=scene, tiles=nt, rays=nt * rt, seed=seed,
+               supercluster_members=counts,
+               lists_ending_at_once=int((order[:, 0] < 0).sum()))
+    for any_hit in (False, True):
+        mode = "any_hit" if any_hit else "closest"
+        args = (o4, d4, tmax, order, cons, *txyz, sc.cluster_box,
+                sc.n_clusters, tc, any_hit)
+        got = mt.trace_ros(*args)
+        diff = trace_diffs(got, ros_plain_chunked(args))
+        out[f"trace_ros_{mode}"] = dict(differ=diff,
+                                        visits=int(got[2].sum()),
+                                        hits=int((got[1] >= 0).sum()))
+        for name, sb in supers.items():
+            so, sn = mt._candidate_order(mt.tile_order(rays, tm, sb))
+            # the first two tiles walk the 1-member supercluster first, the
+            # next two the synthetic 64-member one (or the scene's largest)
+            one = int(torch.argmin(sb[:, 7]))
+            big = int(torch.argmax(sb[:, 7]))
+            for t_, s_ in ((0, one), (1, one), (2, big), (3, big)):
+                rest = [x for x in so[t_].tolist() if x not in (s_, -1)]
+                so[t_] = torch.tensor([s_] + rest + [-1] * (
+                    so.shape[1] - 1 - len(rest)), dtype=torch.int32)
+                sn[t_, 0] = 0.0
+            kargs = (rays, tm, so, sn, sc.t12, sc.cluster_box, sb, tc,
+                     any_hit)
+            got = mt.trace_rol_sc(*kargs)
+            diff = trace_diffs(got, trace_plain_chunked(
+                mt.trace_rol_sc_plain, *kargs, chunk=512))
+            out[f"trace_rol_sc_{mode}_{name}"] = dict(
+                differ=diff, visits=int(got[2].sum()),
+                hits=int((got[1] >= 0).sum()))
+    emit(dict(phase="edge_tiles", **out))
+    bad = {k: v["differ"] for k, v in out.items()
+           if isinstance(v, dict) and any(v.get("differ", {}).values())}
+    if bad:
+        raise AssertionError(f"edge tiles: K5/K9 differ from their plain "
+                             f"versions on {scene}: {bad}")
+    return out
 
 
 def phase_main(r, card, scene, segments, per_segment, extra=None):
@@ -916,21 +1171,17 @@ def check_ros(r, calls):
     rays as the sorted single-set trace hands them to it."""
     import torch
     from fluctus_tpu_torch.accel import mxu_trace as mt
-    res = {}
+    res, per_tile = {}, {}
     for idx, args in sorted(calls.items()):
         got = mt.trace_ros(*args)
-        ref = ros_plain_chunked(args)
-        for a, b, what in zip(got, ref, ("t", "columns", "visits")):
-            if a.dtype == torch.float32:          # bit for bit, NaN too
-                a, b = a.view(torch.int32), b.view(torch.int32)
-            if not torch.equal(a, b):
-                raise AssertionError(
-                    f"K9 {what} differ from the plain version (call {idx}, "
-                    f"any_hit={bool(args[-1])}): {int((a != b).sum())} of "
-                    f"{a.numel()}")
+        diff = trace_diffs(got, ros_plain_chunked(args))
+        if any(diff.values()):
+            raise AssertionError(f"K9 differs from the plain version (call "
+                                 f"{idx}, any_hit={bool(args[-1])}): {diff}")
         res[idx] = dict(any_hit=bool(args[-1]),
                         visits=int(got[2].sum()),
                         hits=int((got[1] >= 0).sum()))
+        per_tile[idx] = got[2]
     args = calls[min(calls)]                    # closest-hit
     o4, d4, tm, order = args[:4]
     tc = args[-2]
@@ -938,6 +1189,9 @@ def check_ros(r, calls):
     visits = res[min(calls)]["visits"]
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     b_ms, b_by = bound(visits * tc * rt * 30, nbytes(*tensors) + nt * rt * 8)
+    times = kernel_ms(lambda: mt.trace_ros(*args), 5)
+    any_args = calls[max(calls)]
+    any_ms = time_ms(lambda: mt.trace_ros(*any_args), 5)
     # K2 on the same rays, sorted as _sorted_trace sorts them
     rec = Recorder()
     rec.targets = [(mt, "trace_rol")]
@@ -948,10 +1202,13 @@ def check_ros(r, calls):
     k2_args = rec.calls[(0, "trace_rol")][0][0]
     k2_visits = int(mt.trace_rol(*k2_args)[2].sum())
     return dict(
-        max_abs_err=0.0, **kernel_ms(lambda: mt.trace_ros(*args), 5),
+        max_abs_err=0.0, **times,
         plain_ms=time_ms(lambda: ros_plain_chunked(args), 1, 0),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         visited_clusters=visits, calls=res,
+        **visit_stats(per_tile[min(calls)], tc, rt, times["ms"]),
+        any_hit_ms=any_ms,
+        any_hit_stats=visit_stats(per_tile[max(calls)], tc, rt, any_ms),
         k2_sorted_ms=time_ms(lambda: mt.trace_rol(*k2_args)),
         k2_sorted_visited_clusters=k2_visits,
         shape=f"{nt} tiles x {rt} rays in lane order x {order.shape[1]} "
@@ -1286,6 +1543,49 @@ def phase_caches(card):
                              f"films equal {film_equal})")
 
 
+def sweep_build_info(kb):
+    """Per instantiation of K5 and K9 (closest-hit, any-hit): registers,
+    spill bytes and shared memory from ptxas (-Xptxas -v), and for a
+    512-ray tile the CTAs (one cluster) per tile, threads per CTA, tiles
+    the card holds at once and CTAs per SM (the CUDA occupancy API)."""
+    import ctypes
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name in ("trace_rol_sc", "trace_ros"):
+        source = f"{name}.cu"
+        fn = getattr(ctypes.CDLL(kb._lib_path(source)), f"{name}_occupancy")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        modes, cur = {}, None
+        for ln in kb.build_log(source).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                cur = modes.setdefault(
+                    "any_hit" if "ILb1E" in m.group(1) else "closest", {})
+                continue
+            if cur is None:
+                continue
+            for key, pat in (("spill_store_bytes", r"(\d+) bytes spill st"),
+                             ("spill_load_bytes", r"(\d+) bytes spill lo"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("smem_bytes", r"(\d+) bytes smem")):
+                m = re.search(pat, ln)
+                if m:
+                    cur[key] = int(m.group(1))
+        for mode, flag in (("closest", 0), ("any_hit", 1)):
+            occ = (ctypes.c_int * 3)()
+            err = fn(flag, 512, occ)
+            if err:
+                raise RuntimeError(f"{name} occupancy query: CUDA error {err}")
+            modes.setdefault(mode, {}).update(
+                ctas_per_tile=occ[1], threads_per_cta=occ[2],
+                tiles_in_flight=occ[0], ctas_per_sm=occ[0] * occ[1] / sms)
+        out[name] = modes
+    return out
+
+
 def main():
     import torch
     global TMP_ROOT
@@ -1315,7 +1615,8 @@ def run(kb):
                 if "registers" in ln or "spill" in ln]
             for s in per_source}
     emit(dict(phase="build", seconds=time.time() - t0, per_source=per_source,
-              ptxas=regs, device=torch.cuda.get_device_name(0), card=card,
+              ptxas=regs, sweep=sweep_build_info(kb),
+              device=torch.cuda.get_device_name(0), card=card,
               torch=torch.__version__, cuda=torch.version.cuda))
 
     # phase 2: kernels vs plain on the luxball path's inputs
@@ -1323,6 +1624,9 @@ def run(kb):
     kres = phase_kernels(r, record_segments(r))
     emit(dict(phase="kernels_vs_plain", card=card, scene=LUXBALL,
               vertex_table_bytes=vertex_table_bytes(r), **kres))
+
+    # phase 7 (luxball): K5 and K9 on edge-case tiles
+    check_edges(r.device_scene.mxu, LUXBALL, seed=7)
 
     # phase 3: luxball path, then a profiled look at two more segments
     launches, main = phase_main(r, card, LUXBALL, SEGMENTS, PER_SEGMENT)
@@ -1359,15 +1663,25 @@ def run(kb):
               tile_order_on_supers=kres_l["tile_order"]))
     kres.update(trace_rol_sc=kres_l["trace_rol_sc"],
                 resolve_v5s=kres_l["resolve_v5s"])
+    check_edges(sc, LARGE, seed=8)           # phase 7 on the 8x8 grid
 
-    # phase 3b: the large path
-    launches_l, main_l = phase_main(
-        r, card, LARGE, LARGE_SEGMENTS, PER_SEGMENT_LARGE,
-        extra=dict(scene_info, primary_hit_share=primary_hit))
+    # phase 3b: the large path, K5's arguments of its last segment kept
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    with LastCalls(mt, "trace_rol_sc") as late:
+        launches_l, main_l = phase_main(
+            r, card, LARGE, LARGE_SEGMENTS, PER_SEGMENT_LARGE,
+            extra=dict(scene_info, primary_hit_share=primary_hit))
     if primary_hit < 0.9:
         raise AssertionError(f"primary-hit share {primary_hit} < 0.9")
     profile_segments(r, card, main_l["ms_per_segment"])
-    del r
+    late_res, _ = check_trace(
+        "trace_rol_sc", mt.trace_rol_sc, mt.trace_rol_sc_plain,
+        {(LARGE_SEGMENTS, "trace_rol_sc"): [(a, {}) for a in late.calls]},
+        512, segs=(LARGE_SEGMENTS,), walk=sc_walk_counts)
+    emit(dict(phase="trace_rol_sc_late_segment", card=card,
+              segment=LARGE_SEGMENTS, trace_rol_sc=late_res))
+    kres["trace_rol_sc"]["late_segment"] = late_res
+    del r, late
     torch.cuda.empty_cache()
 
     # phase 4b: whole-path parity on the large path

@@ -20,91 +20,116 @@
 // triangle) pair of every visited cluster, visits * tc * rt * 30. The
 // per-member culls add ~20 operations per (ray, member) of every live
 // supercluster; bytes are the rays, the lists and 12 KB of transforms per
-// visit.
+// visit. Under -fmad=false no multiply-add fuses, so the attainable rate is
+// about half that bound. What set K5's time was not the pair arithmetic but
+// its spread: on the 8x8 grid's bounce rays the median tile visits 1
+// cluster and the heaviest 371, so one tile on one SM ran for most of the
+// launch; beside it, two block-wide votes per member of a live supercluster
+// (51 members on average), a block max after every slot, and a synchronous
+// 12 KB staging per visit.
 //
-// Design: K2's, one CTA of rt threads per tile, one thread per ray, t_best
-// and i_best in registers, with the member loop inside the slot loop. The
-// supercluster and member decisions are block-uniform (__syncthreads_or),
-// so every thread walks the same members and the staged transform block
-// is shared. "max(t_best) > 0" is read as "some t_best > 0", which is the
-// same predicate for the fmaxf block max the early-out uses. Offsets into
-// t12 are 64-bit (Mpad = 526,336 at 361k triangles).
-#include "common.cuh"
+// Design: sweep_hopper.cuh. Closest-hit: a tile is a cluster of 2 CTAs of
+// 1024 threads (2 rays per thread, 4 ray groups per CTA), so each sweep of
+// the heaviest tile runs on 2 SMs at 64 warps; any-hit, whose sweeps end
+// at a ray's first blocking triangle, a cluster of 2 CTAs of 512 threads,
+// one ray each. The members of a live
+// supercluster are decided 32 at a time by one vote, and after a sweep
+// only the members that vote left live are tested again (with the block
+// max of t_best in the same barrier); the next possibly live member is
+// fetched by cp.async into the second record buffer while the current one
+// is swept. "max(t_best) > 0" is read as "some t_best > 0", the same
+// predicate for the fmaxf block max. Offsets into t12 are 64-bit (Mpad =
+// 526,336 at 361k triangles).
+#include "sweep_hopper.cuh"
 
-template <bool ANY_HIT>
-__global__ void trace_rol_sc_kernel(const float* __restrict__ rays,
-                                    const float* __restrict__ tm,
-                                    const int* __restrict__ order,
-                                    const float* __restrict__ cons,
-                                    const float* __restrict__ t12,
-                                    const float* __restrict__ boxes,
-                                    const float* __restrict__ sc_box,
-                                    float* __restrict__ t_out,
-                                    int* __restrict__ i_out,
-                                    int* __restrict__ visits, int rt,
-                                    int nsc_pad, int tc, long long m_pad) {
-  extern __shared__ float sT[];   // [12][tc]
-  __shared__ float sred[32];
-  const int r = threadIdx.x;
-  const size_t tile = blockIdx.x;
+// Shapes, Config<rays per thread, ray groups per CTA, CTAs per tile>, the
+// fastest of those timed on an H100 (PERF.md): closest-hit, any-hit.
+using Closest = hs::Config<2, 4, 2>;
+using AnyHit = hs::Config<1, 1, 2>;
 
-  const Ray y = load_ray(rays + tile * 8 * rt, rt, r);
-  float t_best = tm[tile * rt + r];
-  int i_best = -1;
+template <class C, bool ANY_HIT>
+__global__ void __launch_bounds__(C::MAX_THREADS)
+    trace_rol_sc_kernel(const float* __restrict__ rays,
+                        const float* __restrict__ tm,
+                        const int* __restrict__ order,
+                        const float* __restrict__ cons,
+                        const float* __restrict__ t12,
+                        const float* __restrict__ boxes,
+                        const float* __restrict__ sc_box,
+                        float* __restrict__ t_out, int* __restrict__ i_out,
+                        int* __restrict__ visits, int rt, int nsc_pad,
+                        long long m_pad) {
+  using Tile = hs::Tile<C, ANY_HIT>;
+  __shared__ hs::Shared<C> sh;
+  Tile T(sh, hs::Source{t12, t12 + 4 * m_pad, t12 + 8 * m_pad, m_pad});
+  const size_t tile = Tile::tile();
+#pragma unroll
+  for (int r = 0; r < C::RAYS; ++r) {
+    const int lane = T.lane(r);
+    T.y[r] = load_ray(rays + tile * 8 * rt, rt, lane);
+    T.t_best[r] = tm[tile * rt + lane];
+    T.i_best[r] = -1;
+  }
   const int* ord = order + tile * nsc_pad;
   const float* cn = cons + tile * nsc_pad;
-  int n_live = 0;
+  int base = 0;   // first slot of the voted supercluster window
+  auto sc_of = [&](int j) {
+    return sc_box + (size_t)max(ord[base + j], 0) * 8;
+  };
+  int c0 = 0, kb = 0;   // first member cluster, first member of the window
+  auto member_of = [&](int j) { return boxes + (size_t)(c0 + kb + j) * 8; };
 
-  float t_worst = block_max(t_best, sred);
-  bool stop = (ord[0] < 0) || (cn[0] > t_worst) || (t_worst <= 0.0f);
+  hs::Vote v = T.vote(hs::window_bits(nsc_pad), sc_of);
+  unsigned live = v.mask;
+  float t_worst = v.t_worst;
+  bool stop = hs::stop_at(ord, cn, 0, t_worst);
   for (int slot = 0; slot < nsc_pad && !stop; ++slot) {
+    if (slot - base >= hs::WINDOW) {
+      base = slot;
+      live = T.vote(hs::window_bits(nsc_pad - base), sc_of).mask;
+    }
+    const int j = slot - base;
     const int s = ord[slot];
-    const float* sb = sc_box + (size_t)max(s, 0) * 8;
-    bool sc_hit = slab_hit(sb, y, t_best);
-    if (ANY_HIT) sc_hit = sc_hit && (i_best < 0);
-    const bool live_sc = __syncthreads_or(sc_hit) && (s >= 0);
-
-    if (live_sc) {
-      const int c0 = (int)sb[6];
+    bool swept = false;
+    if (((live >> j) & 1u) && s >= 0) {
+      const float* sb = sc_box + (size_t)s * 8;
+      c0 = (int)sb[6];
       const int cnt = (int)sb[7];
-      for (int k = 0; k < cnt; ++k) {
-        const int c = c0 + k;
-        bool hit = slab_hit(boxes + (size_t)c * 8, y, t_best);
-        if (ANY_HIT) hit = hit && (i_best < 0);
-        const bool live =
-            __syncthreads_or(hit) && __syncthreads_or(t_best > 0.0f);
-        if (live) {
-          ++n_live;
-          stage_cluster(sT, t12, c, tc, m_pad);
-          sweep_cluster<ANY_HIT>(sT, tc, c, y, t_best, i_best);
-          __syncthreads();   // all sweeps done before sT is restaged
+      unsigned mlive = 0;
+      kb = 0;
+      for (int k = 0; k < cnt && t_worst > 0.0f;) {
+        if (k == 0 || k - kb >= hs::WINDOW) {
+          kb = k;
+          mlive = T.vote(hs::window_bits(cnt - kb), member_of).mask;
         }
+        const unsigned ahead = mlive >> (k - kb);
+        if (!ahead) {
+          k = kb + hs::WINDOW;
+          continue;
+        }
+        k += __ffs(ahead) - 1;
+        const unsigned rest = hs::bits_above(mlive, k - kb);
+        T.sweep(c0 + k, rest ? c0 + kb + __ffs(rest) - 1 : -1);
+        swept = true;
+        v = T.vote(rest, member_of);
+        mlive = v.mask;
+        t_worst = v.t_worst;
+        ++k;
       }
     }
-    const int guard = min(slot + 1, nsc_pad - 1);
-    t_worst = block_max(t_best, sred);
-    stop = (ord[guard] < 0) || (cn[guard] > t_worst) || (t_worst <= 0.0f);
+    stop = hs::stop_at(ord, cn, min(slot + 1, nsc_pad - 1), t_worst);
+    if (swept && !stop)   // the window's later votes are stale
+      live = T.vote(hs::bits_above(live, j), sc_of).mask;
   }
-  t_out[tile * rt + r] = t_best;
-  i_out[tile * rt + r] = i_best;
-  if (r == 0) visits[tile] = n_live;
-}
-
-template <bool ANY_HIT>
-static int launch(const float* rays, const float* tm, const int* order,
-                  const float* cons, const float* t12, const float* boxes,
-                  const float* sc_box, float* t_out, int* i_out, int* visits,
-                  int nt, int rt, int nsc_pad, int tc, long long m_pad,
-                  cudaStream_t s) {
-  const size_t smem = sizeof(float) * 12 * (size_t)tc;
-  cudaError_t e = cudaFuncSetAttribute(
-      trace_rol_sc_kernel<ANY_HIT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  trace_rol_sc_kernel<ANY_HIT><<<nt, rt, smem, s>>>(
-      rays, tm, order, cons, t12, boxes, sc_box, t_out, i_out, visits, rt,
-      nsc_pad, tc, m_pad);
-  return (int)cudaGetLastError();
+  if (T.writer()) {
+#pragma unroll
+    for (int r = 0; r < C::RAYS; ++r) {
+      t_out[tile * rt + T.lane(r)] = T.t_best[r];
+      i_out[tile * rt + T.lane(r)] = T.i_best[r];
+    }
+    if (threadIdx.x == 0) visits[tile] = T.n_live;
+  }
+  T.finish();
 }
 
 extern "C" int trace_rol_sc_launch(const float* rays, const float* tm,
@@ -116,12 +141,21 @@ extern "C" int trace_rol_sc_launch(const float* rays, const float* tm,
                                    int any_hit, void* stream) {
   if (nt == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return any_hit ? launch<true>(rays, tm, order, cons, t12, boxes, sc_box,
-                                t_out, i_out, visits, nt, rt, nsc_pad, tc,
-                                m_pad, s)
-                 : launch<false>(rays, tm, order, cons, t12, boxes, sc_box,
-                                 t_out, i_out, visits, nt, rt, nsc_pad, tc,
-                                 m_pad, s);
+  if (any_hit)
+    return hs::launch<AnyHit>(trace_rol_sc_kernel<AnyHit, true>, nt, rt, tc,
+                              s, rays, tm, order, cons, t12, boxes, sc_box,
+                              t_out, i_out, visits, rt, nsc_pad, m_pad);
+  return hs::launch<Closest>(trace_rol_sc_kernel<Closest, false>, nt, rt, tc,
+                             s, rays, tm, order, cons, t12, boxes, sc_box,
+                             t_out, i_out, visits, rt, nsc_pad, m_pad);
+}
+
+// Tiles in flight, CTAs per tile and threads per CTA (hs::occupancy).
+extern "C" int trace_rol_sc_occupancy(int any_hit, int rt, int* out) {
+  return any_hit ? hs::occupancy<AnyHit>(trace_rol_sc_kernel<AnyHit, true>,
+                                         rt, out)
+                 : hs::occupancy<Closest>(
+                       trace_rol_sc_kernel<Closest, false>, rt, out);
 }
 
 KERNEL_ERROR_STRING

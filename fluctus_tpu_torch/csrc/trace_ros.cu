@@ -22,82 +22,89 @@
 //
 // Bound on the H100: FP32 operations, as K2: ~30 per (ray, triangle) pair
 // of every visited cluster; the rays, candidate lists and visited clusters'
-// transforms are the only bytes read.
+// transforms are the only bytes read. Under -fmad=false no multiply-add
+// fuses, so the attainable rate is about half that bound. Lane-order tiles
+// visit 4.5x more clusters than sorted ones, evenly (bounce 2 of the
+// megastep: median 4, max 27 per tile), so K9 is bound by the sweep's
+// instructions per pair: about 66 in the unrolled loop, 12 of them the
+// IEEE divide.
 //
-// Design: K2's — one CTA per tile, one thread per ray, t_best / i_best in
-// registers, the live vote by __syncthreads_or, the cluster staged once into
-// shared memory, a block max-reduce for the early-out — with K2's slab test
-// and sweep from common.cuh (the arithmetic is the same). Only the loads
-// differ: each thread reads its ray's row of o4/d4, and the staging gathers
-// the cluster's rows from tx/ty/tz.
-#include "common.cuh"
+// Design: sweep_hopper.cuh. Closest-hit: one CTA of 256 threads per tile,
+// 2 rays per thread (each triangle record serves two rays, two divides in
+// flight); any-hit: 512 threads, one ray each, so a thread leaves the sweep
+// at its ray's first blocking triangle. The cluster is staged by cp.async
+// from tx/ty/tz into 48-byte triangle records, the next possibly-live
+// cluster is fetched into a second buffer during the sweep, and up to 32
+// slots are decided by one vote.
+#include "sweep_hopper.cuh"
 
-template <bool ANY_HIT>
-__global__ void trace_ros_kernel(const float* __restrict__ o4,
-                                 const float* __restrict__ d4,
-                                 const float* __restrict__ tm,
-                                 const int* __restrict__ order,
-                                 const float* __restrict__ cons,
-                                 const float* __restrict__ tx,
-                                 const float* __restrict__ ty,
-                                 const float* __restrict__ tz,
-                                 const float* __restrict__ boxes,
-                                 float* __restrict__ t_out,
-                                 int* __restrict__ i_out,
-                                 int* __restrict__ visits, int rt,
-                                 int ncl_pad, int n_clusters, int tc,
-                                 long long m_pad) {
-  extern __shared__ float sT[];   // [12][tc]
-  __shared__ float sred[32];
-  const size_t tile = blockIdx.x;
-  const size_t ray = tile * rt + threadIdx.x;
+// Shapes, Config<rays per thread, ray groups per CTA, CTAs per tile>, the
+// fastest of those timed on an H100 (PERF.md): closest-hit, any-hit.
+using Closest = hs::Config<2, 1, 1>;
+using AnyHit = hs::Config<1, 1, 1>;
 
-  const Ray y = load_ray_rows(o4, d4, ray);
-  float t_best = tm[ray];
-  int i_best = -1;
+template <class C, bool ANY_HIT>
+__global__ void __launch_bounds__(C::MAX_THREADS)
+    trace_ros_kernel(const float* __restrict__ o4,
+                     const float* __restrict__ d4,
+                     const float* __restrict__ tm,
+                     const int* __restrict__ order,
+                     const float* __restrict__ cons,
+                     const float* __restrict__ tx,
+                     const float* __restrict__ ty,
+                     const float* __restrict__ tz,
+                     const float* __restrict__ boxes,
+                     float* __restrict__ t_out, int* __restrict__ i_out,
+                     int* __restrict__ visits, int rt, int ncl_pad,
+                     int n_clusters, long long m_pad) {
+  using Tile = hs::Tile<C, ANY_HIT>;
+  __shared__ hs::Shared<C> sh;
+  Tile T(sh, hs::Source{tx, ty, tz, m_pad});
+  const size_t tile = Tile::tile();
+#pragma unroll
+  for (int r = 0; r < C::RAYS; ++r) {
+    const size_t ray = tile * rt + T.lane(r);
+    T.y[r] = load_ray_rows(o4, d4, ray);
+    T.t_best[r] = tm[ray];
+    T.i_best[r] = -1;
+  }
   const int* ord = order + tile * ncl_pad;
   const float* cn = cons + tile * ncl_pad;
-  int n_live = 0;
+  const int n = n_clusters;
 
-  float t_worst = block_max(t_best, sred);
-  bool stop = (ord[0] < 0) || (cn[0] > t_worst) || (t_worst <= 0.0f);
-  for (int slot = 0; slot < n_clusters && !stop; ++slot) {
-    const int c = ord[slot];
-    bool box_hit = slab_hit(boxes + (size_t)max(c, 0) * 8, y, t_best);
-    if (ANY_HIT) box_hit = box_hit && (i_best < 0);
-    const bool live = __syncthreads_or(box_hit) && (c >= 0);
-
-    if (live) {
-      ++n_live;
-      stage_cluster_xyz(sT, tx, ty, tz, c, tc, m_pad);
-      sweep_cluster<ANY_HIT>(sT, tc, c, y, t_best, i_best);
-      __syncthreads();   // all sweeps done before sT is restaged
+  int base = 0;   // first slot of the voted window
+  auto box_of = [&](int j) {
+    return boxes + (size_t)max(ord[base + j], 0) * 8;
+  };
+  hs::Vote v = T.vote(hs::window_bits(n), box_of);
+  unsigned live = v.mask;
+  bool stop = hs::stop_at(ord, cn, 0, v.t_worst);
+  for (int slot = 0; slot < n && !stop; ++slot) {
+    if (slot - base >= hs::WINDOW) {
+      base = slot;
+      live = T.vote(hs::window_bits(n - base), box_of).mask;
     }
-    const int guard = min(slot + 1, n_clusters - 1);
-    t_worst = block_max(t_best, sred);
-    stop = (ord[guard] < 0) || (cn[guard] > t_worst) || (t_worst <= 0.0f);
+    const int j = slot - base;
+    const int c = ord[slot];
+    if (((live >> j) & 1u) && c >= 0) {
+      const unsigned rest = hs::bits_above(live, j);
+      const int next = rest ? ord[base + __ffs(rest) - 1] : -1;
+      T.sweep(c, next);
+      v = T.vote(rest, box_of);
+      live = v.mask;
+    }
+    stop = hs::stop_at(ord, cn, min(slot + 1, n - 1), v.t_worst);
   }
-  t_out[ray] = t_best;
-  i_out[ray] = i_best;
-  if (threadIdx.x == 0) visits[tile] = n_live;
-}
-
-template <bool ANY_HIT>
-static int launch(const float* o4, const float* d4, const float* tm,
-                  const int* order, const float* cons, const float* tx,
-                  const float* ty, const float* tz, const float* boxes,
-                  float* t_out, int* i_out, int* visits, int nt, int rt,
-                  int ncl_pad, int n_clusters, int tc, long long m_pad,
-                  cudaStream_t s) {
-  const size_t smem = sizeof(float) * 12 * (size_t)tc;
-  cudaError_t e = cudaFuncSetAttribute(
-      trace_ros_kernel<ANY_HIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  trace_ros_kernel<ANY_HIT><<<nt, rt, smem, s>>>(
-      o4, d4, tm, order, cons, tx, ty, tz, boxes, t_out, i_out, visits, rt,
-      ncl_pad, n_clusters, tc, m_pad);
-  return (int)cudaGetLastError();
+  if (T.writer()) {
+#pragma unroll
+    for (int r = 0; r < C::RAYS; ++r) {
+      const size_t ray = tile * rt + T.lane(r);
+      t_out[ray] = T.t_best[r];
+      i_out[ray] = T.i_best[r];
+    }
+    if (threadIdx.x == 0) visits[tile] = T.n_live;
+  }
+  T.finish();
 }
 
 extern "C" int trace_ros_launch(const float* o4, const float* d4,
@@ -110,13 +117,23 @@ extern "C" int trace_ros_launch(const float* o4, const float* d4,
                                 int any_hit, void* stream) {
   if (nt == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (any_hit)
+    return hs::launch<AnyHit>(trace_ros_kernel<AnyHit, true>, nt, rt, tc, s,
+                              o4, d4, tm, order, cons, tx, ty, tz, boxes,
+                              t_out, i_out, visits, rt, ncl_pad, n_clusters,
+                              m_pad);
+  return hs::launch<Closest>(trace_ros_kernel<Closest, false>, nt, rt, tc, s,
+                             o4, d4, tm, order, cons, tx, ty, tz, boxes,
+                             t_out, i_out, visits, rt, ncl_pad, n_clusters,
+                             m_pad);
+}
+
+// Tiles in flight, CTAs per tile and threads per CTA (hs::occupancy).
+extern "C" int trace_ros_occupancy(int any_hit, int rt, int* out) {
   return any_hit
-             ? launch<true>(o4, d4, tm, order, cons, tx, ty, tz, boxes, t_out,
-                            i_out, visits, nt, rt, ncl_pad, n_clusters, tc,
-                            m_pad, s)
-             : launch<false>(o4, d4, tm, order, cons, tx, ty, tz, boxes,
-                             t_out, i_out, visits, nt, rt, ncl_pad,
-                             n_clusters, tc, m_pad, s);
+             ? hs::occupancy<AnyHit>(trace_ros_kernel<AnyHit, true>, rt, out)
+             : hs::occupancy<Closest>(trace_ros_kernel<Closest, false>, rt,
+                                      out);
 }
 
 KERNEL_ERROR_STRING
