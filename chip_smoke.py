@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   every kernel of csrc/ built from source in parallel; for K5 and K9
+   every kernel of csrc/ built from source in parallel; for K2, K5 and K9
    (csrc/sweep_hopper.cuh) the registers, spills and shared memory of each
    instantiation and the occupancy they allow.
 2. kernel vs plain: the inputs K1-K4 receive on the luxball path (the 1M
@@ -21,9 +21,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (primary + extension + shadow rays, as bench.py counts them),
    ms/segment, peak memory; every kernel's launch count must equal
    segments x its launches per segment, no plain version may run, the
-   film must be finite with weight > 0 on >= 99% of pixels. Then two
-   more segments under torch.profiler: device time by kernel and the
-   device's busy share.
+   film must be finite with weight > 0 on >= 99% of pixels. K2's calls
+   of the last timed segment are held bit for bit to the plain version and
+   timed. Then two more segments under torch.profiler: device time by
+   kernel and the device's busy share.
 4. whole-path parity: 4 segments at 256x144 with 64k paths through the
    kernels and, from the same reset, through the plain versions on the
    card.
@@ -35,13 +36,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the primary-hit share, and holds K5's calls of its last segment to the
    plain version and times them. The trace kernels (K2, K5, K9) are held
    bit for bit: t as int32 bits, columns and per-tile visit counts; their
-   lines carry the per-tile visits (p50, p99, max) and the (ray, triangle)
-   pairs per second, K5's also the live superclusters and member culls of
-   each tile (counted on the plain walk).
+   lines carry the per-tile visits (p50, p99, max), the (ray, triangle)
+   pairs per second and the kernel's time on its heaviest 1% of tiles
+   alone and on the rest, K5's also the live superclusters and member
+   culls of each tile (counted on the plain walk).
 5. exact-spp (Renderer.render_single, the capped wavefront) on luxball at
    1080p with 1M paths: a first render records K7's and K8's arguments in
    segment 2 and in the last segment where budgets bind, held bit for bit
-   to their plain versions and timed (5a); then, from reset(), a timed
+   to their plain versions and timed, and K7 also on one synthetic call of
+   the same shape from a numpy seed: groups with every lane on one pixel,
+   every lane on its own pixel, empty (-1) lanes, budgets 0, 1, 2.5, 255,
+   1e30 and NaN (5a); then, from reset(), a timed
    render_single(EXACT_SPP): spp and film weight equal the target on
    every true pixel, 0 weight on parked padded slots (the reference's
    wf_reset leaves the first slot of a group without pixels live; those
@@ -61,7 +66,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    same rays sorted (6b); pick_single at the image centre against
    closest_hit_mxu_full (6c).
 7. edge-case tiles (after phase 2 on luxball's tables, after 2b on the
-   8x8 grid's): K9 and K5, closest-hit and any-hit, bit for bit against
+   8x8 grid's): K2, K9 and K5, closest-hit and any-hit, bit for bit against
    their plain versions on tiles made from a numpy seed: tmax = +inf
    lanes, direction components of 0, origins on a triangle's plane, rays
    parallel to a triangle, lists that end at once, tiles that stop at
@@ -446,10 +451,26 @@ def sc_walk_counts(args, chunk=512):
                 member_culls_max=int(cull_n.max()))
 
 
+def heavy_split(kernel, args, visits, frac=0.01):
+    """A rays-on-lanes trace kernel's time on the heaviest ``frac`` of its
+    tiles alone (by visits; args[:4] are per tile) and on the others alone:
+    how far the chain of visits of the heaviest tiles bounds the launch."""
+    import torch
+    nt = args[0].shape[0]
+    idx = torch.argsort(visits, descending=True, stable=True)
+    k = max(1, int(nt * frac))
+    out = dict(heavy_tiles=k, heavy_visits=int(visits[idx[:k]].sum()))
+    for name, sel in (("heavy", idx[:k]), ("light", idx[k:])):
+        sub = [a[sel].contiguous() for a in args[:4]] + list(args[4:])
+        out[f"{name}_ms"] = time_ms(lambda: kernel(*sub))
+    return out
+
+
 def trace_timing(kernel, plain, args, visits, chunk, what, culls=0):
     """A trace kernel's time on one call (rays [nt, 8, rt] first, tc last
     but one), its bound (~30 operations per swept pair, ~20 per ray and
-    member cull ``culls``), plain time, visit statistics and pair rate."""
+    member cull ``culls``), plain time, visit statistics and pair rate, and
+    its time on its heaviest 1% of tiles alone and on the rest."""
     import torch
     rays, order, tc = args[0], args[2], args[-2]
     nt, _, rt = rays.shape
@@ -465,6 +486,7 @@ def trace_timing(kernel, plain, args, visits, chunk, what, culls=0):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         visited_clusters=nvis, member_culls=culls,
         **visit_stats(visits, tc, rt, times["ms"]),
+        **heavy_split(kernel, args, visits),
         shape=f"{nt} tiles x {rt} rays x {order.shape[1]} candidates, "
               f"{what}")
 
@@ -592,7 +614,7 @@ class LastCalls:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: K5 and K9 on edge-case tiles
+# Phase 7: K2, K5 and K9 on edge-case tiles
 # ---------------------------------------------------------------------------
 
 def edge_rays(sc, nt, seed, rt=512):
@@ -667,10 +689,11 @@ def synthetic_supers(sc):
 
 
 def check_edges(sc, scene, seed, nt=64):
-    """Phase 7 on one scene's tables: K9 (from tx/ty/tz, or t12's rows on
-    slim tables) and K5 (on the scene's superclusters and on synthetic ones
-    of 1 and 64 members) against their plain versions on edge-case tiles,
-    closest-hit and any-hit, t / columns / visits bit for bit."""
+    """Phase 7 on one scene's tables: K2 (on the clusters' list), K9 (the
+    same list, from tx/ty/tz, or t12's rows on slim tables) and K5 (on the
+    scene's superclusters and on synthetic ones of 1 and 64 members)
+    against their plain versions on edge-case tiles, closest-hit and
+    any-hit, t / columns / visits bit for bit."""
     import torch
     from fluctus_tpu_torch.accel import mxu_trace as mt
     rt = mt.ROL_TILE
@@ -693,6 +716,14 @@ def check_edges(sc, scene, seed, nt=64):
         got = mt.trace_ros(*args)
         diff = trace_diffs(got, ros_plain_chunked(args))
         out[f"trace_ros_{mode}"] = dict(differ=diff,
+                                        visits=int(got[2].sum()),
+                                        hits=int((got[1] >= 0).sum()))
+        kargs = (rays, tm, order, cons, sc.t12, sc.cluster_box,
+                 sc.n_clusters, tc, any_hit)
+        got = mt.trace_rol(*kargs)
+        diff = trace_diffs(got, trace_plain_chunked(mt.trace_rol_plain,
+                                                    *kargs, chunk=256))
+        out[f"trace_rol_{mode}"] = dict(differ=diff,
                                         visits=int(got[2].sum()),
                                         hits=int((got[1] >= 0).sum()))
         for name, sb in supers.items():
@@ -718,8 +749,8 @@ def check_edges(sc, scene, seed, nt=64):
     bad = {k: v["differ"] for k, v in out.items()
            if isinstance(v, dict) and any(v.get("differ", {}).values())}
     if bad:
-        raise AssertionError(f"edge tiles: K5/K9 differ from their plain "
-                             f"versions on {scene}: {bad}")
+        raise AssertionError(f"edge tiles: K2/K5/K9 differ from their "
+                             f"plain versions on {scene}: {bad}")
     return out
 
 
@@ -995,6 +1026,46 @@ def check_exact_kernels(rec):
     return k7, k8
 
 
+def check_k7_synthetic(groups=4096, s=256, pk=512, seed=9):
+    """K7 on one synthetic call of the main path's shape, made from a numpy
+    seed, against splat_capped_plain bit for bit: groups in turn with every
+    lane on one pixel, every lane on its own pixel, a third of the lanes
+    empty (-1) and the rest on 5 pixels, or lanes on 40 random pixels;
+    each pixel's budget one of 0, 1, 2.5, 255, 1e30 and NaN; data and film
+    normal, with some -0.0 data. Returns the counts it was checked on."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.core import block_splat as bs
+    rng = np.random.default_rng(seed)
+    layout = np.arange(groups) % 4
+    local = rng.integers(0, 40, (groups, s))
+    one = layout == 0
+    local[one] = rng.integers(0, pk, (int(one.sum()), 1))
+    own = layout == 1
+    local[own] = np.argsort(rng.random((int(own.sum()), pk)), axis=1)[:, :s]
+    few = layout == 2
+    local[few] = rng.integers(0, 5, (int(few.sum()), s))
+    local[few[:, None] & (rng.random((groups, s)) < 1 / 3)] = -1
+    budgets = np.array([0.0, 1.0, 2.5, 255.0, 1e30, np.nan], np.float32)
+    rem = budgets[rng.integers(0, len(budgets), groups * pk)][None]
+    data = rng.normal(size=(4, groups * s)).astype(np.float32)
+    data[rng.random(data.shape) < 0.05] = -0.0
+    film = rng.normal(size=(4, groups * pk)).astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (local.reshape(-1).astype(np.int32), data, film, rem)]
+    local_t, data_t, film_t, rem_t = args
+    got = bs.splat(local_t, data_t, film_t, groups=groups, remaining=rem_t)
+    ref = bs.splat_capped_plain(local_t, data_t, film_t, groups, rem_t)
+    differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    out = dict(differ=differ, candidates=int((local >= 0).sum()),
+               pixels_changed=int((got != film_t).any(0).sum()),
+               shape=f"{groups} groups x {s} lanes, Pk={pk}", seed=seed)
+    if differ:
+        raise AssertionError(f"K7 differs from its plain version on the "
+                             f"synthetic call: {out}")
+    return out
+
+
 def check_launches(launches, plain, per, units, what):
     for name, k in per.items():
         if launches.get(name) != k * units:
@@ -1021,6 +1092,7 @@ def phase_exact(r, card):
     with ExactRecorder() as rec:
         r.render_single(EXACT_SPP)
     k7, k8 = check_exact_kernels(rec)
+    k7["synthetic"] = check_k7_synthetic()
     emit(dict(phase="exact_kernels_vs_plain", card=card,
               early_segment=rec.early[0], tail_segment=rec.tail[0],
               segments=rec.seg, block_splat_capped=k7, fetch=k8))
@@ -1125,29 +1197,31 @@ def phase_exact_parity(width=256, height=144, paths=1 << 16, spp=4):
 # ---------------------------------------------------------------------------
 
 class RosRecorder:
-    """Record the arguments of K9 calls number ``keep`` (counted from 0;
-    per bounce the extension trace, then the shadow trace)."""
+    """Record the arguments of the calls number ``keep`` (counted from 0;
+    per bounce the extension trace, then the shadow trace) of a trace
+    kernel's wrapper: K9's, or ``name``'s."""
 
-    def __init__(self, keep):
+    def __init__(self, keep, name="trace_ros"):
         self.keep = keep
+        self.name = name
         self.n = 0
         self.calls = {}
 
     def __enter__(self):
         from fluctus_tpu_torch.accel import mxu_trace as mt
         self.mt = mt
-        self.orig = mt.trace_ros
+        self.orig = getattr(mt, self.name)
 
         def rec(*args):
             if self.n in self.keep:
                 self.calls[self.n] = args
             self.n += 1
             return self.orig(*args)
-        mt.trace_ros = rec
+        setattr(mt, self.name, rec)
         return self
 
     def __exit__(self, *exc):
-        self.mt.trace_ros = self.orig
+        setattr(self.mt, self.name, self.orig)
 
 
 def ros_plain_chunked(args, chunk=256):
@@ -1305,12 +1379,16 @@ def kernels_line(kres, launches):
     out = []
     for name in SOURCES:
         k = kres[name]
-        out.append(dict(
+        entry = dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-            library_ms=k["library_ms"]))
+            library_ms=k["library_ms"])
+        any_ms = k.get("any_hit", {}).get("ms", k.get("any_hit_ms"))
+        if any_ms is not None:          # the trace kernels' any-hit call
+            entry["any_hit_ms"] = any_ms
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -1544,7 +1622,7 @@ def phase_caches(card):
 
 
 def sweep_build_info(kb):
-    """Per instantiation of K5 and K9 (closest-hit, any-hit): registers,
+    """Per instantiation of K2, K5 and K9 (closest-hit, any-hit): registers,
     spill bytes and shared memory from ptxas (-Xptxas -v), and for a
     512-ray tile the CTAs (one cluster) per tile, threads per CTA, tiles
     the card holds at once and CTAs per SM (the CUDA occupancy API)."""
@@ -1552,7 +1630,7 @@ def sweep_build_info(kb):
     import torch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for name in ("trace_rol_sc", "trace_ros"):
+    for name in ("trace_rol", "trace_rol_sc", "trace_ros"):
         source = f"{name}.cu"
         fn = getattr(ctypes.CDLL(kb._lib_path(source)), f"{name}_occupancy")
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
@@ -1562,8 +1640,9 @@ def sweep_build_info(kb):
         for ln in kb.build_log(source).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
             if m:
+                # the bool template argument mangles as Lb1E / Lb0E
                 cur = modes.setdefault(
-                    "any_hit" if "ILb1E" in m.group(1) else "closest", {})
+                    "any_hit" if "Lb1E" in m.group(1) else "closest", {})
                 continue
             if cur is None:
                 continue
@@ -1625,13 +1704,23 @@ def run(kb):
     emit(dict(phase="kernels_vs_plain", card=card, scene=LUXBALL,
               vertex_table_bytes=vertex_table_bytes(r), **kres))
 
-    # phase 7 (luxball): K5 and K9 on edge-case tiles
+    # phase 7 (luxball): K2, K5 and K9 on edge-case tiles
     check_edges(r.device_scene.mxu, LUXBALL, seed=7)
 
-    # phase 3: luxball path, then a profiled look at two more segments
-    launches, main = phase_main(r, card, LUXBALL, SEGMENTS, PER_SEGMENT)
+    # phase 3: luxball path, K2's arguments of its last segment kept, then
+    # a profiled look at two more segments
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    with LastCalls(mt, "trace_rol") as late:
+        launches, main = phase_main(r, card, LUXBALL, SEGMENTS, PER_SEGMENT)
     profile_segments(r, card, main["ms_per_segment"])
-    del r
+    late_res, _ = check_trace(
+        "trace_rol", mt.trace_rol, mt.trace_rol_plain,
+        {(SEGMENTS, "trace_rol"): [(a, {}) for a in late.calls]}, 256,
+        segs=(SEGMENTS,))
+    emit(dict(phase="trace_rol_late_segment", card=card, segment=SEGMENTS,
+              trace_rol=late_res))
+    kres["trace_rol"]["late_segment"] = late_res
+    del r, late
     torch.cuda.empty_cache()
 
     # phase 4: whole-path parity, kernels vs plain versions
@@ -1666,7 +1755,6 @@ def run(kb):
     check_edges(sc, LARGE, seed=8)           # phase 7 on the 8x8 grid
 
     # phase 3b: the large path, K5's arguments of its last segment kept
-    from fluctus_tpu_torch.accel import mxu_trace as mt
     with LastCalls(mt, "trace_rol_sc") as late:
         launches_l, main_l = phase_main(
             r, card, LARGE, LARGE_SEGMENTS, PER_SEGMENT_LARGE,

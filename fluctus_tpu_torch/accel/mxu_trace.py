@@ -779,9 +779,13 @@ def trace_rol(rays, tm, order, cons, t12, boxes, n_clusters: int, tc: int,
                   dtypes=(torch.float32, torch.float32, torch.int32,
                           torch.float32, torch.float32, torch.float32))
     nt, _, rt = rays.shape
-    if rt % 32 or rt > 1024 or tc & (tc - 1):
+    # the launcher's limits (csrc/trace_rol.cu on sweep_hopper.cuh): tiles
+    # of whole warps at up to 2 rays per thread, at most 512 rays, and
+    # clusters of 256 triangles
+    if rt % 64 or rt > 512 or tc != 256:
         raise ValueError(f"trace_rol: ray tile {rt} / cluster size {tc} "
-                         "unsupported")
+                         "unsupported (tiles of 64k <= 512 rays, clusters "
+                         "of 256)")
     dev = rays.device
     t = torch.empty((nt, rt), dtype=torch.float32, device=dev)
     i = torch.empty((nt, rt), dtype=torch.int32, device=dev)

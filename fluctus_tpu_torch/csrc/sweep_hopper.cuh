@@ -1,9 +1,13 @@
-// The Hopper sweep shared by K5 (trace_rol_sc.cu) and K9 (trace_ros.cu).
+// The Hopper sweep shared by the cluster traces: K2 (trace_rol.cu) and K9
+// (trace_ros.cu), which walk a flat candidate list (walk_flat below), and
+// K5 (trace_rol_sc.cu), which walks superclusters.
 //
-// The contract is K2's (common.cuh, trace_rol.cu), bit for bit: the same
-// slab test, the same per-pair arithmetic in the reference's order of terms
-// (-fmad=false), the same packed key and strict < update, the same any-hit
-// verdict, the same candidate order, stop test and per-tile visit count.
+// The contract is the plain versions' (accel/mxu_trace.py _walk_plain),
+// bit for bit: the same slab test, the same per-pair arithmetic in the
+// reference's order of terms (-fmad=false), the same packed key and strict
+// < update, the same any-hit verdict, the same candidate order, stop test
+// and per-tile visit count.
+//
 // What differs is how the card gets there. A kernel picks its shape,
 // Config<RAYS, SLICES, CLUSTER>, per mode:
 //
@@ -397,6 +401,41 @@ __device__ __forceinline__ unsigned bits_above(unsigned mask, int j) {
 __device__ __forceinline__ bool stop_at(const int* ord, const float* cn,
                                         int g, float t_worst) {
   return (ord[g] < 0) || (cn[g] > t_worst) || (t_worst <= 0.0f);
+}
+
+// The flat walk of K2 and K9: a tile's candidate list ord / cn of n
+// slots, -1 past the culled ones. Up to WINDOW slots are decided by one
+// vote; a slot whose cluster some ray enters is swept (the next live slot
+// fetched meanwhile) and the slots after it voted again. The tile stops at
+// the -1 sentinel, when the next entry bound exceeds its largest t_best,
+// or when that is <= 0. Every thread of the tile must call it.
+template <class TileT>
+__device__ __forceinline__ void walk_flat(TileT& T, const int* ord,
+                                          const float* cn,
+                                          const float* boxes, int n) {
+  int base = 0;   // first slot of the voted window
+  auto box_of = [&](int j) {
+    return boxes + (size_t)max(ord[base + j], 0) * 8;
+  };
+  Vote v = T.vote(window_bits(n), box_of);
+  unsigned live = v.mask;
+  bool stop = stop_at(ord, cn, 0, v.t_worst);
+  for (int slot = 0; slot < n && !stop; ++slot) {
+    if (slot - base >= WINDOW) {
+      base = slot;
+      live = T.vote(window_bits(n - base), box_of).mask;
+    }
+    const int j = slot - base;
+    const int c = ord[slot];
+    if (((live >> j) & 1u) && c >= 0) {
+      const unsigned rest = bits_above(live, j);
+      const int next = rest ? ord[base + __ffs(rest) - 1] : -1;
+      T.sweep(c, next);
+      v = T.vote(rest, box_of);
+      live = v.mask;
+    }
+    stop = stop_at(ord, cn, min(slot + 1, n - 1), v.t_worst);
+  }
 }
 
 // The launch of a sweep kernel for nt tiles of rt rays: CLUSTER CTAs per

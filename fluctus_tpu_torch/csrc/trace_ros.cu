@@ -29,7 +29,8 @@
 // instructions per pair: about 66 in the unrolled loop, 12 of them the
 // IEEE divide.
 //
-// Design: sweep_hopper.cuh. Closest-hit: one CTA of 256 threads per tile,
+// Design: sweep_hopper.cuh, whose flat walk (walk_flat) K2 shares on its
+// own layouts. Closest-hit: one CTA of 256 threads per tile,
 // 2 rays per thread (each triangle record serves two rays, two divides in
 // flight); any-hit: 512 threads, one ray each, so a thread leaves the sweep
 // at its ray's first blocking triangle. The cluster is staged by cp.async
@@ -68,33 +69,8 @@ __global__ void __launch_bounds__(C::MAX_THREADS)
     T.t_best[r] = tm[ray];
     T.i_best[r] = -1;
   }
-  const int* ord = order + tile * ncl_pad;
-  const float* cn = cons + tile * ncl_pad;
-  const int n = n_clusters;
-
-  int base = 0;   // first slot of the voted window
-  auto box_of = [&](int j) {
-    return boxes + (size_t)max(ord[base + j], 0) * 8;
-  };
-  hs::Vote v = T.vote(hs::window_bits(n), box_of);
-  unsigned live = v.mask;
-  bool stop = hs::stop_at(ord, cn, 0, v.t_worst);
-  for (int slot = 0; slot < n && !stop; ++slot) {
-    if (slot - base >= hs::WINDOW) {
-      base = slot;
-      live = T.vote(hs::window_bits(n - base), box_of).mask;
-    }
-    const int j = slot - base;
-    const int c = ord[slot];
-    if (((live >> j) & 1u) && c >= 0) {
-      const unsigned rest = hs::bits_above(live, j);
-      const int next = rest ? ord[base + __ffs(rest) - 1] : -1;
-      T.sweep(c, next);
-      v = T.vote(rest, box_of);
-      live = v.mask;
-    }
-    stop = hs::stop_at(ord, cn, min(slot + 1, n - 1), v.t_worst);
-  }
+  hs::walk_flat(T, order + tile * ncl_pad, cons + tile * ncl_pad, boxes,
+                n_clusters);
   if (T.writer()) {
 #pragma unroll
     for (int r = 0; r < C::RAYS; ++r) {

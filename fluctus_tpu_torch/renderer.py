@@ -40,7 +40,7 @@ from .core.trace import DeviceScene, trace_extension
 from .geom import AreaLight, Camera, PostProcessParams, RenderConfig, RenderParams
 from .image_io import save_hdr, save_png
 from .scene import Scene
-from .settings import Settings
+from .settings import Settings, check_ported
 
 
 def resolve_device(device=None) -> torch.device:
@@ -99,7 +99,10 @@ class Renderer:
         picks the resolve kernel (``resolve_hits_mxu``). Env maps and saved
         render state are not ported yet. ``load_seconds`` keeps the host
         time of each step and ``cache_hit`` whether the BVH and the tables
-        came from the caches. Ends with ``reset()``."""
+        came from the caches. Ends with ``reset()``. A render-changing
+        switch the port does not implement, set away from its default,
+        raises NotImplementedError first (``settings.check_ported``)."""
+        check_ported(self.settings)
         t0 = time.perf_counter()
         scene = Scene()
         scene.load_model(scene_file)
@@ -182,6 +185,19 @@ class Renderer:
             width=self.width, height=self.height,
             max_bounces=s.max_path_depth, max_spp=s.max_spp,
             material_types=self.scene.material_types, groups=groups)
+
+    def rebuild_config(self):
+        """Re-derive the config's settings-driven fields (``max_bounces``,
+        ``max_spp``) and re-make the params from the current settings (the
+        reference's rebuild_config, the paramsUpdatePending ->
+        recompileKernels path, tracer.cpp:216-240): the call that picks up
+        settings edits made after load_scene. Refuses what load_scene
+        refuses."""
+        check_ported(self.settings)
+        s = self.settings
+        self.config = self.config.replace(max_bounces=s.max_path_depth,
+                                          max_spp=s.max_spp)
+        self.params = self._make_params()
 
     def _make_params(self) -> RenderParams:
         s = self.settings
@@ -286,10 +302,10 @@ class Renderer:
 
     # -- wavefront (throughput) mode ------------------------------------------
     def init_wavefront(self, num_tasks: Optional[int] = None):
-        """Reset the persistent path pool (wf_reset analogue). Also picks
-        up camera/light edits made to the settings since load_scene."""
+        """Reset the persistent path pool (wf_reset analogue). The params
+        stay as they are: settings edits since load_scene take effect
+        through ``rebuild_config``."""
         self.num_tasks = num_tasks or self.settings.wf_buffer_size
-        self.params = self._make_params()
         self._wf_cfg = self.config
         self._wf_exact_mode = False
         self._wf_state = wf_reset(self.config, self.num_tasks,

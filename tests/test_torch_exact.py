@@ -4,7 +4,10 @@
                       segment-sum reference) and ``pallas_interpret=True``
                       (the capped kernel body): weight channel and admitted
                       counts exact, rgb rtol 2^-16
-  K8 plain version    vs ``fetch(..., interpret=True)``: exact
+  K7 design           a numpy model of csrc/block_splat_capped.cu's
+                      counting sort, step for step, vs the plain version
+                      on edge-case groups: bit-equal
+  K8 plain version   vs ``fetch(..., interpret=True)``: exact
   wf_segment          6 capped segments on luxball from one reset, the cap
                       binding: integer state, spp and counters bit-equal,
                       film weight exact, rgb rtol 1e-5 (atol 1e-6)
@@ -106,6 +109,114 @@ def test_k7_splat_capped(body):
     np.testing.assert_array_equal(admitted, np.minimum(count, rem[0]))
     assert (count > rem[0]).any() and (admitted > 0).any()
     np.testing.assert_allclose(got[:3], ref[:3], rtol=2.0 ** -16, atol=0)
+
+
+K7_THREADS = 256     # block_splat_capped.cu: lanes per pass, one per thread
+
+
+def _k7_model(local, data, film, groups, remaining):
+    """block_splat_capped.cu step for step, in numpy: per group (1) the data
+    staged, (2) each pixel's candidates counted, (3) an exclusive scan of
+    the counts, (4) each lane's rank from __match_any_sync within its warp,
+    the per-warp per-pixel counts of the lower warps and the running count
+    of the earlier passes, (5) the stable scatter to offset + rank, (6) per
+    pixel the admitted prefix — ranks r < count with f32(r) < remaining —
+    summed in f32 from 0.0 in slot order, added to the film."""
+    c, n = data.shape
+    s = n // groups
+    pk = film.shape[1] // groups
+    out = film.copy()
+    for g in range(groups):
+        loc = local[g * s:(g + 1) * s]
+        dat = data[:, g * s:(g + 1) * s]                         # (1)
+        cand = (loc >= 0) & (loc < pk)
+        off = np.zeros(pk + 1, np.int64)
+        np.add.at(off, loc[cand] + 1, 1)                         # (2)
+        off = np.cumsum(off)                                     # (3)
+        run = np.zeros(pk, np.int64)
+        slots = np.full(s, -1, np.int64)
+        for l0 in range(0, s, K7_THREADS):
+            lanes = l0 + np.arange(K7_THREADS)
+            key = np.full(K7_THREADS, -1, np.int64)
+            live = lanes < s
+            key[live] = np.where(cand[lanes[live]], loc[lanes[live]], -1)
+            tbl = np.zeros((K7_THREADS // 32, pk), np.int64)
+            rank = np.zeros(K7_THREADS, np.int64)
+            first = np.zeros(K7_THREADS, bool)
+            width = np.zeros(K7_THREADS, np.int64)
+            for t in range(K7_THREADS):                          # (4)
+                w, ln = divmod(t, 32)
+                warp = key[w * 32:(w + 1) * 32]
+                same = warp == key[t]                            # match_any
+                below = int(same[:ln].sum())
+                rank[t], width[t] = below, int(same.sum())
+                first[t] = key[t] >= 0 and below == 0
+                if first[t]:
+                    tbl[w, key[t]] = width[t]
+            for t in np.nonzero(key >= 0)[0]:                    # (5)
+                p, w = key[t], t // 32
+                r = run[p] + rank[t] + tbl[:w, p].sum()
+                slots[off[p] + r] = lanes[t]
+            for t in np.nonzero(first)[0]:
+                run[key[t]] += width[t]
+        for p in range(pk):                                      # (6)
+            o, cnt = off[p], off[p + 1] - off[p]
+            rem = np.float32(remaining[0, g * pk + p])
+            k = 0
+            while k < cnt and np.float32(k) < rem:
+                k += 1
+            acc = np.zeros(c, np.float32)
+            for r in range(k):
+                acc = acc + dat[:, slots[o + r]]
+            out[:, g * pk + p] = film[:, g * pk + p] + acc
+    return out
+
+
+def _k7_groups(layout, budget, seed=11):
+    """Groups of 256 lanes (one pass) or 640 (three passes, the last
+    partial), Pk = 512, from a numpy seed: every lane on one pixel, every
+    lane on its own pixel, a third of the lanes with local = -1 and the
+    rest on a few pixels, or random pixels; data normal with some -0.0,
+    the budget on every pixel (NaN included)."""
+    rng = np.random.default_rng(seed)
+    g, pk, c = 3, 512, 4
+    s = 640 if layout == "random_3_passes" else 256
+    if layout == "one_pixel":
+        local = np.tile(rng.integers(0, pk, g)[:, None], (1, s))
+    elif layout == "own_pixel":
+        local = np.stack([rng.permutation(pk)[:s] for _ in range(g)])
+    elif layout == "empty_lanes":
+        local = rng.integers(0, 5, (g, s))
+        local[rng.random((g, s)) < 1 / 3] = -1
+    else:
+        local = rng.integers(0, 40, (g, s))
+        local[rng.random((g, s)) < 0.1] = -1
+    local = local.reshape(-1).astype(np.int32)
+    data = rng.normal(size=(c, g * s)).astype(np.float32)
+    data[rng.random((c, g * s)) < 0.05] = -0.0
+    film = rng.normal(size=(c, g * pk)).astype(np.float32)
+    remaining = np.full((1, g * pk), budget, np.float32)
+    return g, local, data, film, remaining
+
+
+@pytest.mark.parametrize("budget", [0.0, 1.0, 2.5, 255.0, 1e30, np.nan])
+@pytest.mark.parametrize("layout", ["one_pixel", "own_pixel", "empty_lanes",
+                                    "random_3_passes"])
+def test_k7_counting_sort_matches_plain(layout, budget):
+    """The redesigned K7 (a stable counting sort per group, O(s + pk)),
+    modelled step for step, equals splat_capped_plain bit for bit."""
+    g, local, data, film, rem = _k7_groups(layout, budget)
+    ref = tbs.splat_capped_plain(torch.from_numpy(local),
+                                 torch.from_numpy(data),
+                                 torch.from_numpy(film), g,
+                                 torch.from_numpy(rem)).numpy()
+    got = _k7_model(local, data, film, g, rem)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    admitted = (got != film).any(axis=0).sum()
+    if budget >= 1.0:
+        assert admitted > 0
+    elif not budget > 0.0:
+        assert admitted == 0
 
 
 def test_k8_fetch():

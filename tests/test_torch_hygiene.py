@@ -75,9 +75,9 @@ def _sources(root):
 def test_no_knob_the_reference_lacks():
     """Every FLT_* override the port reads is one the JAX package reads; the
     port reads no other environment variable but the CUDA toolkit's
-    location; and every field of its Settings is a field of the JAX
-    package's, with the same default. So K10's route is reached through the
-    tables' content alone."""
+    location; and its Settings, CameraSettings and AreaLightSettings have
+    exactly the JAX package's fields, with the same defaults. So K10's
+    route is reached through the tables' content alone."""
     import dataclasses
     import inspect
     from fluctus_tpu import settings as jsettings
@@ -112,8 +112,9 @@ def test_no_knob_the_reference_lacks():
                               (tsettings.AreaLightSettings,
                                jsettings.AreaLightSettings)):
         mine, theirs = fields(ours_cls), fields(ref_cls)
+        assert set(mine) == set(theirs), (ours_cls.__name__,
+                                          set(mine) ^ set(theirs))
         for name, default in mine.items():
-            assert name in theirs, f"{ours_cls.__name__}.{name}"
             if not dataclasses.is_dataclass(default):
                 assert default == theirs[name], name
 
@@ -192,3 +193,167 @@ def test_helpers_require_a_device():
         with pytest.raises(TypeError, match="device"):
             call()
         call(device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Settings: the reference's fields, the refusal of what is not ported, and
+# the params' life cycle
+# ---------------------------------------------------------------------------
+
+# a small scene: a floor of two triangles and one above it
+_TINY_OBJ = """v -1 0 -1
+v 1 0 -1
+v 1 0 1
+v -1 0 1
+v -0.5 0.5 -0.5
+v 0.5 0.5 -0.5
+v 0 1 0
+f 1 2 3
+f 1 3 4
+f 5 6 7
+"""
+
+# every switch of settings.UNPORTED, set away from its default
+_REFUSED = [("use_env_map", True), ("env_map_name", "sky.hdr"),
+            ("use_area_light", False), ("use_russian_roulette", True),
+            ("sample_implicit", False), ("sample_explicit", False),
+            ("use_denoiser", True), ("denoiser_blend", 0.5),
+            ("render_scale", 0.5), ("wf_block_ring", False),
+            ("wf_splat_every", 4)]
+
+
+def _tiny_scene(d):
+    path = os.path.join(str(d), "tiny.obj")
+    with open(path, "w") as f:
+        f.write(_TINY_OBJ)
+    return path
+
+
+def test_refused_switches_are_the_unported_ones():
+    from fluctus_tpu_torch import settings as tsettings
+    assert [n for n, _ in _REFUSED] == list(tsettings.UNPORTED)
+    for name, value in _REFUSED:
+        assert value != tsettings.UNPORTED[name]
+        assert getattr(tsettings.Settings(), name) == \
+            tsettings.UNPORTED[name]
+
+
+@pytest.mark.parametrize("name,value", _REFUSED)
+def test_load_scene_refuses_unported_switch(tmp_path, name, value):
+    """load_scene raises NotImplementedError naming a render-changing
+    switch the port does not implement, before it loads anything."""
+    from fluctus_tpu_torch.renderer import Renderer
+    from fluctus_tpu_torch.settings import Settings
+    s = Settings()
+    setattr(s, name, value)
+    r = Renderer(32, 16, settings=s, data_dir=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match=rf"Settings\.{name} "):
+        r.load_scene(_tiny_scene(tmp_path))
+    assert r.scene is None and not os.path.exists(tmp_path / "hierarchies")
+
+
+@pytest.fixture(scope="module")
+def tiny_renderer(tmp_path_factory):
+    from fluctus_tpu_torch.renderer import Renderer
+    d = tmp_path_factory.mktemp("tiny")
+    r = Renderer(32, 16, data_dir=str(d), device="cpu")
+    r.load_scene(_tiny_scene(d))
+    return r
+
+
+@pytest.mark.parametrize("name,value", _REFUSED)
+def test_rebuild_config_refuses_unported_switch(tiny_renderer, name, value):
+    """rebuild_config refuses what load_scene refuses, naming the switch,
+    and leaves config and params as they were."""
+    from fluctus_tpu_torch.settings import UNPORTED
+    r = tiny_renderer
+    config, params = r.config, r.params
+    setattr(r.settings, name, value)
+    try:
+        with pytest.raises(NotImplementedError, match=rf"Settings\.{name} "):
+            r.rebuild_config()
+    finally:
+        setattr(r.settings, name, UNPORTED[name])
+    assert r.config is config and r.params is params
+    r.rebuild_config()
+
+
+_JSON = [
+    {},
+    {"platformName": "p", "deviceName": "d", "envMap": "sky.hdr",
+     "renderScale": 0.5, "windowWidth": 800, "windowHeight": 600,
+     "splitMode": "sbvh", "clUseBitstack": True, "clUseSoA": False,
+     "wfBufferSize": 1 << 16, "useWavefront": True, "wfBlockRing": False,
+     "wfPhases": False, "wfFusedShade": False, "wfSplatEvery": 3,
+     "useRussianRoulette": True, "useSeparateQueues": True,
+     "maxPathDepth": 4, "maxSpp": 16, "maxRenderTime": 30,
+     "sampleImplicit": False, "sampleExplicit": False, "useEnvMap": True,
+     "useAreaLight": False, "tonemap": 1,
+     "shortcuts": {"1": "a.obj", "x": "ignored", "2": "b.obj"},
+     "defaultScene": 2,
+     "camera": {"pos": [1.0, 2.0, 3.0], "dir": [0.3, -0.2, -1.0],
+                "fov": 45.0, "apertureSize": 0.1, "focalDist": 2.5,
+                "cameraSpeed": 3.0},
+     "areaLight": {"pos": [0.0, 3.0, 0.0], "N": [0.0, -1.0, 0.0],
+                   "E": [20.0], "size": [0.25]}},
+    {"camera": {"pos": [0.0, 1.0, 5.0], "lookAt": [1.0, 0.0, 0.0],
+                "cameraRotation": [30.0, -10.0]},
+     "areaLight": {"N": [1.0, 1.0, 0.0], "E": [1.0, 2.0, 3.0],
+                   "size": [0.5, 0.75]}},
+]
+
+
+@pytest.mark.parametrize("case", range(len(_JSON)))
+def test_settings_import_json_matches_reference(tmp_path, case):
+    """Settings.import_json on a dict, and Settings.load of a settings.json
+    with release and debug sections, give the JAX package's fields."""
+    import dataclasses
+    import json
+    from fluctus_tpu import settings as jsettings
+    from fluctus_tpu_torch import settings as tsettings
+    ours, ref = tsettings.Settings(), jsettings.Settings()
+    ours.import_json(_JSON[case])
+    ref.import_json(_JSON[case])
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    path = tmp_path / "settings.json"
+    path.write_text(json.dumps({"release": _JSON[case],
+                                "debug": {"maxPathDepth": 2}}))
+    for debug in (False, True):
+        assert dataclasses.asdict(tsettings.Settings.load(str(path), debug)) \
+            == dataclasses.asdict(jsettings.Settings.load(str(path), debug))
+
+
+def test_init_wavefront_keeps_params(tmp_path):
+    """A camera and light edit after load_scene: init_wavefront leaves the
+    params as they were, as the reference's does; rebuild_config picks the
+    edit up (and max_path_depth / max_spp into the config), giving the
+    reference's camera and light."""
+    import numpy as np
+    from fluctus_tpu.renderer import Renderer as JRenderer
+    from fluctus_tpu.settings import Settings as JSettings
+    from fluctus_tpu_torch.renderer import Renderer
+    from fluctus_tpu_torch.settings import Settings
+    scene = _tiny_scene(tmp_path)
+    ours = Renderer(32, 16, settings=Settings(),
+                    data_dir=str(tmp_path / "a"), device="cpu")
+    ref = JRenderer(32, 16, settings=JSettings(),
+                    data_dir=str(tmp_path / "b"))
+
+    def flat(params):
+        c, a = params.camera, params.area_light
+        return np.array([float(x) for v in (c.pos, c.dir, a.pos, a.E)
+                         for x in v] + [float(c.fov)], np.float32)
+    for r in (ours, ref):
+        r.load_scene(scene)
+        before = flat(r.params)
+        s = r.settings
+        s.camera.pos, s.camera.dir, s.camera.fov = ((0.5, 2.0, 4.0),
+                                                    (0.0, -0.5, -1.0), 40.0)
+        s.area_light.pos, s.area_light.E = (0.0, 3.0, 1.0), (7.0, 8.0, 9.0)
+        s.max_path_depth, s.max_spp = 3, 5
+        r.init_wavefront(512)
+        np.testing.assert_array_equal(flat(r.params), before)
+        r.rebuild_config()
+        assert (r.config.max_bounces, r.config.max_spp) == (3, 5)
+        assert not np.array_equal(flat(r.params), before)
+    np.testing.assert_array_equal(flat(ours.params), flat(ref.params))

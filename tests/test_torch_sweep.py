@@ -1,6 +1,6 @@
 """The design of the Hopper sweep (fluctus_tpu_torch/csrc/sweep_hopper.cuh,
-shared by K5 trace_rol_sc and K9 trace_ros) checked on the CPU, where no
-CUDA kernel runs:
+shared by K2 trace_rol, K5 trace_rol_sc and K9 trace_ros) checked on the
+CPU, where no CUDA kernel runs:
 
   (a) its validity test dz != 0 & t > 0 & u >= 0 & v >= 0 & (1-u)-v >= 0
       equals the reference's dz != 0 & t > 0 & min(min(u, v), 1-u-v) >= 0
@@ -13,7 +13,8 @@ CUDA kernel runs:
       only the candidates the last vote left live tested again — gives
       the plain versions' t, columns and visit counts bit for bit. A
       Python model of the kernels' walk, step for step, runs on the 2x2
-      luxball grid's tables against trace_ros_plain / trace_rol_sc_plain,
+      luxball grid's tables against trace_ros_plain (K9's layouts) and
+      trace_rol_plain (K2's) for the flat walk, and trace_rol_sc_plain,
       on tiles that include tmax = +inf lanes, direction components of 0,
       rays parallel to the floor, a tile whose list ends at once, and
       superclusters of 1 and 64 members;
@@ -143,7 +144,7 @@ class _Model:
 
 
 def _walk_flat(m, ord_, cn, boxes, n):
-    """trace_ros.cu's walk."""
+    """sweep_hopper.cuh's walk_flat (K2's and K9's walk)."""
     base = 0
 
     def box_of(j):
@@ -275,7 +276,7 @@ def _check(got, ref):
         assert torch.equal(a, b), what
 
 
-@pytest.mark.parametrize("level", ["flat", "supercluster"])
+@pytest.mark.parametrize("level", ["flat", "rol", "supercluster"])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_windowed_walk_matches_plain(grid_tables, level, any_hit):
     sc = grid_tables
@@ -285,10 +286,10 @@ def test_windowed_walk_matches_plain(grid_tables, level, any_hit):
     nt = rays.shape[0]
     tm = tmax.view(nt, RT)
     t12c = sc.t12.view(12, sc.n_clusters, tc)
-    if level == "flat":
-        boxes = sc.cluster_box
-    else:
+    if level == "supercluster":
         boxes = _sc_box(sc)
+    else:
+        boxes = sc.cluster_box
     order, cons = tmt._candidate_order(tmt.tile_order_plain(rays, tm, boxes))
     assert int(order[-1, 0]) == -1                  # ends at once
     if level == "flat":
@@ -296,6 +297,9 @@ def test_windowed_walk_matches_plain(grid_tables, level, any_hit):
             o4, d4, tmax[:, None], order, cons, sc.tx, sc.ty, sc.tz,
             sc.cluster_box, sc.n_clusters, tc, any_hit)
         ref = (t.view(nt, RT), i.view(nt, RT), visits)
+    elif level == "rol":
+        ref = tmt.trace_rol_plain(rays, tm, order, cons, sc.t12,
+                                  sc.cluster_box, sc.n_clusters, tc, any_hit)
     else:
         # tiles 0 and 1 walk the 1-member and the 64-member supercluster
         # first
@@ -310,7 +314,7 @@ def test_windowed_walk_matches_plain(grid_tables, level, any_hit):
     for k in range(nt):
         m = _Model(rays[k:k + 1], tm[k:k + 1], t12c, any_hit)
         ord_, cn = order[k].tolist(), cons[k].tolist()
-        if level == "flat":
+        if level != "supercluster":
             _walk_flat(m, ord_, cn, boxes, sc.n_clusters)
         else:
             _walk_sc(m, ord_, cn, sc.cluster_box, boxes)
