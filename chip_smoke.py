@@ -15,7 +15,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    tolerances and both are timed (CUDA events, median; a spin kernel
    queued first hides the host's launch, and a kernel's time with its
    launch stands beside), with one PyTorch library call computing the
-   same function as a yardstick where one exists.
+   same function as a yardstick where one exists. K1 (its candidate
+   lists, order and skey, against _candidate_order(tile_order_plain))
+   and K4 (all four channels) bit for bit, each also on synthetic calls
+   from a numpy seed: K1 on edge-case tiles (NaN, +-0, +-inf and
+   subnormal direction components, origins on box faces, tmax 0, -1,
+   +inf and NaN, an all-culled tile, ties at 0.0) with 1, 13, 33 and
+   4,096 boxes (the wrapper's limit; one more must raise ValueError) and
+   a tile of 96 rays; K4 on groups with every lane on one pixel, every
+   lane on its own pixel, empty lanes and every lane empty.
 3. luxball path: Renderer(1920, 1080) on luxball with a 1M-path pool, 2
    warm-up segments, a fresh pool, then SEGMENTS timed segments; Mrays/s
    (primary + extension + shadow rays, as bench.py counts them),
@@ -24,14 +32,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    film must be finite with weight > 0 on >= 99% of pixels. K2's calls
    of the last timed segment are held bit for bit to the plain version and
    timed. Then two more segments under torch.profiler: device time by
-   kernel and the device's busy share.
+   kernel, device operations per segment and the device's busy share.
 4. whole-path parity: 4 segments at 256x144 with 64k paths through the
    kernels and, from the same reset, through the plain versions on the
    card.
 2b, 3b, 4b: the same three phases on the large-scene path: the 8x8
    luxball grid (361,088 triangles, 2,056 clusters, past both tier
    switches), so each segment runs K1 over superclusters, K5 twice, K6
-   and K4. 2b holds K1, K5 (both modes) and K6 to their plain versions
+   and K4. 2b holds K1 (over superclusters), K5 (both modes) and K6 to
+   their plain versions
    and times K3 on K6's inputs; 3b times LARGE_SEGMENTS segments, checks
    the primary-hit share, and holds K5's calls of its last segment to the
    plain version and times them. The trace kernels (K2, K5, K9) are held
@@ -45,8 +54,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    segment 2 and in the last segment where budgets bind, held bit for bit
    to their plain versions and timed, and K7 also on one synthetic call of
    the same shape from a numpy seed: groups with every lane on one pixel,
-   every lane on its own pixel, empty (-1) lanes, budgets 0, 1, 2.5, 255,
-   1e30 and NaN (5a); then, from reset(), a timed
+   every lane on its own pixel, empty (-1) lanes, every lane empty,
+   budgets 0, 1, 2.5, 255, 1e30 and NaN (5a); then, from reset(), a timed
    render_single(EXACT_SPP): spp and film weight equal the target on
    every true pixel, 0 weight on parked padded slots (the reference's
    wf_reset leaves the first slot of a group without pixels live; those
@@ -247,7 +256,7 @@ def plain_versions():
         if remaining is None:
             return bs.splat_plain(local, data, film, groups)
         return bs.splat_capped_plain(local, data, film, groups, remaining)
-    swaps = [(mt, "tile_order", mt.tile_order_plain),
+    swaps = [(mt, "tile_order", tile_order_chain_plain),
              (mt, "trace_rol", mt.trace_rol_plain),
              (mt, "resolve_v5", mt.resolve_v5_plain),
              (bs, "splat", splat),
@@ -319,30 +328,197 @@ def trace_plain_chunked(plain, rays, tm, order, cons, *rest, chunk=256):
     return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
 
 
-def check_tile_order(mt, rec_calls):
-    """K1 vs plain on every recorded call of segments 2 and 4 (cons and
-    the sorted order equal); returns the timing dict of segment 4's."""
+def tile_order_chain_plain(rays, tm, boxes):
+    """K1's plain version: the bounds of tile_order_plain sorted into the
+    candidate lists by _candidate_order (order, skey)."""
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    return mt._candidate_order(mt.tile_order_plain(rays, tm, boxes))
+
+
+def tile_order_diffs(got, ref):
+    """Entries of K1's (order, skey) that differ from the plain version's,
+    skey compared as int32 bits."""
     import torch
+    return {what: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            for what, a, b in zip(("order", "skey"), got, ref)}
+
+
+def check_tile_order(mt, rec_calls):
+    """K1 vs plain on every recorded call of segments 2 and 4: order and
+    skey bit-equal to _candidate_order(tile_order_plain(...)). Returns the
+    timing dict of segment 4's first call."""
     for seg in (2, 4):
         for args, _ in rec_calls[(seg, "tile_order")]:
-            rays, tm, boxes = args
-            got = mt.tile_order(rays, tm, boxes)
-            ref = mt.tile_order_plain(rays, tm, boxes)
-            if not torch.equal(got, ref):
-                raise AssertionError(f"K1 cons differ (segment {seg})")
-            if not torch.equal(mt._candidate_order(got)[0],
-                               mt._candidate_order(ref)[0]):
-                raise AssertionError(f"K1 order differs (segment {seg})")
+            diff = tile_order_diffs(mt.tile_order(*args),
+                                    tile_order_chain_plain(*args))
+            if any(diff.values()):
+                raise AssertionError(f"K1 differs from its plain version "
+                                     f"(segment {seg}): {diff}")
     rays, tm, boxes = rec_calls[(4, "tile_order")][0][0]
     nt, _, rt = rays.shape
     ncl = boxes.shape[0]
-    cons = mt.tile_order(rays, tm, boxes)
-    b_ms, b_by = bound(nt * ncl * rt * 25, nbytes(rays, tm, boxes, cons))
+    order, skey = mt.tile_order(rays, tm, boxes)
+    b_ms, b_by = bound(nt * ncl * rt * 25,
+                       nbytes(rays, tm, boxes, order, skey))
     return dict(
         max_abs_err=0.0, **kernel_ms(lambda: mt.tile_order(rays, tm, boxes)),
-        plain_ms=time_ms(lambda: mt.tile_order_plain(rays, tm, boxes), 3, 1),
+        plain_ms=time_ms(lambda: tile_order_chain_plain(rays, tm, boxes), 3,
+                         1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        live_entries=int((order >= 0).sum()),
+        octant_warps=octant_warps(rays, k1_rays_per_thread()),
         shape=f"{nt} tiles x {rt} rays x {ncl} boxes")
+
+
+def k1_edge_inputs(ncl, nt, rt, seed):
+    """numpy float32 rays [nt, 8, rt], tmax [nt, rt] and boxes [ncl, 8] of
+    an edge-case K1 call, made from a numpy seed. Boxes in [-4, 6]^3, a
+    tenth of their extents 0, a twentieth of their axes inverted (low
+    plane above the high one), up to four of them the cube [-20, 20]^3,
+    one more (where ncl > 1) the slab x in [2e30, 3e30].
+    Rays from [-6, 6]^3 with normal directions; by lane, a direction
+    component of +0, -0, +-inf, NaN or +-1e-40 (its inverse overflows),
+    an origin component NaN, or an origin on a face of a box, pointing
+    into it (it enters at tnear = -0.0); tmax 0, -1, +inf, NaN or in
+    [0, 20]. Every other tile before the last three holds rays of one
+    direction octant, as sorted tiles do (its zero and NaN components
+    become +0 or -1e-40 by the octant's sign). The last tile is all
+    culled (origins far outside, tmax -1); the one before has every
+    origin inside the cubes (ties at 0.0) and a fifth of its lanes on box
+    faces; the third from last looks along +x with tmax +inf, so all its
+    rays enter the far slab past the 1e30 cull bound."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(-4.0, 4.0, (ncl, 3))
+    ext = rng.uniform(0.0, 2.0, (ncl, 3))
+    ext[rng.random((ncl, 3)) < 0.1] = 0.0
+    ext[rng.random((ncl, 3)) < 0.05] *= -1.0
+    boxes = np.zeros((ncl, 8))
+    boxes[:, 0:3], boxes[:, 3:6] = lo, lo + ext
+    boxes[:, 6], boxes[:, 7] = np.arange(ncl), 1.0
+    pick = rng.permutation(ncl)
+    big, far = pick[:4], pick[4:5] if ncl > 4 else pick[1:2]
+    boxes[big, 0:3], boxes[big, 3:6] = -20.0, 20.0
+    boxes[far, 0:3], boxes[far, 3:6] = (2e30, -1e36, -1e36), (3e30, 1e36, 1e36)
+    boxes = boxes.astype(np.float32)
+    n = nt * rt
+    lane, axis = np.arange(n), rng.integers(0, 3, n)
+    tiles = lane // rt
+    octile = (tiles % 2 == 0) & (tiles < nt - 3)
+    sgn = np.where(rng.random((nt, 3)) < 0.5, -1.0, 1.0)[tiles]
+    o = rng.uniform(-6.0, 6.0, (n, 3))
+    d = rng.normal(size=(n, 3))
+    kind = rng.integers(0, 16, n)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40])
+    pick = kind < len(special)
+    d[lane[pick], axis[pick]] = special[kind[pick]]
+    o[lane[kind == 7], axis[kind == 7]] = np.nan
+    face = (kind == 8) | ((tiles == nt - 2) & (kind < 3))
+    b = rng.integers(0, ncl, n)
+    inside = boxes[b, 0:3] + rng.random((n, 3)) * (boxes[b, 3:6]
+                                                   - boxes[b, 0:3])
+    o[face] = inside[face]
+    at_max = np.where(octile, sgn[lane, axis] < 0, rng.random(n) < 0.5)
+    f_lo = boxes[b, axis].astype(np.float64)
+    f_hi = boxes[b, axis + 3].astype(np.float64)
+    o[lane[face], axis[face]] = np.where(at_max, f_hi, f_lo)[face]
+    d[lane[face], axis[face]] = np.where(at_max, -1.0, 1.0)[face] * \
+        np.abs(d[lane[face], axis[face]])
+    dd = np.abs(d) * sgn
+    bad = np.isnan(dd) | (dd == 0.0)       # -0.0's reciprocal is +1e30
+    dd[bad] = np.where(sgn[bad] < 0, -1e-40, 0.0)
+    d[octile] = dd[octile]
+    tm = rng.uniform(0.0, 20.0, n)
+    kind_t = rng.integers(0, 8, n)
+    tm[kind_t == 0], tm[kind_t == 1] = 0.0, -1.0
+    tm[kind_t == 2], tm[kind_t == 3] = np.inf, np.nan
+    ties = tiles == nt - 2
+    o[ties & ~face] = rng.uniform(-1.0, 1.0, (int((ties & ~face).sum()), 3))
+    tm[ties] = np.inf
+    beyond = tiles == nt - 3
+    o[beyond] = rng.uniform(-1.0, 1.0, (int(beyond.sum()), 3))
+    d[beyond] = np.stack([np.ones(int(beyond.sum())),
+                          *rng.normal(0.0, 0.1, (2, int(beyond.sum())))], 1)
+    tm[beyond] = np.inf
+    culled = tiles == nt - 1
+    o[culled], tm[culled] = 100.0, -1.0
+    rays = np.zeros((nt, 8, rt), np.float32)
+    rays[:, 0:3] = o.reshape(nt, rt, 3).transpose(0, 2, 1)
+    rays[:, 3] = 1.0
+    rays[:, 4:7] = d.reshape(nt, rt, 3).transpose(0, 2, 1)
+    return rays, tm.astype(np.float32).reshape(nt, rt), boxes
+
+
+def octant_warps(rays, rays_per_thread):
+    """The share of K1's warps whose rays share one octant (the sign bits
+    of their reciprocal directions), which take its octant path: thread t
+    of a tile holds lanes t + k * threads, as csrc/tile_order.cu."""
+    import torch
+    nt, _, rt = rays.shape
+    while rt % (32 * rays_per_thread):
+        rays_per_thread //= 2
+    threads = rt // rays_per_thread
+    d = rays[:, 4:7]
+    inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
+    neg = (inv.view(torch.int32) < 0).int()
+    octs = neg[:, 0] | neg[:, 1] << 1 | neg[:, 2] << 2          # [nt, rt]
+    lanes = (torch.arange(threads)[:, None] + torch.arange(
+        rays_per_thread)[None, :] * threads).to(rays.device)
+    warps = octs[:, lanes].reshape(nt, threads // 32, -1)
+    return float((warps == warps[:, :, :1]).all(dim=2).float().mean())
+
+
+def k1_rays_per_thread():
+    """K1's RAYS_PER_THREAD as csrc/tile_order.cu sets it."""
+    with open(os.path.join("fluctus_tpu_torch", "csrc", "tile_order.cu")) as f:
+        return int(re.search(r"constexpr int RAYS_PER_THREAD = (\d+);",
+                             f.read())[1])
+
+
+# (boxes, tiles, rays per tile) of the synthetic K1 calls: one box, a
+# count not a multiple of 8, luxball's cluster count, a tile that is not
+# a multiple of 64 rays, and the wrapper's limit
+K1_EDGE_CALLS = ((1, 16, 512), (13, 16, 512), (33, 64, 512), (33, 8, 96),
+                 (4096, 4, 512))
+
+
+def check_k1_synthetic(seed=5):
+    """K1 on the calls of K1_EDGE_CALLS made by k1_edge_inputs, against
+    its plain version bit for bit; one box past the limit must raise
+    ValueError. Returns what each call held."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    out = []
+    for k, (ncl, nt, rt) in enumerate(K1_EDGE_CALLS):
+        rays, tm, boxes = (torch.from_numpy(a).cuda() for a in
+                           k1_edge_inputs(ncl, nt, rt, seed + k))
+        got = mt.tile_order(rays, tm, boxes)
+        diff = tile_order_diffs(got, tile_order_chain_plain(rays, tm, boxes))
+        skey = got[1]
+        out.append(dict(boxes=ncl, tiles=nt, rays_per_tile=rt, differ=diff,
+                        live=int((got[0] >= 0).sum()),
+                        zero_keys=int((skey == 0.0).sum()),
+                        negative_zero_keys=int(
+                            (skey.view(torch.int32) == -2 ** 31).sum()),
+                        culled_tiles=int((got[0][:, 0] < 0).sum()),
+                        octant_warps=octant_warps(rays,
+                                                  k1_rays_per_thread())))
+        if any(diff.values()):
+            raise AssertionError(f"K1 differs from its plain version on a "
+                                 f"synthetic call: {out[-1]}")
+    if not all(o["zero_keys"] and o["culled_tiles"] and
+               0.0 < o["octant_warps"] < 1.0 for o in out):
+        raise AssertionError(f"K1 synthetic calls lack ties at 0, culled "
+                             f"tiles or warps of either path: {out}")
+    rays, tm, boxes = (torch.from_numpy(a).cuda() for a in
+                       k1_edge_inputs(mt.K1_MAX_BOXES + 1, 1, 512, seed))
+    try:
+        mt.tile_order(rays, tm, boxes)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K1 took more boxes than its limit")
+    return out
 
 
 def trace_diffs(got, ref):
@@ -539,16 +715,14 @@ def phase_kernels(r, rec_calls):
     res["resolve_v5"], _ = check_resolve("resolve_v5", mt.resolve_v5,
                                          mt.resolve_v5_plain, rec_calls)
 
-    # K4: splat
-    worst = 0.0
+    # K4: splat, all four channels bit for bit
     for seg in (2, 4):
         for args, kw in rec_calls[(seg, "splat")]:
             got = bs.splat(*args, **kw)
             ref = bs.splat_plain(*args, **kw)
-            if not torch.equal(got[3], ref[3]):
-                raise AssertionError(f"K4 weight channel differs ({seg})")
-            torch.testing.assert_close(got, ref, rtol=1e-6, atol=0.0)
-            worst = max(worst, float((got - ref).abs().max()))
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"K4 differs from its plain version "
+                                     f"(segment {seg})")
     (local, data, film), kw = rec_calls[(4, "splat")][0]
     g = kw["groups"]
     c, n = data.shape
@@ -563,13 +737,15 @@ def phase_kernels(r, rec_calls):
         return film + acc.index_add_(1, pid, data)[:, :g * pk]
     b_ms, b_by = bound(n * c, nbytes(local, data) + 2 * nbytes(film))
     res["block_splat"] = dict(
-        max_abs_err=worst, **kernel_ms(lambda: bs.splat(local, data, film,
+        max_abs_err=0.0, **kernel_ms(lambda: bs.splat(local, data, film,
                                                           groups=g)),
         plain_ms=time_ms(lambda: bs.splat_plain(local, data, film, g), 3, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
         library_call="Tensor.index_add_ on the flattened film",
         shape=f"{g} groups x {s} lanes, Pk={pk}, {int((local >= 0).sum())} "
-              "splats")
+              "splats",
+        synthetic=check_splat_synthetic(capped=False))
+    res["tile_order"]["synthetic"] = check_k1_synthetic()
     return res
 
 
@@ -593,8 +769,9 @@ def phase_kernels_large(r, rec_calls):
 
 
 class LastCalls:
-    """Keep the arguments of the last ``keep`` calls of ``mod.name`` (the
-    wrapper runs as usual)."""
+    """Keep the arguments of the last ``keep`` calls of ``mod.name``, its
+    keyword arguments' values after the positional ones (the wrapper runs
+    as usual)."""
 
     def __init__(self, mod, name, keep=2):
         self.mod, self.name, self.keep = mod, name, keep
@@ -603,9 +780,10 @@ class LastCalls:
     def __enter__(self):
         self.orig = getattr(self.mod, self.name)
 
-        def rec(*args):
-            self.calls = (self.calls + [args])[-self.keep:]
-            return self.orig(*args)
+        def rec(*args, **kw):
+            self.calls = (self.calls + [args + tuple(kw.values())])[
+                -self.keep:]
+            return self.orig(*args, **kw)
         setattr(self.mod, self.name, rec)
         return self
 
@@ -703,7 +881,7 @@ def check_edges(sc, scene, seed, nt=64):
     tc = sc.cluster_size
     txyz = ((sc.tx, sc.ty, sc.tz) if sc.tx is not None else
             tuple(sc.t12[k:k + 4] for k in (0, 4, 8)))
-    order, cons = mt._candidate_order(mt.tile_order(rays, tm, sc.cluster_box))
+    order, cons = mt.tile_order(rays, tm, sc.cluster_box)
     supers = {"scene": sc.sc_box, "synthetic": synthetic_supers(sc)}
     counts = {k: v[:, 7].long().tolist() for k, v in supers.items()}
     out = dict(scene=scene, tiles=nt, rays=nt * rt, seed=seed,
@@ -727,7 +905,7 @@ def check_edges(sc, scene, seed, nt=64):
                                         visits=int(got[2].sum()),
                                         hits=int((got[1] >= 0).sum()))
         for name, sb in supers.items():
-            so, sn = mt._candidate_order(mt.tile_order(rays, tm, sb))
+            so, sn = mt.tile_order(rays, tm, sb)
             # the first two tiles walk the 1-member supercluster first, the
             # next two the synthetic 64-member one (or the scene's largest)
             one = int(torch.argmin(sb[:, 7]))
@@ -811,7 +989,8 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
     beside it, since later segments of a pool can cost more than the
     timed run's average. The kernels' own launch counts over the same
     segments stand beside the profiler's call counts, which show any
-    events the profiler lost."""
+    events the profiler lost; ``device_launches_per_segment`` counts every
+    device operation (kernels, copies, fills) the profiler saw."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from fluctus_tpu_torch import kernel_build as kb
@@ -842,6 +1021,7 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + dt / n
     out = dict(phase="profile", segments=n, unit=unit, card=card,
                device_ms_per_segment=dev_ms,
+               device_launches_per_segment=sum(c for _, _, c in rows) / n,
                device_busy_share=dev_ms / ms_per_segment,
                profiled_wall_ms_per_segment=wall_ms,
                launches_per_segment=launches,
@@ -1026,18 +1206,19 @@ def check_exact_kernels(rec):
     return k7, k8
 
 
-def check_k7_synthetic(groups=4096, s=256, pk=512, seed=9):
-    """K7 on one synthetic call of the main path's shape, made from a numpy
-    seed, against splat_capped_plain bit for bit: groups in turn with every
-    lane on one pixel, every lane on its own pixel, a third of the lanes
-    empty (-1) and the rest on 5 pixels, or lanes on 40 random pixels;
-    each pixel's budget one of 0, 1, 2.5, 255, 1e30 and NaN; data and film
-    normal, with some -0.0 data. Returns the counts it was checked on."""
+def check_splat_synthetic(capped, groups=4096, s=256, pk=512, seed=9):
+    """K7 (``capped``) or K4 on one synthetic call of the main path's
+    shape, made from a numpy seed, against its plain version bit for bit:
+    groups in turn with every lane on one pixel, every lane on its own
+    pixel, a third of the lanes empty (-1) and the rest on 5 pixels, every
+    lane empty, or lanes on 40 random pixels; for K7 each pixel's budget
+    one of 0, 1, 2.5, 255, 1e30 and NaN; data and film normal, with some
+    -0.0 data. Returns the counts it was checked on."""
     import numpy as np
     import torch
     from fluctus_tpu_torch.core import block_splat as bs
     rng = np.random.default_rng(seed)
-    layout = np.arange(groups) % 4
+    layout = np.arange(groups) % 5
     local = rng.integers(0, 40, (groups, s))
     one = layout == 0
     local[one] = rng.integers(0, pk, (int(one.sum()), 1))
@@ -1046,6 +1227,7 @@ def check_k7_synthetic(groups=4096, s=256, pk=512, seed=9):
     few = layout == 2
     local[few] = rng.integers(0, 5, (int(few.sum()), s))
     local[few[:, None] & (rng.random((groups, s)) < 1 / 3)] = -1
+    local[layout == 3] = -1
     budgets = np.array([0.0, 1.0, 2.5, 255.0, 1e30, np.nan], np.float32)
     rem = budgets[rng.integers(0, len(budgets), groups * pk)][None]
     data = rng.normal(size=(4, groups * s)).astype(np.float32)
@@ -1054,15 +1236,20 @@ def check_k7_synthetic(groups=4096, s=256, pk=512, seed=9):
     args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
             for a in (local.reshape(-1).astype(np.int32), data, film, rem)]
     local_t, data_t, film_t, rem_t = args
-    got = bs.splat(local_t, data_t, film_t, groups=groups, remaining=rem_t)
-    ref = bs.splat_capped_plain(local_t, data_t, film_t, groups, rem_t)
+    if capped:
+        got = bs.splat(local_t, data_t, film_t, groups=groups,
+                       remaining=rem_t)
+        ref = bs.splat_capped_plain(local_t, data_t, film_t, groups, rem_t)
+    else:
+        got = bs.splat(local_t, data_t, film_t, groups=groups)
+        ref = bs.splat_plain(local_t, data_t, film_t, groups)
     differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
     out = dict(differ=differ, candidates=int((local >= 0).sum()),
                pixels_changed=int((got != film_t).any(0).sum()),
                shape=f"{groups} groups x {s} lanes, Pk={pk}", seed=seed)
     if differ:
-        raise AssertionError(f"K7 differs from its plain version on the "
-                             f"synthetic call: {out}")
+        raise AssertionError(f"{'K7' if capped else 'K4'} differs from its "
+                             f"plain version on the synthetic call: {out}")
     return out
 
 
@@ -1092,7 +1279,7 @@ def phase_exact(r, card):
     with ExactRecorder() as rec:
         r.render_single(EXACT_SPP)
     k7, k8 = check_exact_kernels(rec)
-    k7["synthetic"] = check_k7_synthetic()
+    k7["synthetic"] = check_splat_synthetic(capped=True)
     emit(dict(phase="exact_kernels_vs_plain", card=card,
               early_segment=rec.early[0], tail_segment=rec.tail[0],
               segments=rec.seg, block_splat_capped=k7, fetch=k8))

@@ -6,13 +6,14 @@ BVH cut at that many refs). Each triangle carries the affine map that
 takes world points to its unit right triangle: for a ray (o, d),
 t = -o'_w / d'_w, u = o'_u + t d'_u, v = o'_v + t d'_v, hit iff t > 0,
 u, v >= 0, u + v <= 1. Rays are sorted by a coherence key and cut into
-tiles; each tile gets a private front-to-back candidate list (K1 + a
-stable sort), walked by the trace kernel with per-ray t_best pruning and a
-tile-level early-out. Up to SC_THRESHOLD clusters the list holds clusters
-(K2); past it, superclusters of up to SC_CLUSTERS clusters, each of whose
-members is culled on its own (K5). With ``flags.ROL`` off the trace falls
-back to the rays-on-sublanes kernel (K9), which single-set traces also
-take unsorted when ``flags.SORT_RAYS`` is off. A resolve kernel turns the
+tiles; each tile gets a private front-to-back candidate list (K1, the
+stable sort fused in), walked by the trace kernel with per-ray t_best
+pruning and a tile-level early-out. Up to SC_THRESHOLD clusters the list
+holds clusters (K2); past it, superclusters of up to SC_CLUSTERS
+clusters, each of whose members is culled on its own (K5). With
+``flags.ROL`` off the trace falls back to the rays-on-sublanes kernel
+(K9), which single-set traces also take unsorted when ``flags.SORT_RAYS``
+is off. A resolve kernel turns the
 winner column into exact t/u/v, interpolated vertex attributes and the
 baked material parameters, chosen by what the tables hold, as the
 reference does: from the B16 table K3, or K6 once the tables pass the
@@ -21,7 +22,7 @@ carry no B16 table (a table cache that stores it absent), K10.
 
 Kernels (each launched on CUDA tensors; its plain PyTorch twin runs on CPU
 tensors):
-  K1 ``tile_order``    csrc/tile_order.cu    (ref _tile_order_kernel)
+  K1 ``tile_order``    csrc/tile_order.cu    (ref _tile_order_kernel + sort)
   K2 ``trace_rol``     csrc/trace_rol.cu     (ref _trace_kernel_rol)
   K3 ``resolve_v5``    csrc/resolve_v5.cu    (ref _resolve_kernel_v5)
   K5 ``trace_rol_sc``  csrc/trace_rol_sc.cu  (ref _trace_kernel_rol_sc)
@@ -564,7 +565,10 @@ def resolve_table_bytes(n_clusters: int, tc: int) -> int:
 # ---------------------------------------------------------------------------
 
 K1 = kb.Kernel("tile_order", "tile_order.cu", "tile_order_launch",
-               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4)
+# boxes per tile that K1's fused sort holds in shared memory
+# (csrc/tile_order.cu, MAX_BOXES)
+K1_MAX_BOXES = 4096
 
 
 def _slab(box, o0, o1, o2, i0, i1, i2):
@@ -594,7 +598,7 @@ def _inv_dirs(rays):
 def tile_order_plain(rays, tm, boxes):
     """Plain PyTorch K1. rays [nt, 8, rt], tm [nt, rt], boxes [ncl, 8] ->
     cons [nt, ncl_pad]: per tile and cluster, the min over rays of
-    max(tnear, 0) for rays entering within their tmax, else 1e30."""
+    max(tnear, +0.0) for rays entering within their tmax, else 1e30."""
     K1.plain_runs += 1
     nt, _, rt = rays.shape
     ncl = boxes.shape[0]
@@ -604,7 +608,11 @@ def tile_order_plain(rays, tm, boxes):
     box = [boxes[:, k].reshape(1, ncl, 1) for k in range(6)]
     tnear, tfar = _slab(box, *o, *inv)                      # [nt, ncl, rt]
     hit = (tfar >= 0.0) & (tnear <= tfar) & (tnear < tm[:, None, :])
-    entry = torch.where(hit, torch.clamp_min(tnear, 0.0), float(_CULL_INF))
+    # max(tnear, 0) as +0.0 for tnear <= 0, -0.0 included: the bounds are
+    # then >= +0.0 in sign and value, so their bits order as unsigned
+    # integers (K1 folds them so) and the sorted keys' zeros have one sign
+    entry = torch.where(hit, torch.where(tnear > 0.0, tnear, 0.0),
+                        float(_CULL_INF))
     cons = torch.full((nt, ncl_pad), float(_CULL_INF), dtype=torch.float32,
                       device=rays.device)
     cons[:, :ncl] = entry.amin(dim=2)
@@ -612,9 +620,11 @@ def tile_order_plain(rays, tm, boxes):
 
 
 def tile_order(rays, tm, boxes):
-    """K1: cluster entry bounds per tile (see ``tile_order_plain``)."""
+    """K1: per-tile candidate lists, (order [nt, ncl_pad] i32, skey
+    [nt, ncl_pad] f32): the entry bounds of ``tile_order_plain`` sorted
+    front-to-back, as ``_candidate_order`` sorts them, in one launch."""
     if rays.device.type == "cpu":
-        return tile_order_plain(rays, tm, boxes)
+        return _candidate_order(tile_order_plain(rays, tm, boxes))
     kb.check_cuda("tile_order", rays, tm, boxes,
                   dtypes=(torch.float32,) * 3)
     nt, _, rt = rays.shape
@@ -623,11 +633,18 @@ def tile_order(rays, tm, boxes):
     if rt % 32 or rt > 1024:
         raise ValueError(f"tile_order: ray tile {rt} must be a multiple of "
                          "32 and at most 1024")
-    cons = torch.empty((nt, ncl_pad), dtype=torch.float32,
+    if boxes.shape[1] != 8 or kb.ptr(boxes) % 16:
+        raise ValueError("tile_order: boxes must be [ncl, 8] rows aligned "
+                         "to 16 bytes")
+    if ncl > K1_MAX_BOXES:
+        raise ValueError(f"tile_order: {ncl} boxes exceed the fused sort's "
+                         f"limit of {K1_MAX_BOXES} per tile")
+    order = torch.empty((nt, ncl_pad), dtype=torch.int32, device=rays.device)
+    skey = torch.empty((nt, ncl_pad), dtype=torch.float32,
                        device=rays.device)
-    K1(kb.ptr(rays), kb.ptr(tm), kb.ptr(boxes), kb.ptr(cons), nt, rt, ncl,
-       ncl_pad)
-    return cons
+    K1(kb.ptr(rays), kb.ptr(tm), kb.ptr(boxes), kb.ptr(order), kb.ptr(skey),
+       nt, rt, ncl, ncl_pad)
+    return order, skey
 
 
 def _pack_rays(o4, d4, rt):
@@ -651,9 +668,8 @@ def _tile_order_v2(o4, d4, tmax_col, boxes, rt):
     """Per-tile candidate lists: (order [nt, ncl_pad] i32, cons
     [nt, ncl_pad] f32), sorted front-to-back."""
     nt = o4.shape[0] // rt
-    cons = tile_order(_pack_rays(o4, d4, rt),
+    return tile_order(_pack_rays(o4, d4, rt),
                       tmax_col.reshape(nt, rt).contiguous(), boxes)
-    return _candidate_order(cons)
 
 
 # ---------------------------------------------------------------------------
@@ -798,7 +814,7 @@ def trace_rol(rays, tm, order, cons, t12, boxes, n_clusters: int, tc: int,
 
 def _trace_rol(o4, d4, tmax_col, t12, boxes, scene_static, any_hit,
                ray_tile):
-    """Rays-on-lanes trace of [b,4] rays: candidate lists (K1 + sort),
+    """Rays-on-lanes trace of [b,4] rays: candidate lists (K1),
     then K2. Returns (t [b,1], i [b,1])."""
     n_clusters, tc = scene_static
     rt = ray_tile
@@ -806,7 +822,7 @@ def _trace_rol(o4, d4, tmax_col, t12, boxes, scene_static, any_hit,
     nt = b // rt
     rays = _pack_rays(o4, d4, rt)
     tm = tmax_col.reshape(nt, rt).contiguous()
-    order, cons = _candidate_order(tile_order(rays, tm, boxes))
+    order, cons = tile_order(rays, tm, boxes)
     t, i, _ = trace_rol(rays, tm, order, cons, t12, boxes, n_clusters, tc,
                         any_hit)
     return t.reshape(b, 1), i.reshape(b, 1)
@@ -884,13 +900,13 @@ def trace_rol_sc(rays, tm, order, cons, t12, boxes, sc_box, tc: int,
 def _trace_rol_sc(o4, d4, tmax_col, t12, boxes, sc_box, tc, any_hit,
                   ray_tile):
     """Two-level trace of [b,4] rays: supercluster candidate lists (K1 on
-    ``sc_box`` + the stable sort), then K5. Returns (t [b,1], i [b,1])."""
+    ``sc_box``), then K5. Returns (t [b,1], i [b,1])."""
     rt = ray_tile
     b = o4.shape[0]
     nt = b // rt
     rays = _pack_rays(o4, d4, rt)
     tm = tmax_col.reshape(nt, rt).contiguous()
-    order, cons = _candidate_order(tile_order(rays, tm, sc_box))
+    order, cons = tile_order(rays, tm, sc_box)
     t, i, _ = trace_rol_sc(rays, tm, order, cons, t12, boxes, sc_box, tc,
                            any_hit)
     return t.reshape(b, 1), i.reshape(b, 1)
@@ -952,7 +968,7 @@ def trace_ros(o4, d4, tmax_col, order, cons, tx, ty, tz, boxes,
 
 def _trace(o4, d4, tmax_col, scene_arrays, scene_static, any_hit, ray_tile):
     """Rays-on-sublanes trace of [b, 4] rays in lane order (the reference's
-    ``_trace``, mxu_trace.py:1235-1277): candidate lists (K1 + sort), then
+    ``_trace``, mxu_trace.py:1235-1277): candidate lists (K1), then
     K9. Returns (t [b, 1], i [b, 1])."""
     n_clusters, tc = scene_static
     tx, ty, tz, boxes = scene_arrays

@@ -8,7 +8,8 @@ from group ``g`` land in film block ``g``. Channel-major throughout:
 data ``[C, n]``, film ``[C, G*Pk]``.
 
 On CUDA tensors ``splat`` launches K4 (``csrc/block_splat.cu``), or K7
-(``csrc/block_splat_capped.cu``) when given a per-pixel budget, and
+(``csrc/block_splat_capped.cu``) when given a per-pixel budget — one
+counting sort per group, ``csrc/splat_sort.cuh``, serves both — and
 ``fetch`` launches K8 (``csrc/fetch.cu``). On CPU tensors each runs its
 plain PyTorch version: ``splat_plain``, ``splat_capped_plain`` (the same
 lane-ordered sums and counts, vectorized over groups) and ``fetch_plain``.

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Time the Hopper sweep's kernels — K2 (trace_rol), K5 (trace_rol_sc) and
-K9 (trace_ros) — under other sweep shapes on one GPU.
+K9 (trace_ros) — and K1 (tile_order) under other shapes on one GPU.
 
-Each kernel picks its shape per mode in its source, as
+Each trace kernel picks its shape per mode in its source, as
 ``Config<rays per thread, ray groups per CTA, CTAs per tile>``
 (fluctus_tpu_torch/csrc/trace_rol.cu, trace_rol_sc.cu, trace_ros.cu; the
-sweep is csrc/sweep_hopper.cuh). This script copies csrc/ once per shape
-set, rewrites those lines in the copy, builds every copy with nvcc (in
+sweep is csrc/sweep_hopper.cuh); K1 its ``RAYS_PER_THREAD``
+(csrc/tile_order.cu). This script copies csrc/ once per shape set,
+rewrites those lines in the copy, builds every copy with nvcc (in
 parallel), and times each on the same recorded inputs:
 
 - K2: the closest-hit and any-hit calls of segments 4 and 24 of the
@@ -15,18 +16,30 @@ parallel), and times each on the same recorded inputs:
 - K9: the closest-hit and the any-hit call of bounce 2 of the megastep
   with SORT_RAYS off (luxball, 1920x1080, rays in lane order);
 - K5: the closest-hit and any-hit calls of segments 4 and 12 of the
-  wavefront on the 8x8 luxball grid (1920x1080, 1M paths).
+  wavefront on the 8x8 luxball grid (1920x1080, 1M paths);
+- K1: its first call of segments 4 and 24 of the luxball wavefront, of
+  bounce 2 of the megastep (4,050 tiles) and of segment 4 of the 8x8
+  grid (over its superclusters).
 
-Every copy's t (as bits), columns and visit counts must equal those of the
-committed build; times are device times (CUDA events, median of 5, a spin
-kernel hiding the launch, as chip_smoke.py times kernels). Prints the card
-line, one JSON line per shape set and call, and a summary line.
+Every copy's t (as bits), columns and visit counts (K1: order and skey as
+bits) must equal those of the committed build; times are device times
+(CUDA events, median of 5, a spin kernel hiding the launch, as
+chip_smoke.py times kernels). K1 is also timed with its box tests left
+out and with its ray loads left out (K1_PARTS; those copies compute
+something else and are not compared), and its committed line carries the
+share of its warps that take the octant path. Prints the card line, one
+JSON line per shape set and call, and a summary line.
 
 With ``--baseline DIR`` (another csrc/ directory with the same launchers,
 for example that of an earlier commit) it also builds K2, K5, K7
-(block_splat_capped) and K9 from DIR and times them on the same calls,
-and K7 of both builds on its call of segment 2 of a 16-spp exact render:
-two versions compared within one run on one card.
+(block_splat_capped), K9, K4 (block_splat) and K1 from DIR and times them
+on the same calls: K1 of DIR as the chain that commit ran (its kernel
+writing the bounds, then _candidate_order's stable sort), K4 on its call
+of segment 4 of the luxball wavefront and K7 on its call of segment 2 of
+a 16-spp exact render, each in turns (DIR, committed, committed, DIR).
+It also profiles two luxball segments with each K1 (torch.profiler):
+device operations and device ms per segment. Two versions are so
+compared within one run on one card.
 
 Run from the repository root: ``python3 sweep_shapes.py [--baseline DIR]``.
 """
@@ -39,22 +52,25 @@ import shutil
 import sys
 import tempfile
 
-SOURCES = ("trace_rol.cu", "trace_rol_sc.cu", "trace_ros.cu")
+SOURCES = ("trace_rol.cu", "trace_rol_sc.cu", "trace_ros.cu", "tile_order.cu")
 KERNEL_OF = {"trace_rol": "trace_rol.cu", "trace_rol_sc": "trace_rol_sc.cu",
-             "trace_ros": "trace_ros.cu"}
-# per source (closest-hit, any-hit) shapes; a source left out keeps its
-# committed shapes. The first set is the committed one.
+             "trace_ros": "trace_ros.cu", "tile_order": "tile_order.cu"}
+# per source (closest-hit, any-hit) shapes, K1's rays per thread; a source
+# left out keeps its committed shapes. The first set is the committed one.
 SHAPE_SETS = [
     ("committed", {}),
     ("a", {"trace_rol_sc.cu": ((2, 4, 1), (1, 2, 2)),
            "trace_ros.cu": ((2, 2, 1), (1, 2, 1)),
-           "trace_rol.cu": ((2, 1, 1), (1, 1, 1))}),
+           "trace_rol.cu": ((2, 1, 1), (1, 1, 1)),
+           "tile_order.cu": 1}),
     ("b", {"trace_rol_sc.cu": ((2, 2, 2), (1, 1, 4)),
            "trace_ros.cu": ((1, 2, 1), (2, 1, 1)),
-           "trace_rol.cu": ((2, 4, 2), (1, 2, 2))}),
+           "trace_rol.cu": ((2, 4, 2), (1, 2, 2)),
+           "tile_order.cu": 2}),
     ("c", {"trace_rol_sc.cu": ((2, 1, 4), (2, 4, 2)),
            "trace_ros.cu": ((4, 2, 1), (2, 2, 1)),
-           "trace_rol.cu": ((2, 2, 1), (1, 2, 1))}),
+           "trace_rol.cu": ((2, 2, 1), (1, 2, 1)),
+           "tile_order.cu": 8}),
     ("d", {"trace_rol_sc.cu": ((2, 1, 8), (2, 2, 2)),
            "trace_ros.cu": ((2, 4, 1), (1, 1, 1)),
            "trace_rol.cu": ((2, 4, 1), (1, 1, 4))}),
@@ -65,35 +81,76 @@ SHAPE_SETS = [
 ]
 LINE = {"closest": re.compile(r"using Closest = hs::Config<[^>]*>;"),
         "any_hit": re.compile(r"using AnyHit = hs::Config<[^>]*>;")}
+K1_LINE = re.compile(r"constexpr int RAYS_PER_THREAD = \d+;")
+# K1 with one part left out, to split its time between its ray loads and
+# its box tests (these copies compute another function; their outputs are
+# not compared): (name, [(text, replacement)] in csrc/tile_order.cu)
+_RAY_ROWS = [("o0[k] = T[0 * rt + r];", "o0[k] = 0.001f * r;"),
+             ("o1[k] = T[1 * rt + r];", "o1[k] = 0.002f * r;"),
+             ("o2[k] = T[2 * rt + r];", "o2[k] = -0.001f * r;"),
+             ("i0[k] = safe_inv(T[4 * rt + r]);", "i0[k] = 1.0f + r;"),
+             ("i1[k] = safe_inv(T[5 * rt + r]);", "i1[k] = 2.0f + r;"),
+             ("i2[k] = safe_inv(T[6 * rt + r]);", "i2[k] = 3.0f + r;"),
+             ("tmax[k] = tm[tile * rt + r];", "tmax[k] = 1e30f;")]
+K1_PARTS = [
+    ("k1 without its box tests",
+     [("    for (int c = 0; c < ncl; ++c) {",
+       "    for (int c = 0; c < 0; ++c) {")]),
+    ("k1 without its ray loads (one octant)", _RAY_ROWS),
+]
 
 
 def shaped_copy(csrc, root, name, shapes):
-    """A copy of csrc/ with the Config lines of the sources in ``shapes``
-    ({source: (closest, any_hit)}) rewritten."""
+    """A copy of csrc/ with the shape lines of the sources in ``shapes``
+    ({source: (closest, any_hit)}, or K1's rays per thread) rewritten."""
     d = os.path.join(root, name)
     shutil.copytree(csrc, d)
-    for source, (closest, any_hit) in shapes.items():
+    for source, shape in shapes.items():
         path = os.path.join(d, source)
         with open(path) as f:
             text = f.read()
-        for mode, shape in (("closest", closest), ("any_hit", any_hit)):
-            kind = "Closest" if mode == "closest" else "AnyHit"
-            text, n = LINE[mode].subn(
-                f"using {kind} = hs::Config<{shape[0]}, {shape[1]}, "
-                f"{shape[2]}>;", text)
+        if source == "tile_order.cu":
+            edits = [(K1_LINE, f"constexpr int RAYS_PER_THREAD = {shape};")]
+        else:
+            edits = [(LINE[mode], f"using {kind} = hs::Config<{c[0]}, "
+                      f"{c[1]}, {c[2]}>;")
+                     for mode, kind, c in (("closest", "Closest", shape[0]),
+                                           ("any_hit", "AnyHit", shape[1]))]
+        for pattern, line in edits:
+            text, n = pattern.subn(line, text)
             if n != 1:
-                raise RuntimeError(f"{source}: no {kind} shape line")
+                raise RuntimeError(f"{source}: no line {pattern.pattern}")
         with open(path, "w") as f:
             f.write(text)
     return d
 
 
+def part_copy(csrc, root, name, edits):
+    """A copy of csrc/ with K1_PARTS' ``edits`` made in tile_order.cu."""
+    d = os.path.join(root, re.sub(r"\W+", "_", name))
+    shutil.copytree(csrc, d)
+    path = os.path.join(d, "tile_order.cu")
+    with open(path) as f:
+        text = f.read()
+    for old, new in edits:
+        if text.count(old) < 1:
+            raise RuntimeError(f"tile_order.cu: no line {old!r}")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return d
+
+
 def committed_shapes(csrc):
-    """{source: (closest, any_hit)} as the sources in csrc/ set them."""
+    """{source: (closest, any_hit), or K1's rays per thread} as the
+    sources in csrc/ set them."""
     out = {}
     for source in SOURCES:
         with open(os.path.join(csrc, source)) as f:
             text = f.read()
+        if source == "tile_order.cu":
+            out[source] = int(re.findall(r"\d+", K1_LINE.search(text)[0])[0])
+            continue
         out[source] = tuple(
             tuple(int(x) for x in re.findall(r"\d+",
                                              LINE[mode].search(text)[0]))
@@ -101,8 +158,9 @@ def committed_shapes(csrc):
     return out
 
 
-def record_calls(cs, mt, flags):
-    """The recorded (kernel, what, args) calls, in the order timed."""
+def record_calls(cs, mt, bs, flags):
+    """The recorded (kernel, what, args) calls, in the order timed, and K4's
+    arguments in segment 4 of the luxball wavefront."""
     calls = []
     r = cs.make_renderer(1920, 1080, "cuda")
     saved = flags.FORCE_MK, flags.SORT_RAYS
@@ -116,32 +174,43 @@ def record_calls(cs, mt, flags):
                           args))
         flags.SORT_RAYS = True
         r.reset()
-        with cs.RosRecorder(keep=(4, 5), name="trace_rol") as rec:
+        with cs.RosRecorder(keep=(4, 5), name="trace_rol") as rec, \
+                cs.RosRecorder(keep=(4,), name="tile_order") as rec1:
             r.render_single(1)
         for args in rec.calls.values():
             calls.append(("trace_rol", f"megastep bounce 2, "
                           f"any_hit={bool(args[-1])}", args))
+        calls.append(("tile_order", "megastep bounce 2", rec1.calls[4]))
     finally:
         flags.FORCE_MK, flags.SORT_RAYS = saved
     r.init_wavefront(1 << 20)
     for seg in range(1, 25):
-        with cs.LastCalls(mt, "trace_rol") as last:
+        with cs.LastCalls(mt, "trace_rol") as last, \
+                cs.LastCalls(mt, "tile_order") as k1, \
+                cs.LastCalls(bs, "splat", keep=1) as k4:
             r.render_wavefront(1)
         if seg in (4, 24):
             for args in last.calls:
                 calls.append(("trace_rol", f"segment {seg}, "
                               f"any_hit={bool(args[-1])}", args))
+            calls.append(("tile_order", f"segment {seg}", k1.calls[0]))
+        if seg == 4:
+            k4_args = k4.calls[0]
     del r
     r = cs.make_renderer(1920, 1080, "cuda", cs.LARGE)
     r.init_wavefront(1 << 20)
     for seg in range(1, 13):
-        with cs.LastCalls(mt, "trace_rol_sc") as last:
+        with cs.LastCalls(mt, "trace_rol_sc") as last, \
+                cs.LastCalls(mt, "tile_order") as k1:
             r.render_wavefront(1)
         if seg in (4, 12):
             for args in last.calls:
                 calls.append(("trace_rol_sc", f"segment {seg}, "
                               f"any_hit={bool(args[-1])}", args))
-    return calls
+        if seg == 4:
+            calls.append(("tile_order", "8x8 segment 4, superclusters",
+                          k1.calls[0]))
+    return calls, k4_args
 
 
 def k7_call(cs):
@@ -153,6 +222,50 @@ def k7_call(cs):
         r.render_single(cs.EXACT_SPP)
     local, data, film, g, rem = rec.early[1]
     return local, data, film, g, rem
+
+
+def parent_k1(kb, mt):
+    """K1 as the commit whose csrc/ kb.CSRC names ran it: its kernel
+    writes the entry bounds [nt, ncl_pad], then _candidate_order sorts
+    them (a stable torch.sort, a where, a cast, two copies). Loads the
+    library now."""
+    import ctypes
+    import torch
+    k = kb.Kernel("tile_order_parent", "tile_order.cu", "tile_order_launch",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+    del kb.KERNELS[k.name]                 # not one of the port's kernels
+    k._load()
+
+    def chain(rays, tm, boxes):
+        nt, _, rt = rays.shape
+        ncl = boxes.shape[0]
+        ncl_pad = ncl + (-ncl) % 8
+        cons = torch.empty((nt, ncl_pad), dtype=torch.float32,
+                           device=rays.device)
+        k(kb.ptr(rays), kb.ptr(tm), kb.ptr(boxes), kb.ptr(cons), nt, rt, ncl,
+          ncl_pad)
+        return mt._candidate_order(cons)
+    return chain
+
+
+def profile_wavefront(cs, r, n=2):
+    """Device operations (kernels, copies, fills) and device ms per segment
+    over n luxball segments (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.render_wavefront(n)
+        torch.cuda.synchronize()
+    ops, dev_us = 0, 0.0
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", 0) or 0
+        if dt > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            ops += e.count
+            dev_us += dt
+    return dict(device_ops_per_segment=ops / n,
+                device_ms_per_segment=dev_us / n / 1e3)
 
 
 def main():
@@ -182,12 +295,16 @@ def main():
         sets = [(n, {**base, **s}) for n, s in SHAPE_SETS]
         dirs = {n: shaped_copy(csrc, cs.TMP_ROOT, n, s) for n, s in sets}
         builds = {n: SOURCES for n in dirs}
+        for name, edits in K1_PARTS:
+            dirs[name] = part_copy(csrc, cs.TMP_ROOT, name, edits)
+            builds[name] = ("tile_order.cu",)
         builds["committed"] = tuple(sorted(
             f for f in os.listdir(csrc) if f.endswith(".cu")))
         if baseline:
             dirs["baseline"] = shutil.copytree(
                 baseline, os.path.join(cs.TMP_ROOT, "baseline"))
-            builds["baseline"] = SOURCES + ("block_splat_capped.cu",)
+            builds["baseline"] = SOURCES + ("block_splat_capped.cu",
+                                            "block_splat.cu")
         jobs = []
         for n, d in dirs.items():               # one nvcc per copy, at once
             kb.CSRC = d
@@ -197,15 +314,21 @@ def main():
 
         def use(name):
             kb.CSRC = dirs[name]
-            for k in (mt.K2, mt.K5, mt.K9, bs.K7):
+            for k in (mt.K2, mt.K5, mt.K9, bs.K7, bs.K4):
                 k._fn = None
+            if name != "baseline":
+                mt.K1._fn = None
 
+        if baseline:
+            kb.CSRC = dirs["baseline"]
+            k1_parent = parent_k1(kb, mt)
         use("committed")
-        calls = record_calls(cs, mt, flags)
+        calls, k4_args = record_calls(cs, mt, bs, flags)
         torch.cuda.empty_cache()
         wrappers = {"trace_ros": lambda a: mt.trace_ros(*a),
                     "trace_rol": lambda a: mt.trace_rol(*a),
-                    "trace_rol_sc": lambda a: mt.trace_rol_sc(*a)}
+                    "trace_rol_sc": lambda a: mt.trace_rol_sc(*a),
+                    "tile_order": lambda a: mt.tile_order(*a)}
         refs = [wrappers[k](a) for k, _, a in calls]
         table = {}
         runs = sets + ([("baseline", None)] if baseline else [])
@@ -213,44 +336,92 @@ def main():
             use(name)
             for (kernel, what, args), ref in zip(calls, refs):
                 run = wrappers[kernel]
+                if kernel == "tile_order" and name == "baseline":
+                    run = lambda a: k1_parent(*a)   # noqa: E731
                 got = run(args)
-                diff = cs.trace_diffs(got, ref)
-                ms = cs.time_ms(lambda: run(args), 5)
-                line = dict(set=name, kernel=kernel, call=what, ms=ms,
-                            visits=int(got[2].sum()), differ=diff, card=card)
+                if kernel == "tile_order":
+                    diff = cs.tile_order_diffs(got, ref)
+                    line = dict(set=name, kernel=kernel, call=what)
+                else:
+                    diff = cs.trace_diffs(got, ref)
+                    line = dict(set=name, kernel=kernel, call=what,
+                                visits=int(got[2].sum()))
+                line.update(ms=cs.time_ms(lambda: run(args), 5),
+                            differ=diff, card=card)
+                if kernel == "tile_order" and name == "committed":
+                    line["octant_warps"] = cs.octant_warps(
+                        args[0], base["tile_order.cu"])
                 key = name
                 if shapes is not None:
-                    shape = shapes[KERNEL_OF[kernel]][bool(args[-1])]
-                    line["shape"] = dict(rays_per_thread=shape[0],
-                                         groups_per_cta=shape[1],
-                                         ctas_per_tile=shape[2])
+                    shape = shapes[KERNEL_OF[kernel]]
+                    if kernel == "tile_order":
+                        line["shape"] = dict(rays_per_thread=shape)
+                    else:
+                        shape = shape[bool(args[-1])]
+                        line["shape"] = dict(rays_per_thread=shape[0],
+                                             groups_per_cta=shape[1],
+                                             ctas_per_tile=shape[2])
                     key = str(shape)
                 print(json.dumps(line), flush=True)
                 if any(diff.values()):
                     raise AssertionError(f"{name} differs from the committed "
                                          f"build: {line}")
-                table.setdefault(f"{kernel}: {what}", {})[key] = ms
+                table.setdefault(f"{kernel}: {what}", {})[key] = line["ms"]
+        for name, _ in K1_PARTS:
+            use(name)
+            for kernel, what, args in calls:
+                if kernel == "tile_order":
+                    ms = cs.time_ms(lambda: mt.tile_order(*args), 5)
+                    print(json.dumps(dict(set=name, kernel=kernel, call=what,
+                                          ms=ms, card=card)), flush=True)
+                    table.setdefault(f"{kernel}: {what}, parts", {})[
+                        name] = ms
         if baseline:
-            args = k7_call(cs)
-            for name in ("baseline", "committed", "committed", "baseline"):
-                use(name)
-                out = bs.splat(*args[:4], remaining=args[4])
-                differ = int((out.view(torch.int32) != bs.splat_capped_plain(
-                    *args).view(torch.int32)).sum())
-                ms = cs.time_ms(lambda: bs.splat(*args[:4],
-                                                 remaining=args[4]))
-                line = dict(set=name, kernel="block_splat_capped",
-                            call="exact segment 2", ms=ms, differ=differ,
-                            card=card)
-                print(json.dumps(line), flush=True)
-                if differ:
-                    raise AssertionError(f"K7 of {name} differs from its "
-                                         f"plain version")
-                table.setdefault("block_splat_capped: exact segment 2",
-                                 {}).setdefault(name, []).append(ms)
+            splats = [("block_splat", "luxball segment 4", k4_args, None),
+                      ("block_splat_capped", "exact segment 2",
+                       k7_call(cs), True)]
+            for kernel, what, args, capped in splats:
+                local, data, film, g = args[:4]
+                rem = args[4] if capped else None
+                plain = (bs.splat_plain(local, data, film, g) if rem is None
+                         else bs.splat_capped_plain(local, data, film, g,
+                                                    rem))
+                for name in ("baseline", "committed", "committed",
+                             "baseline"):
+                    use(name)
+                    out = bs.splat(local, data, film, g, remaining=rem)
+                    differ = int((out.view(torch.int32)
+                                  != plain.view(torch.int32)).sum())
+                    ms = cs.time_ms(lambda: bs.splat(local, data, film, g,
+                                                     remaining=rem))
+                    line = dict(set=name, kernel=kernel, call=what, ms=ms,
+                                differ=differ, card=card)
+                    print(json.dumps(line), flush=True)
+                    if differ:
+                        raise AssertionError(f"{kernel} of {name} differs "
+                                             f"from its plain version")
+                    table.setdefault(f"{kernel}: {what}", {}).setdefault(
+                        name, []).append(ms)
+            # device operations per luxball segment with each K1
+            use("committed")
+            r = cs.make_renderer(1920, 1080, "cuda")
+            r.init_wavefront(1 << 20)
+            r.render_wavefront(2)
+            fused = mt.tile_order
+            for name, k1 in (("baseline", k1_parent), ("committed", fused),
+                             ("committed", fused), ("baseline", k1_parent)):
+                mt.tile_order = k1
+                try:
+                    prof = profile_wavefront(cs, r)
+                finally:
+                    mt.tile_order = fused
+                print(json.dumps(dict(set=name, what="luxball wavefront, "
+                                      "per segment", card=card, **prof)),
+                      flush=True)
         use("committed")
         fastest = {k: min(v, key=lambda n: min(v[n]) if isinstance(
-            v[n], list) else v[n]) for k, v in table.items()}
+            v[n], list) else v[n]) for k, v in table.items()
+            if not k.endswith(", parts")}
         print(json.dumps({"fastest": fastest, "ms": table}), flush=True)
         return 0
     finally:

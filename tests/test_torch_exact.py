@@ -111,17 +111,19 @@ def test_k7_splat_capped(body):
     np.testing.assert_allclose(got[:3], ref[:3], rtol=2.0 ** -16, atol=0)
 
 
-K7_THREADS = 256     # block_splat_capped.cu: lanes per pass, one per thread
+SPLAT_THREADS = 256  # splat_sort.cuh: lanes per pass, one per thread
 
 
-def _k7_model(local, data, film, groups, remaining):
-    """block_splat_capped.cu step for step, in numpy: per group (1) the data
-    staged, (2) each pixel's candidates counted, (3) an exclusive scan of
-    the counts, (4) each lane's rank from __match_any_sync within its warp,
-    the per-warp per-pixel counts of the lower warps and the running count
-    of the earlier passes, (5) the stable scatter to offset + rank, (6) per
-    pixel the admitted prefix — ranks r < count with f32(r) < remaining —
-    summed in f32 from 0.0 in slot order, added to the film."""
+def _splat_sort_model(local, data, film, groups, remaining=None):
+    """csrc/splat_sort.cuh (K4, or K7 when ``remaining`` is given) step
+    for step, in numpy: per group (1) the data staged, (2) each pixel's
+    candidates counted, (3) an exclusive scan of the counts, (4) each
+    lane's rank from __match_any_sync within its warp, the per-warp
+    per-pixel counts of the lower warps and the running count of the
+    earlier passes, (5) the stable scatter to offset + rank, (6) per pixel
+    its candidates — all of them, or K7's admitted prefix, ranks r < count
+    with f32(r) < remaining — summed in f32 from 0.0 in slot order, added
+    to the film."""
     c, n = data.shape
     s = n // groups
     pk = film.shape[1] // groups
@@ -135,16 +137,16 @@ def _k7_model(local, data, film, groups, remaining):
         off = np.cumsum(off)                                     # (3)
         run = np.zeros(pk, np.int64)
         slots = np.full(s, -1, np.int64)
-        for l0 in range(0, s, K7_THREADS):
-            lanes = l0 + np.arange(K7_THREADS)
-            key = np.full(K7_THREADS, -1, np.int64)
+        for l0 in range(0, s, SPLAT_THREADS):
+            lanes = l0 + np.arange(SPLAT_THREADS)
+            key = np.full(SPLAT_THREADS, -1, np.int64)
             live = lanes < s
             key[live] = np.where(cand[lanes[live]], loc[lanes[live]], -1)
-            tbl = np.zeros((K7_THREADS // 32, pk), np.int64)
-            rank = np.zeros(K7_THREADS, np.int64)
-            first = np.zeros(K7_THREADS, bool)
-            width = np.zeros(K7_THREADS, np.int64)
-            for t in range(K7_THREADS):                          # (4)
+            tbl = np.zeros((SPLAT_THREADS // 32, pk), np.int64)
+            rank = np.zeros(SPLAT_THREADS, np.int64)
+            first = np.zeros(SPLAT_THREADS, bool)
+            width = np.zeros(SPLAT_THREADS, np.int64)
+            for t in range(SPLAT_THREADS):                       # (4)
                 w, ln = divmod(t, 32)
                 warp = key[w * 32:(w + 1) * 32]
                 same = warp == key[t]                            # match_any
@@ -161,10 +163,12 @@ def _k7_model(local, data, film, groups, remaining):
                 run[key[t]] += width[t]
         for p in range(pk):                                      # (6)
             o, cnt = off[p], off[p + 1] - off[p]
-            rem = np.float32(remaining[0, g * pk + p])
-            k = 0
-            while k < cnt and np.float32(k) < rem:
-                k += 1
+            k = cnt
+            if remaining is not None:
+                rem = np.float32(remaining[0, g * pk + p])
+                k = 0
+                while k < cnt and np.float32(k) < rem:
+                    k += 1
             acc = np.zeros(c, np.float32)
             for r in range(k):
                 acc = acc + dat[:, slots[o + r]]
@@ -176,8 +180,8 @@ def _k7_groups(layout, budget, seed=11):
     """Groups of 256 lanes (one pass) or 640 (three passes, the last
     partial), Pk = 512, from a numpy seed: every lane on one pixel, every
     lane on its own pixel, a third of the lanes with local = -1 and the
-    rest on a few pixels, or random pixels; data normal with some -0.0,
-    the budget on every pixel (NaN included)."""
+    rest on a few pixels, every lane empty, or random pixels; data normal
+    with some -0.0, the budget on every pixel (NaN included)."""
     rng = np.random.default_rng(seed)
     g, pk, c = 3, 512, 4
     s = 640 if layout == "random_3_passes" else 256
@@ -188,6 +192,8 @@ def _k7_groups(layout, budget, seed=11):
     elif layout == "empty_lanes":
         local = rng.integers(0, 5, (g, s))
         local[rng.random((g, s)) < 1 / 3] = -1
+    elif layout == "all_empty":
+        local = np.full((g, s), -1)
     else:
         local = rng.integers(0, 40, (g, s))
         local[rng.random((g, s)) < 0.1] = -1
@@ -210,13 +216,27 @@ def test_k7_counting_sort_matches_plain(layout, budget):
                                  torch.from_numpy(data),
                                  torch.from_numpy(film), g,
                                  torch.from_numpy(rem)).numpy()
-    got = _k7_model(local, data, film, g, rem)
+    got = _splat_sort_model(local, data, film, g, rem)
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
     admitted = (got != film).any(axis=0).sum()
     if budget >= 1.0:
         assert admitted > 0
     elif not budget > 0.0:
         assert admitted == 0
+
+
+@pytest.mark.parametrize("layout", ["one_pixel", "own_pixel", "empty_lanes",
+                                    "random_3_passes", "all_empty"])
+def test_k4_counting_sort_matches_plain(layout):
+    """The redesigned K4 (the counting sort K7 shares, every candidate
+    admitted), modelled step for step, equals splat_plain bit for bit."""
+    g, local, data, film, _ = _k7_groups(layout, 0.0)
+    ref = tbs.splat_plain(torch.from_numpy(local), torch.from_numpy(data),
+                          torch.from_numpy(film), g).numpy()
+    got = _splat_sort_model(local, data, film, g)
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    changed = (got != film).any(axis=0).sum()
+    assert (changed == 0) == (layout == "all_empty")
 
 
 def test_k8_fetch():
