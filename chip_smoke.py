@@ -94,7 +94,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    spp equal. 8d: the 8x8 grid loaded cold, then warm from its BVH and
    table caches: host seconds, cache hits, device tables and the films
    of 4 segments equal, the cache files' sizes.
-9. the kernels line, the card line, then the final result line.
+9. the env map, on luxball at 1080p with 1M paths (phase 3's view and
+   light). 9a: gallery/teapot_wavefront.hdr (512x512, the single-read
+   "fast" route the card takes): K1-K4 held to their plain versions on
+   the recorded calls of segments 2 and 4 (phase 2's helpers), then
+   ENV_SEGMENTS timed segments as phase 3 (its image brighter than phase
+   3's), one profiled, and the env lookups' device time per segment. 9c:
+   render_single(ENV_SPP) with that map: K7 and K8 held bit for bit on
+   its recorded calls and timed (K8 with its bound, the 32-byte sectors
+   it touches and torch.take), then a timed render with spp = weight =
+   ENV_SPP on every pixel. 9e: one megastep sample (FORCE_MK), an env and
+   an area shadow trace per bounce. 9b: a seeded 2048x1024 sky from
+   EnvironmentMap.from_array (past 2^18 texels: the bilinear + alias
+   route), ENV_ALIAS_SEGMENTS timed segments, profiled as 9a. 9d: phase
+   4's parity with the env map, fast and alias routes and the env map
+   alone (no area light).
+10. the kernels line, the card line, then the final result line.
 
 Every renderer loads with a fresh temporary ``data_dir`` (removed at the
 end), so phases 2-6 load cold as before (now writing the caches) and
@@ -145,11 +160,18 @@ PER_SEGMENT_K10 = {**PER_SEGMENT, "resolve_v5": 0, "resolve_v1": 1}
 PER_SEGMENT_EXACT_K10 = {**PER_SEGMENT_EXACT, "resolve_v5": 0,
                          "resolve_v1": 1}
 K10_SPP = 4
+ENV_FILE = "gallery/teapot_wavefront.hdr"   # 512x512: the fast route
+ENV_SEGMENTS = 24
+ENV_ALIAS_SEGMENTS = 12
+SKY_SIZE = (2048, 1024)    # 2,097,152 texels, past 2^18: the alias route
+ENV_SPP = 16
 BIAS_GATE = 0.01           # the 1% tonemapped-mean bias gate (ROADMAP)
 # per bounce of a sample: one extension and one shadow trace, one resolve
 PER_BOUNCE_MK = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
                  "block_splat": 0, **_ZERO}
 PER_BOUNCE_ROS = {**PER_BOUNCE_MK, "trace_rol": 0, "trace_ros": 2}
+# with the env map and the area light, NEE traces a shadow ray to each
+PER_BOUNCE_MK_ENV = {**PER_BOUNCE_MK, "tile_order": 3, "trace_rol": 3}
 SOURCES = {"tile_order": "fluctus_tpu_torch/csrc/tile_order.cu",
            "trace_rol": "fluctus_tpu_torch/csrc/trace_rol.cu",
            "resolve_v5": "fluctus_tpu_torch/csrc/resolve_v5.cu",
@@ -193,12 +215,14 @@ def fresh_dir():
     return tempfile.mkdtemp(dir=TMP_ROOT)
 
 
-def make_renderer(width, height, device, scene=LUXBALL, data_dir=None):
+def make_renderer(width, height, device, scene=LUXBALL, data_dir=None,
+                  env_map=None, area_light=True):
     """A main path's renderer: luxball with the camera of
     tools/make_goldens.py and an area light above the ball, or the 8x8
     grid seen from above its near edge with a 12x12 light over its
-    centre. Its caches live in ``data_dir``, a fresh (cold) one unless
-    given."""
+    centre; with the env map file ``env_map`` when given, and without
+    the area light when ``area_light`` is False. Its caches live in
+    ``data_dir``, a fresh (cold) one unless given."""
     from fluctus_tpu_torch.renderer import Renderer
     from fluctus_tpu_torch.settings import Settings
     pos, dir_, lpos, lsize = VIEWS[scene]
@@ -207,9 +231,10 @@ def make_renderer(width, height, device, scene=LUXBALL, data_dir=None):
     a = s.area_light
     a.pos, a.N, a.right, a.up = lpos, (0, -1, 0), (1, 0, 0), (0, 0, 1)
     a.E, a.size = (50.0, 50.0, 50.0), lsize
+    s.use_area_light = area_light
     r = Renderer(width, height, settings=s, device=device,
                  data_dir=data_dir or fresh_dir())
-    r.load_scene(scene)
+    r.load_scene(scene, env_map=env_map)
     return r
 
 
@@ -704,8 +729,10 @@ def check_resolve(name, kernel, plain, rec_calls):
               f"winners, table {b16r.shape[0]} rows"), args
 
 
-def phase_kernels(r, rec_calls):
-    """Phase 2: every recorded kernel call vs its plain version."""
+def check_luxball_kernels(rec_calls, what):
+    """K1-K4 vs their plain versions on the recorded calls of segments 2
+    and 4 of a luxball path (``what`` names it): K1-K3 checked and timed
+    by their helpers, K4 on all four channels bit for bit."""
     import torch
     from fluctus_tpu_torch.accel import mxu_trace as mt
     from fluctus_tpu_torch.core import block_splat as bs
@@ -714,15 +741,21 @@ def phase_kernels(r, rec_calls):
                                       mt.trace_rol_plain, rec_calls, 256)
     res["resolve_v5"], _ = check_resolve("resolve_v5", mt.resolve_v5,
                                          mt.resolve_v5_plain, rec_calls)
-
-    # K4: splat, all four channels bit for bit
     for seg in (2, 4):
         for args, kw in rec_calls[(seg, "splat")]:
             got = bs.splat(*args, **kw)
             ref = bs.splat_plain(*args, **kw)
             if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
                 raise AssertionError(f"K4 differs from its plain version "
-                                     f"(segment {seg})")
+                                     f"({what}, segment {seg})")
+    return res
+
+
+def phase_kernels(r, rec_calls):
+    """Phase 2: every recorded kernel call vs its plain version."""
+    import torch
+    from fluctus_tpu_torch.core import block_splat as bs
+    res = check_luxball_kernels(rec_calls, "luxball")
     (local, data, film), kw = rec_calls[(4, "splat")][0]
     g = kw["groups"]
     c, n = data.shape
@@ -1034,18 +1067,23 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
 
 
 def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
-                 device="cuda", data_dir=None, exact=False):
-    """Phase 4 / 4b / 8c: 4 segments through the kernels and through the
-    plain versions on the card, from the same reset (both loads from
-    ``data_dir`` when given, else each from a fresh one). With ``exact``
-    the films and per-pixel spp must be equal. Returns the printed
-    object."""
+                 device="cuda", data_dir=None, exact=False, env_map=None,
+                 area_light=True, fast_env=True):
+    """Phase 4 / 4b / 8c / 9d: 4 segments through the kernels and through
+    the plain versions on the card, from the same reset (both loads from
+    ``data_dir`` when given, else each from a fresh one), with the env map
+    file ``env_map`` on its fast route or (``fast_env`` False) its
+    bilinear + alias route, and the area light unless ``area_light`` is
+    False. With ``exact`` the films and per-pixel spp must be equal.
+    Returns the printed object."""
     import torch
     runs = []
     for use_plain in (False, True):
         undo = plain_versions() if use_plain else (lambda: None)
         try:
-            r = make_renderer(width, height, device, scene, data_dir)
+            r = make_renderer(width, height, device, scene, data_dir,
+                              env_map, area_light)
+            r.config = r.config.replace(fast_env=fast_env)
             r.init_wavefront(paths)
             r.render_wavefront(4)
             runs.append((r._wf_state, r.wavefront_stats()))
@@ -1054,6 +1092,8 @@ def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
     (a, sa), (b, sb) = runs
     out = dict(phase="parity", scene=scene, width=width, height=height,
                paths=paths, b16_tables=r.device_scene.mxu.b16r is not None,
+               env_map=env_map, use_env_map=r.config.use_env_map,
+               fast_env=fast_env, use_area_light=r.config.use_area_light,
                segments=4, counters_kernel=list(sa), counters_plain=list(sb))
     for name in ("pixel_index", "seed", "path_len"):
         frac = float((getattr(a.pool, name) == getattr(b.pool, name))
@@ -1196,12 +1236,20 @@ def check_exact_kernels(rec):
         + flocal.long()
     nread = int(torch.unique(fpid).numel())
     b8 = bound(n, nbytes(flocal) + n * 4 + nread * 4)
+    # beside the bound: the 32-byte sectors the reads and writes touch
+    ok = (flocal >= 0) & (flocal < pk)
+    table_sectors = int(torch.unique(fpid[ok] * 4 // 32).numel())
+    lane_sectors = 2 * -(-n * 4 // 32)          # local read, out written
+    sector_bytes = 32 * (table_sectors + lane_sectors)
     k8 = dict(max_abs_err=0.0,
               **kernel_ms(lambda: bs.fetch(flocal, table, groups=fg)),
               plain_ms=time_ms(lambda: bs.fetch_plain(flocal, table, fg)),
               bound_ms=b8[0], bound_by=b8[1],
               library_ms=time_ms(lambda: torch.take(table, fpid)),
               library_call="torch.take of the table at the lanes' pixels",
+              sectors=dict(table=table_sectors, lanes=lane_sectors,
+                           bytes=sector_bytes,
+                           ms_at_peak=sector_bytes / PEAK_BYTES * 1e3),
               shape=f"{n} lanes, {nread} distinct pixels read")
     return k7, k8
 
@@ -1808,6 +1856,195 @@ def phase_caches(card):
                              f"films equal {film_equal})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the env map on the luxball paths
+# ---------------------------------------------------------------------------
+
+def sky_map(width, height, seed):
+    """A seeded sky of width x height texels: a gradient from a bright
+    horizon to a blue zenith, a dark ground below the horizon, 5% texel
+    noise from ``seed``, and a sun disc of 2,000 (a few texels across)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    v = (np.arange(height, dtype=np.float32) + 0.5) / height  # 0 = zenith
+    up = np.clip((0.5 - v) * 2.0, 0.0, 1.0)[:, None]
+    sky = (np.array([1.0, 0.95, 0.9], np.float32) * (1.0 - up)
+           + np.array([0.15, 0.3, 0.9], np.float32) * up)
+    ground = np.array([0.2, 0.15, 0.1], np.float32)
+    img = np.where((v < 0.5)[:, None, None], sky[:, None, :],
+                   ground[None, None, :]) * np.ones((1, width, 1),
+                                                    np.float32)
+    img *= 1.0 + 0.05 * rng.standard_normal((height, width, 1))
+    yy, xx = np.ogrid[0:height, 0:width]
+    cy, cx, rad = int(0.3 * height), int(0.6 * width), max(2, width // 512)
+    img[(yy - cy) ** 2 + (xx - cx) ** 2 <= rad * rad] = 2000.0
+    return img.astype(np.float32)
+
+
+def set_env_array(r, img, name):
+    """Give a loaded renderer an env map made with EnvironmentMap.from_array
+    (Scene.set_env_map, its tables on the card, rebuild_config)."""
+    from fluctus_tpu_torch.envmap import EnvironmentMap
+    env = EnvironmentMap.from_array(img, name=name)
+    r.scene.set_env_map(env)
+    r.device_scene = r.device_scene._replace(env=env.device_tables(r.device))
+    r.settings.use_env_map = True
+    r.rebuild_config()
+
+
+def env_route(r):
+    env = r.device_scene.env
+    return dict(env_map=r.scene.envmap.name, texels=env.width * env.height,
+                use_env_map=r.config.use_env_map, fast_env=r.config.fast_env,
+                single_read=env.prob_alias is not None,
+                use_area_light=r.config.use_area_light)
+
+
+def env_lookup_ms(r, reps=4):
+    """Device ms and device operations of one segment's env lookups on the
+    current pool: the implicit hit's radiance and pdf along every lane's
+    direction and the NEE sample of every lane, summed over the device
+    events torch.profiler sees (an elementwise chain this short is host
+    bound, so CUDA events around it would time the host's launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fluctus_tpu_torch.envmap import env_radiance_and_pdf, env_sample
+    env, fast = r.device_scene.env, r.config.fast_env
+    d = r._wf_state.pool.dir
+    g = torch.Generator(device=r.device).manual_seed(9)
+    u = torch.rand(d.x.shape[0], generator=g, device=r.device)
+
+    def lookups():
+        env_radiance_and_pdf(env, d, fast)
+        env_sample(env, u, fast)
+    lookups()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            lookups()
+        torch.cuda.synchronize()
+    dev_us, ops = 0.0, 0
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", 0) or 0
+        if dt > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += dt
+            ops += e.count
+    return dev_us / reps / 1e3, ops / reps
+
+
+def env_path(r, card, segments, what):
+    """A timed env-lit wavefront run (phase 3's), its profile and the env
+    lookups' device time. Returns the main_path line."""
+    _, main = phase_main(r, card, LUXBALL, segments, PER_SEGMENT,
+                         extra=dict(env_route(r), cell=what))
+    prof = profile_segments(r, card, main["ms_per_segment"])
+    look, ops = env_lookup_ms(r)
+    emit(dict(phase="env_lookup", cell=what, card=card,
+              device_ms_per_segment=look, device_ops_per_segment=ops,
+              share_of_device_ms=look / prof["device_ms_per_segment"]))
+    return main
+
+
+def phase_env(card, plain_main):
+    """Phases 9a-9e: luxball at 1080p with 1M paths, depth 10, with the
+    env map (see the module docstring). ``plain_main`` is phase 3's line:
+    the env map must brighten the image."""
+    import torch
+    from fluctus_tpu_torch import flags
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    r = make_renderer(1920, 1080, "cuda", env_map=ENV_FILE)
+    route = env_route(r)
+    if not (route["use_env_map"] and route["fast_env"]
+            and route["single_read"]):
+        raise AssertionError(f"9a: not the env map's fast route: {route}")
+
+    # 9a: env-lit wavefront, fast route
+    kres = check_luxball_kernels(record_segments(r), "env map")
+    emit(dict(phase="env_kernels_vs_plain", card=card, **route, **kres))
+    main = env_path(r, card, ENV_SEGMENTS, "9a fast route")
+    if not main["image_mean"] > plain_main["image_mean"]:
+        raise AssertionError("9a: the env map does not light the image")
+
+    # 9c: exact spp with the env map (K7, the redesigned K8)
+    r.reset()
+    with ExactRecorder() as rec:
+        r.render_single(ENV_SPP)
+    k7, k8 = check_exact_kernels(rec)
+    emit(dict(phase="env_exact_kernels_vs_plain", card=card, **route,
+              early_segment=rec.early[0], tail_segment=rec.tail[0],
+              segments=rec.seg, block_splat_capped=k7, fetch=k8))
+    r.reset()
+    torch.cuda.synchronize()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    film = r.render_single(ENV_SPP)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches, plain = counts()
+    segments = len(r._wf_counters)
+    spp = unpad_pixels(r._wf_state.spp, r.config)
+    exact = bool((spp == ENV_SPP).all() and (film.weight == ENV_SPP).all())
+    finite = bool(all(torch.isfinite(c).all() for c in film.color))
+    emit(dict(phase="env_exact_path", card=card, **route, spp=ENV_SPP,
+              seconds=elapsed, segments=segments,
+              mrays_per_s=r.perf_mrays(elapsed)["total"],
+              samples_per_s=r.stats.samples / elapsed,
+              rays=r.stats._asdict(), launches=launches, plain_runs=plain,
+              spp_and_weight_exact=exact, film_finite=finite,
+              image_mean=float(r.hdr_image().mean())))
+    check_launches(launches, plain, PER_SEGMENT_EXACT, segments,
+                   "env exact path")
+    if not (exact and finite):
+        raise AssertionError(f"9c: spp/weight exact {exact}, finite "
+                             f"{finite}")
+
+    # 9e: the megastep with the env map, 1 spp
+    depth = r.config.max_bounces
+    saved = flags.FORCE_MK
+    flags.FORCE_MK = True
+    try:
+        r.reset()
+        torch.cuda.synchronize()
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        film = r.render_single(1)
+        elapsed = time.perf_counter() - t0
+    finally:
+        flags.FORCE_MK = saved
+    launches, plain = counts()
+    ok = bool((film.weight == 1).all()
+              and all(torch.isfinite(c).all() for c in film.color))
+    emit(dict(phase="env_mk_path", card=card, **route, spp=1, depth=depth,
+              seconds_per_sample=elapsed,
+              mrays_per_s=r.perf_mrays(elapsed)["total"],
+              rays=r.stats._asdict(), launches=launches, plain_runs=plain,
+              weight_exact_and_finite=ok,
+              image_mean=float(r.hdr_image().mean())))
+    check_launches(launches, plain, PER_BOUNCE_MK_ENV, depth + 1,
+                   "env mk path")
+    if not ok:
+        raise AssertionError("9e: weight or film wrong")
+
+    # 9b: the alias route, a seeded 2048x1024 sky from from_array
+    t0 = time.perf_counter()
+    set_env_array(r, sky_map(*SKY_SIZE, seed=10), "sky 2048x1024")
+    build_s = time.perf_counter() - t0
+    route = env_route(r)
+    if route["single_read"] or not route["use_env_map"]:
+        raise AssertionError(f"9b: not the alias route: {route}")
+    env_path(r, card, ENV_ALIAS_SEGMENTS, f"9b alias route (tables built "
+             f"in {build_s:.3f} s)")
+    del r
+    torch.cuda.empty_cache()
+
+    # 9d: whole-path parity with the env map, kernels vs plain versions
+    for fast, area in ((True, True), (False, True), (True, False)):
+        phase_parity(LUXBALL, env_map=ENV_FILE, area_light=area,
+                     fast_env=fast)
+
+
 def sweep_build_info(kb):
     """Per instantiation of K2, K5 and K9 (closest-hit, any-hit): registers,
     spill bytes and shared memory from ptxas (-Xptxas -v), and for a
@@ -1870,7 +2107,7 @@ def main():
 
 
 def run(kb):
-    """Phases 1-9 (see the module docstring)."""
+    """Phases 1-10 (see the module docstring)."""
     import torch
 
     # phase 1: device and build
@@ -1966,7 +2203,10 @@ def run(kb):
     kres["resolve_v1"], launches_k10 = phase_k10(card, main)
     phase_caches(card)
 
-    # phase 9: result lines
+    # phase 9: the env map (9a-9e)
+    phase_env(card, main)
+
+    # phase 10: result lines
     main_launches = {k: launches[k] + launches_l[k] for k in SOURCES}
     main_launches.update(block_splat_capped=launches_x["block_splat_capped"],
                          fetch=launches_x["fetch"],

@@ -6,14 +6,15 @@ use.
 
 One ``render_sample`` call renders exactly one sample for every pixel:
 camera rays, then ``max_bounces + 1`` bounces of a Python loop, each
-fusing nextVertex (trace + implicit light with MIS, mk_next_vertex.cl:
-72-117) and sampleBsdf (NEE toward the area light, BSDF continuation,
+fusing nextVertex (trace + implicit env and area-light hits with MIS,
+mk_next_vertex.cl:72-117) and sampleBsdf (NEE toward the env map and
+toward the area light, each with its own shadow ray; BSDF continuation,
 mk_sample_bsdf.cl:68-187). The per-pixel phase machine becomes an
 ``alive`` mask; every lane is traced every bounce. Ported for the
-configurations the port has: the area light with implicit and explicit
-sampling, no env map, no denoiser, no Russian roulette (render_single
-forces it off). MIS weights, offsets (1e-3 shadow origin, 1e-4
-continuation origin) and the lightPickProb = 1 convention are the
+configurations the port has: the env map and the area light each on or
+off, implicit and explicit sampling, no denoiser, no Russian roulette
+(render_single forces it off). MIS weights, offsets (1e-3 shadow origin,
+1e-4 continuation origin) and the lightPickProb = 1 convention are the
 reference's.
 """
 
@@ -25,7 +26,9 @@ import torch
 
 from .. import bxdf_types as bx
 from ..bsdf import apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample
+from ..envmap import env_radiance_and_pdf, env_sample
 from ..geom import RenderConfig, RenderParams
+from ..rng import rand
 from ..sampling import pdf_area_to_solid_angle, sample_area_light
 from ..vec import Vec3, dot, is_zero, length, where as vwhere
 from .camera import generate_camera_rays
@@ -63,25 +66,38 @@ class RenderStats(NamedTuple):
 
 def _bounce(scene, params: RenderParams, cfg: RenderConfig, b: int, s: dict):
     """One bounce of every lane (integrator_mk.py:114-283)."""
-    light = params.area_light
+    use_env = cfg.use_env_map and scene.env is not None
+    light = params.area_light if cfg.use_area_light else None
     path_len = b + 1      # nextVertex increments before the implicit logic
     alive, seed, T, Ei = s["alive"], s["seed"], s["T"], s["Ei"]
     orig, d = s["orig"], s["dir"]
+    use_mis = (path_len > 1) & ~s["last_specular"]
 
     hit, sp = trace_extension(orig, d, scene, light, True, want_shading=True)
     ext_count = s["ext_count"] + alive.sum()
-    alive = alive & ~(hit.i < 0)
+
+    # ---- implicit environment hit (mk_next_vertex.cl:72-95) --------------
+    miss = alive & (hit.i < 0)
+    if use_env:
+        bg_raw, direct_pdf = env_radiance_and_pdf(scene.env, d, cfg.fast_env)
+        bg = bg_raw * params.env_map_strength
+        w_mis = s["last_pdf_w"] / torch.clamp_min(
+            s["last_pdf_w"] + direct_pdf, 1e-30)
+        w = torch.where(use_mis, w_mis, 1.0)
+        Ei = vwhere(miss, Ei + T * bg * w, Ei)
+    alive = alive & ~miss
 
     # ---- implicit area light hit (mk_next_vertex.cl:96-117) --------------
-    al_hit = alive & (hit.area_light_hit > 0)
-    pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
-    dist = length(hit.P - orig)
-    pdf_w = pdf_area_to_solid_angle(pdf_a, dist, -dot(d, hit.N))
-    w_mis = s["last_pdf_w"] / torch.clamp_min(s["last_pdf_w"] + pdf_w, 1e-30)
-    use_mis = (path_len > 1) & ~s["last_specular"]
-    mis_w = torch.where(use_mis, w_mis, 1.0)
-    Ei = vwhere(al_hit, Ei + T * light.E * mis_w, Ei)
-    alive = alive & ~al_hit
+    if light is not None:
+        al_hit = alive & (hit.area_light_hit > 0)
+        pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
+        dist = length(hit.P - orig)
+        pdf_w = pdf_area_to_solid_angle(pdf_a, dist, -dot(d, hit.N))
+        w_mis = s["last_pdf_w"] / torch.clamp_min(s["last_pdf_w"] + pdf_w,
+                                                  1e-30)
+        mis_w = torch.where(use_mis, w_mis, 1.0)
+        Ei = vwhere(al_hit, Ei + T * light.E * mis_w, Ei)
+        alive = alive & ~al_hit
 
     # ---- surface shading (mk_sample_bsdf.cl) -----------------------------
     sp = apply_textures(sp, hit.uv_u, hit.uv_v)
@@ -97,24 +113,47 @@ def _bounce(scene, params: RenderParams, cfg: RenderConfig, b: int, s: dict):
     alive = alive & ~em
     singular = (sp.type & bx.BXDF_SINGULAR_MASK) != 0
 
-    # ---- NEE toward the area light, lightPickProb = 1 --------------------
+    # ---- NEE, lightPickProb = 1: toward the env map (a shadow ray of
+    # 2 world radii that the area light's body also blocks), then toward
+    # the area light (mk_sample_bsdf.cl:68-147)
     do_nee = alive & ~singular
-    pdf_a, pos_l, seed = sample_area_light(light, seed)
-    L = pos_l - nee_orig
-    len_l = length(L)
-    L = L * (1.0 / torch.clamp_min(len_l, 1e-30))
-    occluded = trace_shadow(nee_orig, L, len_l, scene, None, False)
-    shadow_count = s["shadow_count"] + do_nee.sum()
-    cos_light = torch.clamp_min(dot(light.N, -L), 0.0)
-    brdf = bxdf_eval(nrm, sp, backface, d, L, cfg.material_types)
-    cos_th = torch.clamp_min(dot(L, nrm), 0.0)
-    direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l, cos_light)
-    bsdf_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, d, L,
-                                        cfg.material_types), 0.0)
-    denom = direct_pdf + bsdf_pdf
-    contrib = brdf * T * light.E * (cos_th / torch.clamp_min(denom, 1e-30))
-    ok = do_nee & ~occluded & (cos_light > 0.0)
-    Ei = vwhere(ok, Ei + contrib, Ei)
+    shadow_count = s["shadow_count"]
+    if use_env:
+        u_env, seed = rand(seed)
+        L, direct_pdf, env_raw = env_sample(scene.env, u_env, cfg.fast_env)
+        len_l = params.world_radius + params.world_radius
+        occluded = trace_shadow(nee_orig, L, torch.ones_like(u_env) * len_l,
+                                scene, light, True)
+        shadow_count = shadow_count + do_nee.sum()
+        brdf = bxdf_eval(nrm, sp, backface, d, L, cfg.material_types)
+        cos_th = torch.clamp_min(dot(L, nrm), 0.0)
+        bsdf_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, d, L,
+                                            cfg.material_types), 0.0)
+        env_li = env_raw * params.env_map_strength
+        denom = direct_pdf + bsdf_pdf
+        contrib = brdf * T * env_li * (cos_th / torch.clamp_min(denom,
+                                                                1e-30))
+        ok = do_nee & ~occluded & (direct_pdf != 0.0)
+        Ei = vwhere(ok, Ei + contrib, Ei)
+
+    if light is not None:
+        pdf_a, pos_l, seed = sample_area_light(light, seed)
+        L = pos_l - nee_orig
+        len_l = length(L)
+        L = L * (1.0 / torch.clamp_min(len_l, 1e-30))
+        occluded = trace_shadow(nee_orig, L, len_l, scene, None, False)
+        shadow_count = shadow_count + do_nee.sum()
+        cos_light = torch.clamp_min(dot(light.N, -L), 0.0)
+        brdf = bxdf_eval(nrm, sp, backface, d, L, cfg.material_types)
+        cos_th = torch.clamp_min(dot(L, nrm), 0.0)
+        direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l, cos_light)
+        bsdf_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, d, L,
+                                            cfg.material_types), 0.0)
+        denom = direct_pdf + bsdf_pdf
+        contrib = brdf * T * light.E * (cos_th / torch.clamp_min(denom,
+                                                                 1e-30))
+        ok = do_nee & ~occluded & (cos_light > 0.0)
+        Ei = vwhere(ok, Ei + contrib, Ei)
 
     # ---- continuation (mk_sample_bsdf.cl:159-187) ------------------------
     d_new, pdf_w, f, seed = bxdf_sample(nrm, sp, backface, d, seed,

@@ -1,7 +1,8 @@
 """Wavefront (throughput) integrator — the port of the reference package's
-core/integrator_wf.py in its default configuration: the block-bound pool,
-the area light with MIS between implicit hits and NEE, no Russian
-roulette, no env map, no denoiser. With ``config.max_spp == 0`` the splat
+core/integrator_wf.py with the block-bound pool, the area light and the
+env map (each on or off; MIS between implicit hits and NEE, NEE picking
+either light with probability 1/2 when both are on), no Russian
+roulette, no denoiser. With ``config.max_spp == 0`` the splat
 runs free (K4); with ``max_spp > 0`` the exact spp cap (CHECK_SPP) is on:
 each segment reads the per-pixel spp of every path's pixel (K8), ends the
 paths of full pixels unsplatted, and splats through the capped kernel
@@ -31,6 +32,7 @@ import torch
 from .. import bxdf_types as bx
 from .. import flags
 from ..bsdf import apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample
+from ..envmap import env_radiance_and_pdf, env_sample
 from ..geom import RenderConfig, RenderParams
 from ..rng import burtle_hash, rand
 from ..sampling import pdf_area_to_solid_angle, sample_area_light
@@ -216,24 +218,25 @@ def wf_trace_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
     lanes get tmax = 0. Returns (raw=(t, col), occluded); raw is None when
     the tables can resolve nothing (the reference's has_raw test,
     integrator_wf.py:294-296)."""
+    light = params.area_light if config.use_area_light else None
     shadow_tmax = torch.where(pool.shadow_pending, pool.shadow_len, 0.0)
     has_raw = has_resolve_tables(scene)
     if has_raw and flags.SORT_RAYS:
         return trace_pair(pool.orig, pool.dir, pool.shadow_orig,
-                          pool.shadow_dir, shadow_tmax, scene,
-                          params.area_light)
+                          pool.shadow_dir, shadow_tmax, scene, light)
     raw = trace_extension_raw(pool.orig, pool.dir, scene) if has_raw \
         else None
     occluded = trace_shadow(pool.shadow_orig, pool.shadow_dir, shadow_tmax,
-                            scene, params.area_light, True)
+                            scene, light, True)
     return raw, occluded
 
 
 def wf_resolve_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
                      config: RenderConfig, raw):
     """Winner-attribute resolve + hit construction. Returns (hit, sp)."""
-    return trace_extension(pool.orig, pool.dir, scene, params.area_light,
-                           True, want_shading=True, raw=raw)
+    light = params.area_light if config.use_area_light else None
+    return trace_extension(pool.orig, pool.dir, scene, light, True,
+                           want_shading=True, raw=raw)
 
 
 def wf_shade_phase(scene: DeviceScene, params: RenderParams, state: WfState,
@@ -252,7 +255,8 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     pool = state.pool
     n = pool.seed.shape[0]
     dev = pool.seed.device
-    light = params.area_light
+    use_env = cfg.use_env_map and scene.env is not None
+    light = params.area_light if cfg.use_area_light else None
     num_pixels = state.film.weight.shape[0]
     p_true, pk_ = _block_geom(cfg)
     g_local = num_pixels // pk_
@@ -285,19 +289,31 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         terminate |= max_samples_reached
 
     terminate |= is_zero(T) | (pool.last_pdf_w == 0.0)
+    use_mis = (plen > 1) & ~pool.last_specular
+
+    # ---- implicit environment hit with MIS (wf_logic.cl:98-122) -----------
+    if use_env:
+        miss = (hit.i < 0) & ~terminate & (plen > 0)
+        bg_raw, direct_pdf = env_radiance_and_pdf(scene.env, pool.dir,
+                                                  cfg.fast_env)
+        bg = bg_raw * params.env_map_strength
+        actual = pool.last_pdf_w * pool.last_light_pick
+        w_mis = actual / torch.clamp_min(actual + direct_pdf, 1e-30)
+        w = torch.where(use_mis, w_mis, 1.0)
+        Ei = vwhere(miss, Ei + T * bg * w, Ei)
     terminate |= hit.i < 0
 
     # ---- implicit area light hit with MIS (wf_logic.cl:124-147) -----------
-    al = (hit.area_light_hit > 0) & ~terminate
-    pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
-    dist = length(hit.P - pool.orig)
-    pdf_w = pdf_area_to_solid_angle(pdf_a, dist, -dot(pool.dir, hit.N))
-    w_mis = pool.last_pdf_w / torch.clamp_min(
-        pool.last_pdf_w + pdf_w * pool.last_light_pick, 1e-30)
-    use_mis = (plen > 1) & ~pool.last_specular
-    mis_w = torch.where(use_mis, w_mis, 1.0)
-    Ei = vwhere(al, Ei + T * light.E * mis_w, Ei)
-    terminate |= al
+    if light is not None:
+        al = (hit.area_light_hit > 0) & ~terminate
+        pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
+        dist = length(hit.P - pool.orig)
+        pdf_w = pdf_area_to_solid_angle(pdf_a, dist, -dot(pool.dir, hit.N))
+        w_mis = pool.last_pdf_w / torch.clamp_min(
+            pool.last_pdf_w + pdf_w * pool.last_light_pick, 1e-30)
+        mis_w = torch.where(use_mis, w_mis, 1.0)
+        Ei = vwhere(al, Ei + T * light.E * mis_w, Ei)
+        terminate |= al
 
     # ---- NEE shadow-ray resolution (wf_logic.cl:149-168) ------------------
     unblocked = ~shadow_blocked
@@ -356,30 +372,53 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     l_pdf_direct, l_cos_th = pool.last_pdf_direct, pool.last_cos_th
     l_pick, l_emission = pool.last_light_pick, pool.last_emission
 
-    # NEE toward the area light. The light-pick draw (env map vs area
-    # light, wf_logic.cl:249-251) is kept so the RNG sequence matches the
-    # reference; with no env map the area light is always picked.
+    # ---- NEE: pick the env map or the area light (wf_logic.cl:249-251),
+    # in the reference's order of draws: the pick, the env sample when
+    # there is an env map, the area-light sample when there is a light
     do_nee = alive & ~singular
-    _, seed = rand(seed)
-    pdf_a, pos_l, seed = sample_area_light(light, seed)
-    Lv = pos_l - nee_orig
-    len0 = length(Lv)
-    inv_len = 1.0 / torch.clamp_min(len0, 1e-30)
-    Ln = Lv * inv_len
-    cos_light = torch.clamp_min(dot(light.N, -Lv), 0.0)
-    ok = do_nee & (cos_light > 0.0)
-    len_l = len0 * 0.995                    # wf_logic.cl:308
-    direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l, cos_light * inv_len)
-    cos_th = torch.clamp_min(dot(Ln, nrm), 0.0)
-    shadow_orig = vwhere(ok, nee_orig, shadow_orig)
-    shadow_dir = vwhere(ok, Ln, shadow_dir)
-    shadow_len = torch.where(ok, len_l, shadow_len)
-    l_pdf_direct = torch.where(ok, direct_pdf, l_pdf_direct)
-    l_cos_th = torch.where(ok, cos_th, l_cos_th)
-    l_pick = torch.where(ok, 1.0, l_pick)
-    l_emission = vwhere(ok, Vec3(light.E.x.expand(n), light.E.y.expand(n),
-                                 light.E.z.expand(n)), l_emission)
-    shadow_pending = ok
+    env_prob = (float(cfg.use_env_map)
+                / max(1, int(cfg.use_env_map) + int(cfg.use_area_light)))
+    u_pick, seed = rand(seed)
+    pick_env = u_pick < env_prob
+    shadow_pending = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    if use_env:
+        u_env, seed = rand(seed)
+        L, direct_pdf, env_raw = env_sample(scene.env, u_env, cfg.fast_env)
+        m = do_nee & pick_env
+        shadow_orig = vwhere(m, nee_orig, shadow_orig)
+        shadow_dir = vwhere(m, L, shadow_dir)
+        shadow_len = torch.where(m, params.world_radius * 2.0, shadow_len)
+        l_pdf_direct = torch.where(m, direct_pdf, l_pdf_direct)
+        l_cos_th = torch.where(m, torch.clamp_min(dot(L, nrm), 0.0),
+                               l_cos_th)
+        l_pick = torch.where(m, env_prob, l_pick)
+        l_emission = vwhere(m, env_raw * params.env_map_strength,
+                            l_emission)
+        shadow_pending |= m
+
+    if light is not None:
+        pdf_a, pos_l, seed = sample_area_light(light, seed)
+        Lv = pos_l - nee_orig
+        len0 = length(Lv)
+        inv_len = 1.0 / torch.clamp_min(len0, 1e-30)
+        Ln = Lv * inv_len
+        cos_light = torch.clamp_min(dot(light.N, -Lv), 0.0)
+        ok = do_nee & ~pick_env & (cos_light > 0.0)
+        len_l = len0 * 0.995                    # wf_logic.cl:308
+        direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l,
+                                             cos_light * inv_len)
+        cos_th = torch.clamp_min(dot(Ln, nrm), 0.0)
+        shadow_orig = vwhere(ok, nee_orig, shadow_orig)
+        shadow_dir = vwhere(ok, Ln, shadow_dir)
+        shadow_len = torch.where(ok, len_l, shadow_len)
+        l_pdf_direct = torch.where(ok, direct_pdf, l_pdf_direct)
+        l_cos_th = torch.where(ok, cos_th, l_cos_th)
+        l_pick = torch.where(ok, 1.0 - env_prob, l_pick)
+        l_emission = vwhere(ok, Vec3(light.E.x.expand(n),
+                                     light.E.y.expand(n),
+                                     light.E.z.expand(n)), l_emission)
+        shadow_pending |= ok
 
     # ---- material phase (wf_mat_*.cl) -------------------------------------
     nee_bsdf = bxdf_eval(nrm, sp, backface, pool.dir, shadow_dir,

@@ -15,6 +15,7 @@ import torch
 
 from ..accel import mxu_trace as mt
 from ..bsdf import ShadingParams
+from ..envmap import EnvMapTables
 from ..geom import AreaLight, Hit
 from ..vec import Vec3, dot, normalize, where as vwhere
 
@@ -22,11 +23,12 @@ F32_MAX = 3.4028235e38
 
 
 class DeviceScene(NamedTuple):
-    """Device-resident scene data: the cluster tables and the static OR of
-    the BXDF type bits present. The port has no texture atlas and no
-    environment map yet."""
+    """Device-resident scene data: the cluster tables, the static OR of
+    the BXDF type bits present and the env map's tables (None without
+    one). The port has no texture atlas yet."""
     mxu: mt.MXUSceneT
     material_types: int
+    env: Optional[EnvMapTables] = None
 
 
 def intersect_area_light(orig: Vec3, d: Vec3, light: AreaLight, t_prev):
@@ -127,13 +129,16 @@ def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
 
 
 def trace_pair(orig: Vec3, d: Vec3, sorig: Vec3, sdir: Vec3, max_len,
-               scene: DeviceScene, area_light: AreaLight):
+               scene: DeviceScene, area_light: Optional[AreaLight]):
     """Extension closest-hit + shadow occlusion under one shared coherence
     sort (mxu_trace.trace_pair_mxu). Returns (raw=(t, col), occluded),
-    including the area-light body occlusion (wf_shadowrays.cl:27-33)."""
+    including the area-light body occlusion when a light is given
+    (wf_shadowrays.cl:27-33)."""
     t, col, occ = mt.trace_pair_mxu(orig, d, sorig, sdir, max_len, scene.mxu)
-    l_hit, _ = intersect_area_light(sorig, sdir, area_light, max_len)
-    return (t, col), occ | l_hit
+    if area_light is not None:
+        l_hit, _ = intersect_area_light(sorig, sdir, area_light, max_len)
+        occ = occ | l_hit
+    return (t, col), occ
 
 
 def trace_shadow(orig: Vec3, d: Vec3, max_len, scene: DeviceScene,

@@ -76,19 +76,27 @@ class RenderParams(NamedTuple):
     # the spp cap's value (0-dim int32, or a plain int): the reference's
     # params.maxSpp kernel argument; RenderConfig.max_spp > 0 gates it
     max_spp: torch.Tensor = 0
+    # env map radiance scale (0-dim float32, or a plain float)
+    env_map_strength: torch.Tensor = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render flags plus film geometry (the reference's kernel
-    defines). The port renders the reference's default configuration: the
-    block-bound pool, the area light, implicit and explicit light sampling,
-    no Russian roulette, no env map and no denoiser; those switches are not
-    ported yet. ``max_spp > 0`` switches on the exact spp cap (CHECK_SPP):
-    its value comes from ``RenderParams.max_spp`` when that is > 0."""
+    defines). The port renders with the block-bound pool, implicit and
+    explicit light sampling, no Russian roulette and no denoiser; those
+    switches are not ported yet. The env map and the area light are each
+    on or off; with both, NEE picks either with probability 1/2.
+    ``fast_env`` takes the env map's single-read forms (on CUDA, as the
+    reference on its TPU). ``max_spp > 0`` switches on the exact spp cap
+    (CHECK_SPP): its value comes from ``RenderParams.max_spp`` when that
+    is > 0."""
     width: int
     height: int
     max_bounces: int = 4
+    use_env_map: bool = False
+    use_area_light: bool = True
+    fast_env: bool = False
     max_spp: int = 0                # 0 = unbounded (CHECK_SPP off)
     material_types: int = 0         # OR of BXDF type bits present in scene
     # block-bound wavefront pool: `groups` groups of pool lanes, each bound

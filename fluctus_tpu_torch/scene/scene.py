@@ -3,8 +3,9 @@
 src/scene.cpp:59-120 and 864-897), and the content hash that keys the BVH
 and table caches.
 
-Material slot 0 is the default material. The PLY and PBRT loaders,
-textures and the environment map are not ported yet and raise.
+Material slot 0 is the default material; ``envmap`` holds the scene's
+environment map (``envmap.EnvironmentMap``) or None. The PLY and PBRT
+loaders and textures are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ class Scene:
         self.material_types: int = self.materials[0].type
         self.hash: str = ""    # content hash keying the caches; "" = none
         self._tri_chunks = []  # (p [M,3,3], n [M,3,3], t [M,3,2], matId [M])
+        self.envmap = None
 
     # -- geometry -----------------------------------------------------------
     def append_triangles(self, p, n, t, mat_id):
@@ -76,6 +78,14 @@ class Scene:
             raise NotImplementedError(
                 f"texture {name!r}: textures are not ported yet")
         return -1
+
+    # -- env map --------------------------------------------------------------
+    def load_env_map(self, filename: str):
+        from ..envmap import EnvironmentMap
+        self.envmap = EnvironmentMap(filename)
+
+    def set_env_map(self, envmap):
+        self.envmap = envmap
 
     # -- loading ------------------------------------------------------------
     def load_model(self, filename: str,

@@ -243,15 +243,11 @@ class Settings:
 
 # The render-changing switches the port does not implement yet, each with
 # the value under which it renders as the reference does (its default):
-# env maps (RenderConfig.use_env_map, loaded by load_scene), the area
-# light toggle, Russian roulette and the sampling toggles (RenderConfig,
-# read by the integrators), the denoiser's guide features and blend, the
-# render scale (the reference's Renderer scales its film by it), the flat
-# pixel ring (wf_block_ring off) and deferred film-scatter batching.
+# Russian roulette and the sampling toggles (RenderConfig, read by the
+# integrators), the denoiser's guide features and blend, the render scale
+# (the reference's Renderer scales its film by it), the flat pixel ring
+# (wf_block_ring off) and deferred film-scatter batching.
 UNPORTED = {
-    "use_env_map": False,
-    "env_map_name": "",
-    "use_area_light": True,
     "use_russian_roulette": False,
     "sample_implicit": True,
     "sample_explicit": True,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the Hopper sweep's kernels — K2 (trace_rol), K5 (trace_rol_sc) and
-K9 (trace_ros) — and K1 (tile_order) under other shapes on one GPU.
+K9 (trace_ros) — K1 (tile_order) and K8 (fetch) under other shapes on one
+GPU.
 
 Each trace kernel picks its shape per mode in its source, as
 ``Config<rays per thread, ray groups per CTA, CTAs per tile>``
@@ -19,7 +20,17 @@ parallel), and times each on the same recorded inputs:
   wavefront on the 8x8 luxball grid (1920x1080, 1M paths);
 - K1: its first call of segments 4 and 24 of the luxball wavefront, of
   bounce 2 of the megastep (4,050 tiles) and of segment 4 of the 8x8
-  grid (over its superclusters).
+  grid (over its superclusters);
+- K8: its call of segment 2 of a 16-spp exact render (luxball,
+  1920x1080, 1M paths), with 1, 2, 4 and 8 lanes per thread
+  (``LANES_PER_THREAD`` in csrc/fetch.cu) and, at the committed lanes,
+  cached instead of streaming loads, write-back instead of streaming
+  stores, and CTAs of 128 or 512 threads (K8_VERSIONS); each held bit for
+  bit to fetch_plain, timed in turns (each version, then again in
+  reverse order) beside torch.take of the same pixels, and, with
+  ``--baseline``, the fetch.cu of DIR in the same turns; beside them a
+  copy of its local array into its output, a kernel that moves 8 bytes
+  per lane without a gather.
 
 Every copy's t (as bits), columns and visit counts (K1: order and skey as
 bits) must equal those of the committed build; times are device times
@@ -41,7 +52,10 @@ It also profiles two luxball segments with each K1 (torch.profiler):
 device operations and device ms per segment. Two versions are so
 compared within one run on one card.
 
-Run from the repository root: ``python3 sweep_shapes.py [--baseline DIR]``.
+``--fetch-only`` runs K8's part alone.
+
+Run from the repository root:
+``python3 sweep_shapes.py [--baseline DIR] [--fetch-only]``.
 """
 
 import argparse
@@ -82,6 +96,14 @@ SHAPE_SETS = [
 LINE = {"closest": re.compile(r"using Closest = hs::Config<[^>]*>;"),
         "any_hit": re.compile(r"using AnyHit = hs::Config<[^>]*>;")}
 K1_LINE = re.compile(r"constexpr int RAYS_PER_THREAD = \d+;")
+K8_LINE = re.compile(r"constexpr int LANES_PER_THREAD = \d+;")
+# K8's versions: lanes per thread, then the committed lanes with one
+# other choice each: [(name, lanes or None for the committed, edits)]
+K8_VERSIONS = [(f"lanes {v}", v, []) for v in (1, 2, 4, 8)] + [
+    ("cached loads", None, [("__ldcs(", "__ldg(")]),
+    ("write-back stores", None, [("__stcs(", "__stwb(")]),
+    ("128 threads", None, [("THREADS = 256;", "THREADS = 128;")]),
+    ("512 threads", None, [("THREADS = 256;", "THREADS = 512;")])]
 # K1 with one part left out, to split its time between its ray loads and
 # its box tests (these copies compute another function; their outputs are
 # not compared): (name, [(text, replacement)] in csrc/tile_order.cu)
@@ -213,15 +235,95 @@ def record_calls(cs, mt, bs, flags):
     return calls, k4_args
 
 
-def k7_call(cs):
-    """K7's arguments in segment 2 of a 16-spp exact render (luxball,
-    1920x1080, 1M paths)."""
+def exact_calls(cs):
+    """K7's and K8's arguments in segment 2 of a 16-spp exact render
+    (luxball, 1920x1080, 1M paths)."""
     r = cs.make_renderer(1920, 1080, "cuda")
     r.reset()
     with cs.ExactRecorder() as rec:
         r.render_single(cs.EXACT_SPP)
-    local, data, film, g, rem = rec.early[1]
-    return local, data, film, g, rem
+    return rec.early[1], rec.early[2]
+
+
+def sweep_fetch(cs, kb, bs, card, baseline, fetch_args):
+    """K8's K8_VERSIONS, and the fetch.cu of ``baseline`` when given, on
+    the recorded call: bit-equal to fetch_plain, timed in turns. Prints
+    one line per version and turn; returns {version: [ms, ms]}."""
+    import ctypes
+    import torch
+    local, table, groups = fetch_args
+    n = local.shape[0]
+    dims = (n, n // groups, table.shape[1] // groups)
+    versions = {}
+    for name, lanes, edits in K8_VERSIONS:
+        d = os.path.join(cs.TMP_ROOT, re.sub(r"\W+", "_", f"k8 {name}"))
+        shutil.copytree(kb.CSRC, d)
+        path = os.path.join(d, "fetch.cu")
+        with open(path) as f:
+            text = f.read()
+        if lanes is not None:
+            text, k = K8_LINE.subn(
+                f"constexpr int LANES_PER_THREAD = {lanes};", text)
+            if k != 1:
+                raise RuntimeError("fetch.cu: no LANES_PER_THREAD line")
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"fetch.cu: no {old!r}")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+        versions[name] = d
+    if baseline:
+        versions["baseline"] = baseline
+    csrc = kb.CSRC
+    kernels = {}
+    try:
+        jobs = []
+        for d in versions.values():
+            kb.CSRC = d
+            jobs.append(kb._start_build("fetch.cu"))
+        for job in jobs:
+            kb._finish_build(*job)
+        for name, d in versions.items():
+            kb.CSRC = d
+            k = kb.Kernel(f"fetch {name}", "fetch.cu", "fetch_launch",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3)
+            del kb.KERNELS[k.name]         # not one of the port's kernels
+            k._load()
+            kernels[name] = k
+    finally:
+        kb.CSRC = csrc
+    ref = bs.fetch_plain(local, table, groups)
+    out = torch.empty_like(ref)
+
+    def run(k):
+        k(kb.ptr(local), kb.ptr(table), kb.ptr(out), *dims)
+    lane = torch.arange(n, device=local.device) // dims[1]
+    pid = lane * dims[2] + local.long()
+    order = list(kernels) + list(reversed(kernels))
+    # yardsticks: the library call, and a copy of local into out (4 B read
+    # and 4 B written per lane, no gather: a 1M-lane kernel's floor)
+    yard = {"torch.take": lambda: torch.take(table, pid),
+            "copy of local": lambda: out.copy_(local.view(torch.float32))}
+    times = {}
+    for name in order + 2 * list(yard):
+        if name in yard:
+            ms = cs.time_ms(yard[name])
+            differ = 0
+        else:
+            out.fill_(float("nan"))
+            run(kernels[name])
+            differ = int((out.view(torch.int32)
+                          != ref.view(torch.int32)).sum())
+            ms = cs.time_ms(lambda: run(kernels[name]))
+        print(json.dumps(dict(kernel="fetch", version=name, ms=ms,
+                              differ=differ, card=card,
+                              call="exact segment 2, "
+                                   f"{n} lanes")), flush=True)
+        if differ:
+            raise AssertionError(f"K8 {name} differs from fetch_plain")
+        times.setdefault(name, []).append(ms)
+    return times
 
 
 def parent_k1(kb, mt):
@@ -272,6 +374,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="another csrc/ directory to build "
                     "and time beside the committed one")
+    ap.add_argument("--fetch-only", action="store_true",
+                    help="time K8's shapes (and the baseline's) alone")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -290,6 +394,13 @@ def main():
     try:
         card = cs.card_line()
         print(card, flush=True)
+        kb.build_all()                  # the committed kernels, at once
+        k7_args, k8_args = exact_calls(cs)
+        k8_times = sweep_fetch(cs, kb, bs, card, baseline, k8_args)
+        if opts.fetch_only:
+            print(json.dumps({"ms": {"fetch: exact segment 2": k8_times}}),
+                  flush=True)
+            return 0
         csrc = kb.CSRC
         base = committed_shapes(csrc)
         sets = [(n, {**base, **s}) for n, s in SHAPE_SETS]
@@ -378,8 +489,8 @@ def main():
                         name] = ms
         if baseline:
             splats = [("block_splat", "luxball segment 4", k4_args, None),
-                      ("block_splat_capped", "exact segment 2",
-                       k7_call(cs), True)]
+                      ("block_splat_capped", "exact segment 2", k7_args,
+                       True)]
             for kernel, what, args, capped in splats:
                 local, data, film, g = args[:4]
                 rem = args[4] if capped else None
@@ -419,9 +530,12 @@ def main():
                                       "per segment", card=card, **prof)),
                       flush=True)
         use("committed")
-        fastest = {k: min(v, key=lambda n: min(v[n]) if isinstance(
-            v[n], list) else v[n]) for k, v in table.items()
-            if not k.endswith(", parts")}
+        table["fetch: exact segment 2"] = k8_times
+        fastest = {k: min((n for n in v if n not in ("torch.take",
+                                                      "copy of local")),
+                          key=lambda n: min(v[n]) if isinstance(
+                              v[n], list) else v[n])
+                   for k, v in table.items() if not k.endswith(", parts")}
         print(json.dumps({"fastest": fastest, "ms": table}), flush=True)
         return 0
     finally:

@@ -8,6 +8,9 @@
                       counting sort, step for step, vs the plain version
                       on edge-case groups: bit-equal
   K8 plain version   vs ``fetch(..., interpret=True)``: exact
+  K8 design           a numpy model of csrc/fetch.cu's lane mapping
+                      (chunks per thread, the striding grid, the scalar
+                      loop) vs the plain version: bit-equal
   wf_segment          6 capped segments on luxball from one reset, the cap
                       binding: integer state, spp and counters bit-equal,
                       film weight exact, rgb rtol 1e-5 (atol 1e-6)
@@ -250,6 +253,78 @@ def test_k8_fetch():
     got = tbs.fetch(torch.from_numpy(local), torch.from_numpy(table),
                     groups=g).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+def _fetch_model(local, table, groups, lanes, cap, threads=256,
+                 aligned=True):
+    """csrc/fetch.cu step for step, on numpy arrays: the launcher's choice
+    of the chunked loop (s a multiple of ``lanes``, pointers aligned) and
+    its grid (min(ceil(work / threads), cap) CTAs, ``cap`` standing for
+    the resident CTAs of the card); then per thread, the chunked loop
+    (chunk c = thread id, then + stride; its group c // (s // lanes); the
+    next chunk's locals read before this chunk's table reads; an unsigned
+    compare against pk) or the scalar loop (lane i = thread id, then +
+    stride; its group i // s). Counts the writes of every lane."""
+    n = local.size
+    s = n // groups
+    pk = table.shape[1] // groups
+    out = np.full(n, np.nan, np.float32)
+    writes = np.zeros(n, np.int32)
+    vec = s % lanes == 0 and aligned
+    work = n // lanes if vec else n
+    stride = min(-(-work // threads), cap) * threads
+
+    def read(l, row):
+        ok = l.astype(np.uint32) < np.uint32(pk)
+        return np.where(ok, table[0, row + np.where(ok, l, 0)],
+                        np.float32(0.0))
+    for t in range(stride):
+        if not vec:
+            for i in range(t, n, stride):
+                out[i] = read(local[i:i + 1], (i // s) * pk)[0]
+                writes[i] += 1
+            continue
+        c = t
+        if c >= work:
+            continue
+        cpg = s // lanes
+        l = local[c * lanes:(c + 1) * lanes]
+        while True:
+            nxt = c + stride
+            ln = local[nxt * lanes:(nxt + 1) * lanes] if nxt < work else None
+            out[c * lanes:(c + 1) * lanes] = read(l, (c // cpg) * pk)
+            writes[c * lanes:(c + 1) * lanes] += 1
+            if nxt >= work:
+                break
+            c, l = nxt, ln
+    assert (writes == 1).all()
+    return out, vec
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("groups,s,pk,cap,aligned", [
+    (7, 256, 512, 1, True),     # 448 chunks of 4 over a stride of 256
+    (16, 256, 512, 3, True),    # 1,024 chunks of 4 over 768 threads
+    (7, 255, 512, 1, True),     # s odd: the scalar loop
+    (300, 3, 128, 2, True),     # s = 3: chunks of 1 only
+    (5, 256, 128, 1, False)])   # unaligned pointers: the scalar loop
+def test_k8_lane_mapping_matches_plain(lanes, groups, s, pk, cap, aligned):
+    """The redesigned K8's lane mapping (chunks of ``lanes`` lanes per
+    thread, one wave of CTAs striding over them, the scalar loop for
+    other shapes), modelled step for step, writes every lane once and
+    equals fetch_plain bit for bit, locals -1 and pk included."""
+    rng = np.random.default_rng(groups * s + lanes)
+    n = groups * s
+    local = rng.integers(-2, pk + 2, n).astype(np.int32)
+    local[:4] = [-1, pk, 0, pk - 1]
+    table = rng.normal(size=(1, groups * pk)).astype(np.float32)
+    got, vec = _fetch_model(local, table, groups, lanes, cap,
+                            aligned=aligned)
+    ref = tbs.fetch_plain(torch.from_numpy(local), torch.from_numpy(table),
+                          groups).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    assert vec == (s % lanes == 0 and aligned)
+    assert (got[(local < 0) | (local >= pk)] == 0.0).all()
 
 
 @pytest.fixture

@@ -214,8 +214,7 @@ f 5 6 7
 """
 
 # every switch of settings.UNPORTED, set away from its default
-_REFUSED = [("use_env_map", True), ("env_map_name", "sky.hdr"),
-            ("use_area_light", False), ("use_russian_roulette", True),
+_REFUSED = [("use_russian_roulette", True),
             ("sample_implicit", False), ("sample_explicit", False),
             ("use_denoiser", True), ("denoiser_blend", 0.5),
             ("render_scale", 0.5), ("wf_block_ring", False),
@@ -276,6 +275,77 @@ def test_rebuild_config_refuses_unported_switch(tiny_renderer, name, value):
         setattr(r.settings, name, UNPORTED[name])
     assert r.config is config and r.params is params
     r.rebuild_config()
+
+
+# the switches the port renders since the env map was ported, each set
+# away from its default: no longer refused
+_ACCEPTED = [("use_env_map", True), ("env_map_name", "sky.hdr"),
+             ("use_area_light", False)]
+
+
+def _light_flags(cfg):
+    return cfg.use_env_map, cfg.use_area_light
+
+
+@pytest.mark.parametrize("name,value", _ACCEPTED)
+def test_load_scene_accepts_ported_switch(tmp_path, capsys, name, value):
+    """The env-map switches and the area-light toggle are no longer in
+    settings.UNPORTED: load_scene takes them and sets the config's env map
+    and area light as the reference's renderer does (a named map that is
+    absent leaves the env map off with the reference's WARNING)."""
+    from fluctus_tpu.renderer import Renderer as JRenderer
+    from fluctus_tpu.settings import Settings as JSettings
+    from fluctus_tpu_torch.renderer import Renderer
+    from fluctus_tpu_torch.settings import UNPORTED, Settings
+    assert name not in UNPORTED
+    s, js = Settings(), JSettings()
+    setattr(s, name, value)
+    setattr(js, name, value)
+    scene = _tiny_scene(tmp_path)
+    r = Renderer(32, 16, settings=s, data_dir=str(tmp_path / "port"),
+                 device="cpu")
+    r.load_scene(scene)
+    ours = capsys.readouterr().out
+    jr = JRenderer(32, 16, settings=js, data_dir=str(tmp_path / "ref"))
+    jr.load_scene(scene, use_saved_state=False)
+    theirs = capsys.readouterr().out
+    assert _light_flags(r.config) == _light_flags(jr.config)
+    assert r.config.use_area_light == (name != "use_area_light")
+    assert not r.config.use_env_map and r.device_scene.env is None
+    warn = "WARNING: env map not found: sky.hdr"
+    assert (warn in ours) == (warn in theirs) == (name == "env_map_name")
+
+
+@pytest.mark.parametrize("name,value", _ACCEPTED)
+def test_rebuild_config_accepts_ported_switch(tiny_renderer, name, value):
+    """rebuild_config takes the same switches and re-derives the env map
+    and area-light flags from them, as the reference's rebuild_config."""
+    from fluctus_tpu_torch.settings import Settings
+    r = tiny_renderer
+    setattr(r.settings, name, value)
+    try:
+        r.rebuild_config()
+        assert r.config.use_area_light == (name != "use_area_light")
+        assert not r.config.use_env_map     # the scene has no env map
+    finally:
+        setattr(r.settings, name, getattr(Settings(), name))
+        r.rebuild_config()
+    assert _light_flags(r.config) == (False, True)
+
+
+def test_envmap_modules_stand_alone():
+    """The env map's modules (envmap.py, rgbe.py) load, in a fresh
+    interpreter, no jax, jaxlib, ml_dtypes or fluctus_tpu module."""
+    code = ("import sys; import fluctus_tpu_torch.envmap, "
+            "fluctus_tpu_torch.rgbe; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
+            "'fluctus_tpu')))")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    assert out.stdout.strip() == "[]"
 
 
 _JSON = [
