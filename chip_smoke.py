@@ -109,7 +109,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    route), ENV_ALIAS_SEGMENTS timed segments, profiled as 9a. 9d: phase
    4's parity with the env map, fast and alias routes and the env map
    alone (no area light).
-10. the kernels line, the card line, then the final result line.
+11. the production luxball (write_production_scene, written
+   from a seed into a temporary directory: luxball with planar uvs, a
+   2048^2 albedo map and a 1024^2 normal map on the ground, a 512^2
+   specular map on the glossy core, a rough dielectric glass, and a
+   second instance beside it with a rough-reflection core and an ideal
+   glass; 11,282 triangles on the flat tier, K1-K4), at 1080p with 1M
+   paths, depth 10, phase 3's view and light. 11a: K1-K4 held to their
+   plain versions on the recorded calls of segments 2 and 4; on K3's
+   calls the share of textured lanes (map rows 22-24) and that their
+   descriptor rows 29-34 are non-zero, K6 on the same calls and K10 on
+   the same winners with the tables' f32 attrs, each bit for bit against
+   its plain version (so all three resolve kernels are held with textured
+   rows); PROD_SEGMENTS timed segments, one profiled, and the texture
+   work's device time per segment (a tex_lookup line: apply_textures and
+   the normal mapping); then with the teapot env map (single-read route)
+   K1-K4 held again and PROD_ENV_SEGMENTS timed segments. 11b:
+   use_russian_roulette on, PROD_RR_SEGMENTS timed segments, then the
+   share of lanes roulette ends in each of 4 more segments. 11c:
+   render_single(PROD_SPP) with roulette set (it runs without, as the
+   reference's): spp = weight = PROD_SPP on every pixel; then the capped
+   wavefront with roulette on (exact_with_roulette), K7 and K8 held bit
+   for bit on its recorded calls, spp = weight exact. 11d: one megastep
+   sample (render_sample) with roulette on, launches per bounce K1 2, K2
+   2, K3 1. 11e: phase 4's parity on the production scene, with
+   sample_implicit off, with sample_explicit off and with roulette on.
+10. the kernels line (launches including phase 11's timed runs), the
+   card line, then the final result line.
 
 Every renderer loads with a fresh temporary ``data_dir`` (removed at the
 end), so phases 2-6 load cold as before (now writing the caches) and
@@ -165,6 +191,15 @@ ENV_SEGMENTS = 24
 ENV_ALIAS_SEGMENTS = 12
 SKY_SIZE = (2048, 1024)    # 2,097,152 texels, past 2^18: the alias route
 ENV_SPP = 16
+# phase 11: the albedo, normal and specular maps' sizes (5,505,024 texels,
+# under the descriptors' 2^24), segments and spp
+PROD_SIZES = (2048, 1024, 512)
+PROD_SEGMENTS = 24
+PROD_ENV_SEGMENTS = 24     # fewer leave pixels uncovered under the env map
+PROD_RR_SEGMENTS = 24
+PROD_SPP = 4
+PROD_PARITY = ({}, {"sample_implicit": False}, {"sample_explicit": False},
+               {"use_russian_roulette": True})
 BIAS_GATE = 0.01           # the 1% tonemapped-mean bias gate (ROADMAP)
 # per bounce of a sample: one extension and one shadow trace, one resolve
 PER_BOUNCE_MK = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
@@ -216,22 +251,26 @@ def fresh_dir():
 
 
 def make_renderer(width, height, device, scene=LUXBALL, data_dir=None,
-                  env_map=None, area_light=True):
+                  env_map=None, area_light=True, switches=None):
     """A main path's renderer: luxball with the camera of
-    tools/make_goldens.py and an area light above the ball, or the 8x8
-    grid seen from above its near edge with a 12x12 light over its
-    centre; with the env map file ``env_map`` when given, and without
-    the area light when ``area_light`` is False. Its caches live in
+    tools/make_goldens.py and an area light above the ball (any scene
+    without a view of its own, as phase 11's production luxball, takes
+    this view), or the 8x8 grid seen from above its near edge with a
+    12x12 light over its centre; with the env map file ``env_map`` when
+    given, without the area light when ``area_light`` is False, and the
+    Settings fields of the dict ``switches`` set. Its caches live in
     ``data_dir``, a fresh (cold) one unless given."""
     from fluctus_tpu_torch.renderer import Renderer
     from fluctus_tpu_torch.settings import Settings
-    pos, dir_, lpos, lsize = VIEWS[scene]
+    pos, dir_, lpos, lsize = VIEWS.get(scene, VIEWS[LUXBALL])
     s = Settings()
     s.camera.pos, s.camera.dir = pos, dir_
     a = s.area_light
     a.pos, a.N, a.right, a.up = lpos, (0, -1, 0), (1, 0, 0), (0, 0, 1)
     a.E, a.size = (50.0, 50.0, 50.0), lsize
     s.use_area_light = area_light
+    for name, value in (switches or {}).items():
+        setattr(s, name, value)
     r = Renderer(width, height, settings=s, device=device,
                  data_dir=data_dir or fresh_dir())
     r.load_scene(scene, env_map=env_map)
@@ -1068,21 +1107,21 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
 
 def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
                  device="cuda", data_dir=None, exact=False, env_map=None,
-                 area_light=True, fast_env=True):
-    """Phase 4 / 4b / 8c / 9d: 4 segments through the kernels and through
-    the plain versions on the card, from the same reset (both loads from
-    ``data_dir`` when given, else each from a fresh one), with the env map
-    file ``env_map`` on its fast route or (``fast_env`` False) its
-    bilinear + alias route, and the area light unless ``area_light`` is
-    False. With ``exact`` the films and per-pixel spp must be equal.
-    Returns the printed object."""
+                 area_light=True, fast_env=True, switches=None):
+    """Phase 4 / 4b / 8c / 9d / 11e: 4 segments through the kernels and
+    through the plain versions on the card, from the same reset (both
+    loads from ``data_dir`` when given, else each from a fresh one), with
+    the env map file ``env_map`` on its fast route or (``fast_env`` False)
+    its bilinear + alias route, the area light unless ``area_light`` is
+    False, and the Settings fields of ``switches`` set. With ``exact`` the
+    films and per-pixel spp must be equal. Returns the printed object."""
     import torch
     runs = []
     for use_plain in (False, True):
         undo = plain_versions() if use_plain else (lambda: None)
         try:
             r = make_renderer(width, height, device, scene, data_dir,
-                              env_map, area_light)
+                              env_map, area_light, switches)
             r.config = r.config.replace(fast_env=fast_env)
             r.init_wavefront(paths)
             r.render_wavefront(4)
@@ -1094,7 +1133,8 @@ def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
                paths=paths, b16_tables=r.device_scene.mxu.b16r is not None,
                env_map=env_map, use_env_map=r.config.use_env_map,
                fast_env=fast_env, use_area_light=r.config.use_area_light,
-               segments=4, counters_kernel=list(sa), counters_plain=list(sb))
+               switches=switches or {}, segments=4,
+               counters_kernel=list(sa), counters_plain=list(sb))
     for name in ("pixel_index", "seed", "path_len"):
         frac = float((getattr(a.pool, name) == getattr(b.pool, name))
                      .float().mean())
@@ -1900,14 +1940,34 @@ def env_route(r):
                 use_area_light=r.config.use_area_light)
 
 
-def env_lookup_ms(r, reps=4):
-    """Device ms and device operations of one segment's env lookups on the
-    current pool: the implicit hit's radiance and pdf along every lane's
-    direction and the NEE sample of every lane, summed over the device
-    events torch.profiler sees (an elementwise chain this short is host
-    bound, so CUDA events around it would time the host's launches)."""
+def device_ms_of(fn, reps=4):
+    """Device ms and device operations of one ``fn()``, summed over the
+    device events torch.profiler sees (an elementwise chain this short is
+    host bound, so CUDA events around it would time the host's
+    launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us, ops = 0.0, 0
+    for e in prof.key_averages():
+        dt = getattr(e, "self_device_time_total", 0) or 0
+        if dt > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += dt
+            ops += e.count
+    return dev_us / reps / 1e3, ops / reps
+
+
+def env_lookup_ms(r):
+    """Device ms and device operations of one segment's env lookups on the
+    current pool: the implicit hit's radiance and pdf along every lane's
+    direction and the NEE sample of every lane."""
+    import torch
     from fluctus_tpu_torch.envmap import env_radiance_and_pdf, env_sample
     env, fast = r.device_scene.env, r.config.fast_env
     d = r._wf_state.pool.dir
@@ -1917,20 +1977,7 @@ def env_lookup_ms(r, reps=4):
     def lookups():
         env_radiance_and_pdf(env, d, fast)
         env_sample(env, u, fast)
-    lookups()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            lookups()
-        torch.cuda.synchronize()
-    dev_us, ops = 0.0, 0
-    for e in prof.key_averages():
-        dt = getattr(e, "self_device_time_total", 0) or 0
-        if dt > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us += dt
-            ops += e.count
-    return dev_us / reps / 1e3, ops / reps
+    return device_ms_of(lookups)
 
 
 def env_path(r, card, segments, what):
@@ -2045,6 +2092,374 @@ def phase_env(card, plain_main):
                      fast_env=fast)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the production luxball (textures, normal maps, GGX lobes,
+# Russian roulette and the sampling toggles)
+# ---------------------------------------------------------------------------
+
+PROD_MTL = """newmtl glass
+shader rough_dielectric
+Ks 1.0 1.0 1.0
+Kt 0.98 0.98 0.98
+Ni 1.5
+Ns 500
+
+newmtl core
+shader glossy
+Kd 0.65 0.25 0.08
+Ks 0.04 0.04 0.04
+Ni 1.5
+Ns 200
+map_Ks specular.png
+
+newmtl ground
+shader diffuse
+Kd 0.55 0.55 0.55
+map_Kd albedo.png
+map_bump normal.png
+"""
+
+PROD_INSTANCE_B = {"translation": [2.3, 0.0, -1.2],
+                   "skipMaterials": ["ground"],
+                   "materials": {"core": {"shader": "rough_reflection",
+                                          "Ks": [0.9, 0.8, 0.6], "Ni": 2.0,
+                                          "Ns": 100},
+                                 "glass": {"shader": "ideal_dielectric"}}}
+
+
+def _production_maps(sizes, seed):
+    """(albedo RGB, normal RGB, specular RGB) uint8 images."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    s_kd, s_n, s_ks = sizes
+    yy, xx = np.mgrid[0:s_kd, 0:s_kd]
+    cell = max(1, s_kd // 8)
+    check = ((yy // cell + xx // cell) % 2)[..., None]
+    albedo = np.where(check, [0.85, 0.8, 0.7], [0.25, 0.35, 0.55])
+    albedo = albedo * (0.9 + 0.1 * rng.random((s_kd, s_kd, 1)))
+    yy, xx = np.mgrid[0:s_n, 0:s_n] * (2.0 * np.pi * 6.0 / s_n)
+    n = np.stack([0.35 * np.sin(xx), 0.35 * np.sin(yy),
+                  np.ones_like(xx)], -1)
+    n += 0.05 * rng.standard_normal(n.shape)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    spec = 0.1 + 0.8 * rng.random((s_ks, s_ks, 1)) * np.ones(3)
+    u8 = lambda a: np.clip(np.rint(a * 255.0), 0, 255).astype(np.uint8)
+    return u8(albedo), u8(n * 0.5 + 0.5), u8(spec)
+
+
+def write_production_scene(out_dir: str, sizes=PROD_SIZES,
+                           seed: int = 0) -> str:
+    """The production luxball, written into ``out_dir`` from a seed:
+    production.obj (data/luxball/luxball.obj with planar uvs, u = x / 2,
+    v = z / 2, so the ground's maps repeat and wrap), production.mtl,
+    seeded albedo, normal and specular PNGs (``sizes`` are their edge
+    lengths) and production.sc.json. Instance A: the ground diffuse with
+    an albedo map (map_Kd) and a normal map (map_bump), the core glossy
+    with a specular map (map_Ks, Ns 200) and the glass rough dielectric
+    (Ns 500). Instance B, beside it: no ground, the core overridden to
+    rough reflection and the glass to ideal dielectric. So every lobe but
+    emissive and every map type is in the scene. Returns the .sc.json's
+    path."""
+    from PIL import Image
+    os.makedirs(out_dir, exist_ok=True)
+    lines = []
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, LUXBALL)) as f:
+        for raw in f:
+            parts = raw.split()
+            if parts and parts[0] == "mtllib":
+                lines.append("mtllib production.mtl\n")
+            elif parts and parts[0] == "v":
+                # the vertex's planar uv, so vertex i and uv i pair up
+                x, z = float(parts[1]), float(parts[3])
+                lines += [raw, f"vt {x / 2.0:.6f} {z / 2.0:.6f}\n"]
+            elif parts and parts[0] == "f":
+                lines.append("f " + " ".join(f"{i}/{i}" for i in parts[1:])
+                             + "\n")
+            else:
+                lines.append(raw)
+    with open(os.path.join(out_dir, "production.obj"), "w") as f:
+        f.writelines(lines)
+    with open(os.path.join(out_dir, "production.mtl"), "w") as f:
+        f.write(PROD_MTL)
+    for name, img in zip(("albedo", "normal", "specular"),
+                         _production_maps(sizes, seed)):
+        Image.fromarray(img, "RGB").save(
+            os.path.join(out_dir, f"{name}.png"), compress_level=1)
+    path = os.path.join(out_dir, "production.sc.json")
+    with open(path, "w") as f:
+        json.dump([{"file": "production.obj"},
+                   {"file": "production.obj", **PROD_INSTANCE_B}], f,
+                  indent=1)
+    return path
+
+
+def production_info(r, write_s):
+    """The production scene's make-up, as loaded."""
+    from fluctus_tpu_torch import bxdf_types as bx
+    ds, sc = r.device_scene, r.device_scene.mxu
+    atlas = ds.atlas
+    return dict(
+        triangles=r.scene.num_triangles, n_clusters=sc.n_clusters,
+        lobes=[bx.type_name(t) for t in bx.ALL_TYPES
+               if ds.material_types & t],
+        textures=[(t.name, t.width, t.height) for t in r.scene.textures],
+        texels=int(atlas.texels.numel()), has_tex_meta=sc.has_tex_meta,
+        tri_frames=ds.tri_frames is not None, scene_write_s=write_s,
+        host_steps=r.load_seconds)
+
+
+def check_textured_resolves(rec_calls, sc):
+    """11a: K3's recorded calls of segments 2 and 4 on the textured
+    tables: the share of hit lanes whose material has a map (rows 22-24)
+    and, of those, the share whose descriptor rows 29-34 are non-zero
+    (both must be > 0); K6 on the same calls and K10 on the same winners
+    with the tables' (``sc``) f32 attrs, each bit for bit against its plain
+    version, with rows 22-25 (map indices, triangle) equal to K3's and
+    the largest difference of K10's interpolated descriptor rows from
+    K3's reported. Returns the printed dict."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    out, tex, hits, desc = {}, 0, 0, 0
+    k10_desc = 0.0
+    for seg in (2, 4):
+        for args, _ in rec_calls[(seg, "resolve_v5")]:
+            col, o4, d4, b16r, t16r = args
+            k3 = mt.resolve_v5(*args)
+            hit = col >= 0
+            maps = (k3[mt.ATTR_MAP_KD:mt.ATTR_MAP_N + 1] > -0.5).any(0) & hit
+            nz = (k3[mt.ATTR_TKD_WH:mt.ATTR_TN_OFF + 1] != 0).any(0)
+            hits += int(hit.sum())
+            tex += int(maps.sum())
+            desc += int((maps & nz).sum())
+            k6 = mt.resolve_v5s(*args)
+            if not (torch.equal(k6.view(torch.int32), mt.resolve_v5s_plain(
+                    *args).view(torch.int32))
+                    and torch.equal(k6.view(torch.int32),
+                                    k3.view(torch.int32))):
+                raise AssertionError(f"11a: K6 differs from its plain "
+                                     f"version or K3 (segment {seg})")
+            v1 = (col, o4, d4, sc.txy_t, sc.attrs, sc.cluster_size)
+            k10 = mt.resolve_v1(*v1)
+            if not torch.equal(k10.view(torch.int32),
+                               mt.resolve_v1_plain(*v1).view(torch.int32)):
+                raise AssertionError(f"11a: K10 differs from its plain "
+                                     f"version (segment {seg})")
+            rows = slice(mt.ATTR_MAP_KD, mt.ATTR_TRI + 1)
+            if not torch.equal(torch.round(k10[rows]), torch.round(k3[rows])):
+                raise AssertionError(f"11a: K10's map/triangle rows differ "
+                                     f"from K3's (segment {seg})")
+            dr = slice(mt.ATTR_TKD_WH, mt.ATTR_TN_OFF + 1)
+            k10_desc = max(k10_desc, float((k10[dr] - k3[dr]).abs().max()))
+    out.update(hit_lanes=hits, textured_share_of_hits=tex / max(hits, 1),
+               descriptor_share_of_textured=desc / max(tex, 1),
+               k6_equal_k3=True, k10_desc_max_abs_diff_vs_k3=k10_desc)
+    if not (tex > 0 and desc == tex):
+        raise AssertionError(f"11a: textured lanes {tex}, with descriptors "
+                             f"{desc}")
+    return out
+
+
+def tex_lookup_ms(r):
+    """Device ms and device operations of one segment's texture work on
+    the current pool: apply_textures (Kd with its gamma, Ks) and the
+    normal mapping of every lane's resolved hit."""
+    from fluctus_tpu_torch.bsdf import apply_textures
+    from fluctus_tpu_torch.core.integrator_wf import (wf_resolve_phase,
+                                                      wf_trace_phase)
+    from fluctus_tpu_torch.core.trace import tangent_space_normal
+    ds, cfg, pool = r.device_scene, r._wf_cfg, r._wf_state.pool
+    raw, _ = wf_trace_phase(ds, pool, r.params, cfg)
+    hit, sp = wf_resolve_phase(ds, pool, r.params, cfg, raw)
+
+    def lookups():
+        s2 = apply_textures(sp, hit.uv_u, hit.uv_v, ds.atlas)
+        tangent_space_normal(hit, ds.tri_frames, s2.map_N, ds.atlas,
+                             meta=s2.n_meta)
+    return device_ms_of(lookups)
+
+
+def roulette_share(r):
+    """The share of the pool's lanes that Russian roulette ends in the
+    next segment: its first draw above the clamped luminance of the
+    throughput, on lanes past MIN_PATH_LENGTH that no depth limit ends
+    (integrator_wf.wf_logic_phase's test, read from the pool)."""
+    import torch
+    from fluctus_tpu_torch.geom import MIN_PATH_LENGTH
+    from fluctus_tpu_torch.rng import rand
+    from fluctus_tpu_torch.vec import luminance
+    pool, cfg = r._wf_state.pool, r._wf_cfg
+    plen = pool.path_len + 1
+    u, _ = rand(pool.seed)
+    cp = torch.clamp(luminance(pool.T), 0.01, 0.5)
+    live = (plen > MIN_PATH_LENGTH) & (plen < cfg.max_bounces + 1)
+    return float((live & (u > cp)).float().mean())
+
+
+def exact_with_roulette(r, spp):
+    """The capped wavefront (render_single_wavefront's loop: 16 segments
+    between checks of the least spp) from a fresh 1M-path pool with
+    Russian roulette on, which render_single turns off as the reference
+    does. Returns (state, segments)."""
+    import torch
+    from fluctus_tpu_torch.core.integrator_wf import wf_reset, wf_segment
+    cfg = r.config.replace(max_spp=1, use_roulette=True)
+    params = r.params._replace(max_spp=torch.tensor(
+        spp, dtype=torch.int32, device=r.device))
+    state = wf_reset(cfg, 1 << 20, world_radius=r.world_radius,
+                     device=r.device)
+    segments = 0
+    while segments < 4096:
+        for _ in range(16):
+            state, _ = wf_segment(r.device_scene, params, state, cfg)
+            segments += 1
+        if int(state.spp.min()) >= spp:
+            break
+    return state, segments
+
+
+def phase_production(card, lux_kres):
+    """Phases 11a-11e (see the module docstring). ``lux_kres`` holds phase
+    2's kernel results (K2 on luxball's rays). Returns the launches of its
+    timed main-path runs by kernel."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.integrator_mk import Film, render_sample
+    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    t0 = time.perf_counter()
+    data_dir = fresh_dir()
+    scene = write_production_scene(fresh_dir(), PROD_SIZES, seed=11)
+    write_s = time.perf_counter() - t0
+    r = make_renderer(1920, 1080, "cuda", scene, data_dir=data_dir)
+    info = production_info(r, write_s)
+    want = {"diffuse", "glossy", "rough_reflection", "rough_dielectric",
+            "ideal_dielectric"}
+    if not (set(info["lobes"]) == want and info["has_tex_meta"]
+            and info["tri_frames"] and len(info["textures"]) == 3
+            and info["n_clusters"] <= 96):
+        raise AssertionError(f"11: not the production scene: {info}")
+    launches = {}
+
+    def add(counts_):
+        for k, v in counts_.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 11a: K1-K4 (and K6, K10 on K3's calls) on textured segments, then
+    # the timed wavefront
+    rec = record_segments(r)
+    kres = check_luxball_kernels(rec, "production")
+    tex = check_textured_resolves(rec, r.device_scene.mxu)
+    lux = lux_kres["trace_rol"]
+    emit(dict(phase="production_kernels_vs_plain", card=card, **info,
+              **kres, textured=tex,
+              trace_rol_luxball=dict(ms=lux["ms"],
+                                     any_hit_ms=lux["any_hit"]["ms"])))
+    la, main = phase_main(r, card, scene, PROD_SEGMENTS, PER_SEGMENT,
+                          extra=dict(cell="11a production"))
+    add(la)
+    prof = profile_segments(r, card, main["ms_per_segment"])
+    look, ops = tex_lookup_ms(r)
+    emit(dict(phase="tex_lookup", cell="11a production", card=card,
+              device_ms_per_segment=look, device_ops_per_segment=ops,
+              share_of_device_ms=look / prof["device_ms_per_segment"]))
+
+    # 11a with the env map (the teapot map, single-read route)
+    r.scene.load_env_map(ENV_FILE)
+    r.device_scene = r.device_scene._replace(
+        env=r.scene.envmap.device_tables(r.device))
+    r.settings.use_env_map = True
+    r.rebuild_config()
+    kres_env = check_luxball_kernels(record_segments(r), "production env")
+    emit(dict(phase="production_env_kernels_vs_plain", card=card,
+              **env_route(r), **kres_env))
+    le, _ = phase_main(r, card, scene, PROD_ENV_SEGMENTS, PER_SEGMENT,
+                       extra=dict(env_route(r), cell="11a production + env"))
+    add(le)
+    r.settings.use_env_map = False
+
+    # 11b: Russian roulette
+    r.settings.use_russian_roulette = True
+    r.rebuild_config()
+    lb, main_rr = phase_main(r, card, scene, PROD_RR_SEGMENTS, PER_SEGMENT,
+                             extra=dict(cell="11b roulette"))
+    add(lb)
+    shares = []
+    for _ in range(4):
+        shares.append(roulette_share(r))
+        r.render_wavefront(1)
+    emit(dict(phase="roulette", card=card, segments_after_timed=4,
+              ended_share_per_segment=shares,
+              mrays_per_s=main_rr["mrays_per_s"],
+              ms_per_segment=main_rr["ms_per_segment"],
+              without_roulette=dict(mrays_per_s=main["mrays_per_s"],
+                                    ms_per_segment=main["ms_per_segment"])))
+    if not any(shares):
+        raise AssertionError("11b: roulette ended no path")
+
+    # 11c: exact spp; render_single with roulette set (it runs without, as
+    # the reference's), then the capped wavefront with roulette on
+    r.reset()
+    torch.cuda.synchronize()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    film = r.render_single(PROD_SPP)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    lc, plain = counts()
+    segments = len(r._wf_counters)
+    spp = unpad_pixels(r._wf_state.spp, r.config)
+    exact = bool((spp == PROD_SPP).all() and (film.weight == PROD_SPP).all())
+    check_launches(lc, plain, PER_SEGMENT_EXACT, segments,
+                   "production exact path")
+    add({k: lc[k] for k in ("block_splat_capped", "fetch")})
+    with ExactRecorder() as rec:
+        state, rr_segments = exact_with_roulette(r, PROD_SPP)
+    k7, k8 = check_exact_kernels(rec)
+    rr_spp = unpad_pixels(state.spp, r.config)
+    rr_w = unpad_pixels(state.film.weight, r.config)
+    rr_exact = bool((rr_spp == PROD_SPP).all() and (rr_w == PROD_SPP).all())
+    emit(dict(phase="production_exact", card=card, spp=PROD_SPP,
+              seconds=elapsed, segments=segments,
+              mrays_per_s=r.perf_mrays(elapsed)["total"],
+              render_single_roulette=r._wf_cfg.use_roulette,
+              spp_and_weight_exact=exact, launches=lc, plain_runs=plain,
+              roulette_segments=rr_segments,
+              roulette_spp_and_weight_exact=rr_exact,
+              block_splat_capped=k7, fetch=k8))
+    if not (exact and rr_exact):
+        raise AssertionError(f"11c: exact {exact}, with roulette "
+                             f"{rr_exact}")
+
+    # 11d: one megastep sample with roulette on (render_sample itself:
+    # render_single turns roulette off)
+    depth = r.config.max_bounces
+    npx = r.config.num_pixels
+    torch.cuda.synchronize()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    mfilm, _, st = render_sample(
+        r.device_scene, r.params, Film.zeros(npx, r.device),
+        torch.arange(npx, dtype=torch.int64, device=r.device), r.config)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    lm, plain = counts()
+    ok = bool((mfilm.weight == 1).all()
+              and all(torch.isfinite(c).all() for c in mfilm.color))
+    emit(dict(phase="production_mk", card=card, roulette=True,
+              depth=depth, seconds_per_sample=elapsed, rays=st._asdict(),
+              launches=lm, plain_runs=plain, weight_exact_and_finite=ok))
+    check_launches(lm, plain, PER_BOUNCE_MK, depth + 1, "production mk")
+    if not ok:
+        raise AssertionError("11d: weight or film wrong")
+    del r
+    torch.cuda.empty_cache()
+
+    # 11e: whole-path parity, kernels vs plain versions
+    for switches in PROD_PARITY:
+        phase_parity(scene, data_dir=data_dir, switches=switches)
+    return launches
+
+
 def sweep_build_info(kb):
     """Per instantiation of K2, K5 and K9 (closest-hit, any-hit): registers,
     spill bytes and shared memory from ptxas (-Xptxas -v), and for a
@@ -2107,7 +2522,7 @@ def main():
 
 
 def run(kb):
-    """Phases 1-10 (see the module docstring)."""
+    """Phases 1-11 (see the module docstring)."""
     import torch
 
     # phase 1: device and build
@@ -2206,12 +2621,18 @@ def run(kb):
     # phase 9: the env map (9a-9e)
     phase_env(card, main)
 
+    # phase 11: the production luxball (11a-11e)
+    launches_p = phase_production(card, kres)
+
     # phase 10: result lines
-    main_launches = {k: launches[k] + launches_l[k] for k in SOURCES}
-    main_launches.update(block_splat_capped=launches_x["block_splat_capped"],
-                         fetch=launches_x["fetch"],
-                         trace_ros=launches_ros["trace_ros"],
-                         resolve_v1=launches_k10["resolve_v1"])
+    main_launches = {k: launches[k] + launches_l[k] + launches_p.get(k, 0)
+                     for k in SOURCES}
+    main_launches.update(
+        block_splat_capped=(launches_x["block_splat_capped"]
+                            + launches_p["block_splat_capped"]),
+        fetch=launches_x["fetch"] + launches_p["fetch"],
+        trace_ros=launches_ros["trace_ros"],
+        resolve_v1=launches_k10["resolve_v1"])
     emit(kernels_line(kres, main_launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -264,6 +264,33 @@ def _cut_clusters(bvh: BVHArrays, cluster_size: int):
              for j, i in enumerate(cut)], counts, lo)
 
 
+def _bake_tex_meta(a, atlas, materials, mid):
+    """Write the atlas descriptors of each triangle's Kd, Ks and normal
+    maps into the attribute rows ``a`` [Mpad, 3, ATTR_COLS] (the
+    reference's mxu_trace.py:462-490): w * 4096 + h and the offset, 0 and
+    0 where the material has no such map."""
+    tw = np.array(atlas.width_t, np.int32)
+    th = np.array(atlas.height_t, np.int32)
+    toff = np.array(atlas.offset_t, np.int32)
+    if tw.max() >= 4096 or th.max() >= 4096:
+        raise ValueError("texture sizes must fit the wh-pack (w, h < 4096)")
+    if toff.max() >= (1 << 24):
+        raise ValueError("atlas offsets must be exact in float32 (< 2^24)")
+    for get, wh_col, off_col in ((lambda m: m.map_Kd, ATTR_TKD_WH,
+                                  ATTR_TKD_OFF),
+                                 (lambda m: m.map_Ks, ATTR_TKS_WH,
+                                  ATTR_TKS_OFF),
+                                 (lambda m: m.map_N, ATTR_TN_WH,
+                                  ATTR_TN_OFF)):
+        ti = np.array([get(m) for m in materials], np.int32)[mid]
+        ok = ti >= 0
+        ts = np.maximum(ti, 0)
+        a[:, :, wh_col] = np.where(ok, tw[ts] * 4096 + th[ts], 0).astype(
+            np.float32)[:, None]
+        a[:, :, off_col] = np.where(ok, toff[ts], 0).astype(
+            np.float32)[:, None]
+
+
 class MXUScene:
     """Host build of the cluster tables (the reference's
     ``MXUScene.build(..., return_host=True)``); ``tables_from_numpy``
@@ -274,13 +301,19 @@ class MXUScene:
               cluster_size: int = 256, normals: Optional[np.ndarray] = None,
               uvs: Optional[np.ndarray] = None,
               mat_ids: Optional[np.ndarray] = None,
-              materials=None, slim: bool = False):
+              materials=None, atlas=None, slim: bool = False):
         """positions: [M,3,3] world-space triangle vertices; materials: an
-        optional HostMaterial list, baked per triangle. ``slim`` (the
+        optional HostMaterial list, baked per triangle; atlas: an optional
+        TextureAtlas whose descriptors (its host tuples ``offset_t``,
+        ``width_t``, ``height_t``) are baked per triangle and map type, as
+        w * 4096 + h and the offset (both exact in float32: w, h < 4096
+        and offsets < 2^24, else ValueError). ``slim`` (the
         renderer sets it past 65,536 triangles) leaves out the tables no
         path of the port reads at that scale, as the reference does:
         ``attrs``, ``attr_b16`` and ``tx/ty/tz``, and ``txy_t`` past
         12 MiB. Returns (host dict of numpy arrays, statics dict)."""
+        tex_meta = (atlas is not None and materials is not None
+                    and atlas.count > 0)
         p = np.asarray(positions, np.float64)
         lo = p.reshape(-1, 3).min(0)
         hi = p.reshape(-1, 3).max(0)
@@ -364,6 +397,8 @@ class MXUScene:
                     a[:, :, ATTR_MAP_KD] = col(lambda m: m.map_Kd)[:, None]
                     a[:, :, ATTR_MAP_KS] = col(lambda m: m.map_Ks)[:, None]
                     a[:, :, ATTR_MAP_N] = col(lambda m: m.map_N)[:, None]
+                    if tex_meta:
+                        _bake_tex_meta(a, atlas, materials, mid)
             a[:, :, ATTR_TRI] = order[:, None].astype(np.float32)
             a[~used] = 0.0
             a_tri = a
@@ -412,7 +447,7 @@ class MXUScene:
             cluster_box=boxes, tri_map=tri_map,
             center=center.astype(np.float32))
         statics = dict(n_clusters=n_clusters, cluster_size=cluster_size,
-                       n_superclusters=n_sc, has_tex_meta=False)
+                       n_superclusters=n_sc, has_tex_meta=tex_meta)
         return host, statics
 
     @staticmethod
@@ -421,12 +456,17 @@ class MXUScene:
         (mxu_trace.py:587-623): a hit loads the npz at ``cache_path`` and
         builds nothing; a miss builds and writes it. The caller keys the
         path by scene hash, materials, split mode, cluster size and
-        TABLE_VERSION. Returns (host dict, statics), as ``build``."""
-        if cache_path and os.path.exists(cache_path):
+        TABLE_VERSION; the texture sizes are not in that key, so the file
+        also records the atlas descriptors it baked (``tex_desc``), and
+        one baked with other descriptors than ``kw["atlas"]``'s counts as
+        a miss (see ``table_cache_fresh``). Returns (host dict, statics),
+        as ``build``."""
+        atlas = kw.get("atlas")
+        if table_cache_fresh(cache_path, atlas):
             return load_table_cache(cache_path)
         host, statics = MXUScene.build(positions, bvh, **kw)
         if cache_path:
-            write_table_cache(cache_path, host, statics)
+            write_table_cache(cache_path, host, statics, tex_desc(atlas))
         return host, statics
 
 
@@ -437,17 +477,46 @@ _STATIC_KEYS = ("n_clusters", "cluster_size", "n_superclusters",
                 "has_tex_meta")
 
 
-def write_table_cache(path: str, host: dict, statics: dict):
+def tex_desc(atlas) -> np.ndarray:
+    """[3, count] int64: each texture's offset in the atlas, width and
+    height, the descriptors ``build`` bakes into the tables ([3, 0]
+    without textures)."""
+    n = 0 if atlas is None else atlas.count
+    if not n:
+        return np.zeros((3, 0), np.int64)
+    return np.array([atlas.offset_t[:n], atlas.width_t[:n],
+                     atlas.height_t[:n]], np.int64)
+
+
+def table_cache_fresh(path: Optional[str], atlas) -> bool:
+    """Whether the table cache at ``path`` exists and baked the same atlas
+    descriptors as ``atlas`` gives: a map replaced by one of another size
+    under the same name moves them. A file without ``tex_desc`` (the
+    reference writes none) baked none."""
+    if not (path and os.path.exists(path)):
+        return False
+    with np.load(path, allow_pickle=False) as z:
+        stored = (z["tex_desc"] if "tex_desc" in z.files
+                  else np.zeros((3, 0), np.int64))
+    return np.array_equal(stored, tex_desc(atlas))
+
+
+def write_table_cache(path: str, host: dict, statics: dict,
+                      desc: Optional[np.ndarray] = None):
     """Write host tables in the reference's npz layout: one array per host
     key, ``np.zeros(())`` for an absent table, the bf16 tables as uint16
-    bit patterns, and the four statics. Written under a temporary name and
-    moved into place, so a concurrent reader never sees half a file."""
+    bit patterns, and the four statics; ``desc`` (``tex_desc``), where
+    given, as one more entry, which the reference does not read. Written
+    under a temporary name and moved into place, so a concurrent reader
+    never sees half a file."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     out = {k: (np.zeros(()) if host.get(k) is None else
                (np.asarray(host[k]).view(np.uint16)
                 if k in ("attr_b16", "b16t") else host[k]))
            for k in _HOST_KEYS}
     out.update({k: statics[k] for k in _STATIC_KEYS})
+    if desc is not None:
+        out["tex_desc"] = desc
     tmp = f"{path}.{os.getpid()}.tmp.npz"   # .npz: savez appends none
     np.savez(tmp, **out)
     os.replace(tmp, path)
@@ -485,6 +554,8 @@ class MXUSceneT(NamedTuple):
                                (K10): cluster c's rows [c 3tc, (c+1) 3tc)
                                hold v0 of its triangles, then v1, then v2;
                                None on slim tables
+    has_tex_meta               whether the B16 and attrs rows carry the
+                               atlas descriptors (ATTR_T*_WH/OFF)
 
     The reference's cluster-blocked ``b16t``/``t12b`` layouts are re-packed
     into ``b16r``/``t16r`` on the host and not uploaded: no kernel reads
@@ -507,6 +578,7 @@ class MXUSceneT(NamedTuple):
     tz: Optional[torch.Tensor] = None
     txy_t: Optional[torch.Tensor] = None
     attrs: Optional[torch.Tensor] = None
+    has_tex_meta: bool = False
 
 
 def _bf16_tensor(a, device):
@@ -551,7 +623,7 @@ def tables_from_numpy(host: dict, statics: dict, device) -> MXUSceneT:
         n_clusters=ncl, cluster_size=tc,
         n_superclusters=statics["n_superclusters"],
         tx=opt("tx"), ty=opt("ty"), tz=opt("tz"), txy_t=opt("txy_t"),
-        attrs=opt("attrs"))
+        attrs=opt("attrs"), has_tex_meta=bool(statics["has_tex_meta"]))
 
 
 def resolve_table_bytes(n_clusters: int, tc: int) -> int:

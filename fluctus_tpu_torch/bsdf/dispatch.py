@@ -2,10 +2,10 @@
 ``scene_types`` bitmask) is evaluated over the whole batch and selected per
 lane, as the reference package's masked superkernel (bsdf/dispatch.py).
 
-Ported lobes: diffuse (and mixed, which the reference short-circuits to
-diffuse, bxdf.cl:30-32), ideal mirror, ideal dielectric and emissive. A
-scene naming glossy, GGX rough reflection or rough dielectric raises
-``NotImplementedError`` (see ``check_lobes``).
+The lobes: diffuse (and mixed, which the reference short-circuits to
+diffuse, bxdf.cl:30-32), glossy (a diffuse base under a GGX coat), GGX
+rough reflection, GGX rough dielectric, ideal mirror, ideal dielectric
+and emissive.
 
 Conventions follow src/bxdf.cl: dir_in points toward the surface; sample
 returns (dir_out, pdf_w, bsdf). Emissive sampling gives pdf = 0, which ends
@@ -21,21 +21,11 @@ import torch
 from .. import bxdf_types as bx
 from ..rng import rand_n
 from ..sampling import INV_PI, cos_sample_hemisphere_uv
-from ..vec import Vec3, dot, normalize, reflect0, refract1
+from ..texture_fetch import mat_get_albedo, mat_get_float3
+from ..vec import Vec3, dot, is_zero, normalize, reflect0, refract1
 from ..vec import where as vwhere
-from .fresnel import fresnel_dielectric_cos_t
-
-PORTED_LOBES = (bx.BXDF_DIFFUSE | bx.BXDF_MIXED | bx.BXDF_IDEAL_REFLECTION
-                | bx.BXDF_IDEAL_DIELECTRIC | bx.BXDF_EMISSIVE)
-
-
-def check_lobes(scene_types: int):
-    """Raise for BXDF lobes the port does not have yet."""
-    for t in bx.ALL_TYPES:
-        if scene_types & t and not t & PORTED_LOBES:
-            raise NotImplementedError(
-                f"BXDF lobe '{bx.type_name(t)}' is not ported to "
-                "fluctus_tpu_torch yet")
+from . import ggx
+from .fresnel import fresnel_dielectric, fresnel_dielectric_cos_t
 
 
 class ShadingParams(NamedTuple):
@@ -51,13 +41,30 @@ class ShadingParams(NamedTuple):
     map_N: torch.Tensor
     map_Kd: torch.Tensor
     map_Ks: torch.Tensor
+    # per-lane atlas descriptors (off, w, h) baked into the tables (the
+    # resolve's ATTR_T*_WH/OFF rows), or None: then each fetch gathers
+    # them from the atlas
+    kd_meta: tuple = None
+    ks_meta: tuple = None
+    n_meta: tuple = None
 
 
-def apply_textures(sp: ShadingParams, uv_u, uv_v):
-    """Overlay Kd/Ks textures onto the baked material parameters. The port
-    has no texture atlas yet (scenes with textures are refused at load),
-    so this is the reference's empty-atlas branch: the identity
-    (dispatch.py:76)."""
+def apply_textures(sp: ShadingParams, uv_u, uv_v, atlas) -> ShadingParams:
+    """Overlay the Kd (gamma-linearized) and Ks textures onto the baked
+    material parameters on the lanes whose material has the map
+    (dispatch.py:67-86). The identity without textures; a map type no
+    material uses is not fetched."""
+    if atlas is None or atlas.count == 0:
+        return sp
+    z = Vec3.zeros(sp.alpha.shape, sp.alpha.device)
+    if atlas.has_kd:
+        kd = mat_get_albedo(z, uv_u, uv_v, sp.map_Kd, atlas,
+                            meta=sp.kd_meta)
+        sp = sp._replace(Kd=vwhere(sp.map_Kd >= 0, kd, sp.Kd))
+    if atlas.has_ks:
+        ks = mat_get_float3(z, uv_u, uv_v, sp.map_Ks, atlas,
+                            meta=sp.ks_meta)
+        sp = sp._replace(Ks=vwhere(sp.map_Ks >= 0, ks, sp.Ks))
     return sp
 
 
@@ -78,11 +85,34 @@ def _inv_cos(cos_o):
                        1.0 / torch.where(cos_o == 0.0, 1.0, cos_o), 0.0)
 
 
+# ---------------------------------------------------------------------------
+# Glossy helpers (glossy.cl:12-35)
+# ---------------------------------------------------------------------------
+
+def _eta_to_ks(eta):
+    r = torch.where(eta > 0.0, (eta - 1.0) / (eta + 1.0), 0.0)
+    return r * r
+
+
+def _ks_to_eta(ks: Vec3):
+    k = torch.clamp((ks.x + ks.y + ks.z) / 3.0, 0.0, 0.99)
+    s = torch.sqrt(k)
+    return (s + 1.0) / (1.0 - s)
+
+
+def _glossy_params(sp: ShadingParams):
+    """Ks and Ni, each filled in from the other where unset (glossy.cl:
+    30-35)."""
+    ni = torch.where(sp.Ni > 0.0, sp.Ni, _ks_to_eta(sp.Ks))
+    ks_auto = _eta_to_ks(ni)
+    ks = vwhere(is_zero(sp.Ks), Vec3(ks_auto, ks_auto, ks_auto), sp.Ks)
+    return ks, ni
+
+
 def bxdf_sample(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3, seed,
                 scene_types: int):
     """Sample the continuation direction. Returns (dir_out, pdf_w, bsdf,
-    seed). Always consumes exactly 3 RNG draws."""
-    check_lobes(scene_types)
+    seed). Always consumes exactly 3 RNG draws, whatever the lobe."""
     (ra, rb, rc), seed = rand_n(seed, 3)
     t = sp.type
     shp = n.x.shape
@@ -91,25 +121,52 @@ def bxdf_sample(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3, seed,
     pdf = torch.zeros(shp, dtype=torch.float32, device=dev)
     bsdf = Vec3.zeros(shp, dev)
 
+    def put(m, d, p, f):
+        return vwhere(m, d, d_out), torch.where(m, p, pdf), vwhere(m, f, bsdf)
+
     if scene_types & (bx.BXDF_DIFFUSE | bx.BXDF_MIXED | bx.BXDF_EMISSIVE):
         d, p = cos_sample_hemisphere_uv(n, ra, rb)
-        f = sp.Kd * INV_PI
-        m = _sel(t, bx.BXDF_DIFFUSE, bx.BXDF_MIXED)
-        d_out = vwhere(m, d, d_out)
-        pdf = torch.where(m, p, pdf)
-        bsdf = vwhere(m, f, bsdf)
-        me = _sel(t, bx.BXDF_EMISSIVE)
-        bsdf = vwhere(me, Vec3.ones(shp, dev), bsdf)
+        d_out, pdf, bsdf = put(_sel(t, bx.BXDF_DIFFUSE, bx.BXDF_MIXED), d, p,
+                               sp.Kd * INV_PI)
+        bsdf = vwhere(_sel(t, bx.BXDF_EMISSIVE), Vec3.ones(shp, dev), bsdf)
+
+    if scene_types & bx.BXDF_GLOSSY:
+        # both sub-lobes sampled, one picked by Fresnel and their pdfs and
+        # values blended (glossy.cl:37-63)
+        ks, ni = _glossy_params(sp)
+        fr = fresnel_dielectric(-dot(dir_in, n), 1.0, ni)
+        pick_spec = ra < fr
+        d_spec, p_spec, f_spec = ggx.sample_reflect(n, ks, sp.alpha, ni,
+                                                    dir_in, rb, rc)
+        d_diff, _ = cos_sample_hemisphere_uv(n, rb, rc)
+        d = vwhere(pick_spec, d_spec, d_diff)
+        base_pdf = dot(n, d) * INV_PI
+        coat_pdf = torch.where(pick_spec, p_spec,
+                               ggx.pdf_reflect(n, sp.alpha, dir_in, d))
+        coat_f = vwhere(pick_spec, f_spec,
+                        ggx.eval_reflect(n, ks, sp.alpha, ni, dir_in, d))
+        p = (1.0 - fr) * base_pdf + fr * coat_pdf
+        f = sp.Kd * INV_PI * (1.0 - fr) + coat_f  # the coat has its Fresnel
+        f = vwhere(dot(n, d) < 1e-5, Vec3.zeros(shp, dev), f)
+        d_out, pdf, bsdf = put(_sel(t, bx.BXDF_GLOSSY), d, p, f)
+
+    if scene_types & bx.BXDF_GGX_ROUGH_REFLECTION:
+        d, p, f = ggx.sample_reflect(n, sp.Ks, sp.alpha, sp.Ni, dir_in, ra,
+                                     rb)
+        d_out, pdf, bsdf = put(_sel(t, bx.BXDF_GGX_ROUGH_REFLECTION), d, p,
+                               f)
+
+    if scene_types & bx.BXDF_GGX_ROUGH_DIELECTRIC:
+        d, p, f = ggx.sample_refract(n, sp.Ks, sp.alpha, sp.Ni, backface,
+                                     dir_in, ra, rb, rc)
+        d_out, pdf, bsdf = put(_sel(t, bx.BXDF_GGX_ROUGH_DIELECTRIC), d, p,
+                               f)
 
     if scene_types & bx.BXDF_IDEAL_REFLECTION:
         # ideal_reflection.cl:9-21
         d = reflect0(dir_in, n)
-        cos_o = dot(normalize(d), n)
-        f = sp.Ks * _inv_cos(cos_o)
-        m = _sel(t, bx.BXDF_IDEAL_REFLECTION)
-        d_out = vwhere(m, d, d_out)
-        pdf = torch.where(m, 1.0, pdf)
-        bsdf = vwhere(m, f, bsdf)
+        f = sp.Ks * _inv_cos(dot(normalize(d), n))
+        d_out, pdf, bsdf = put(_sel(t, bx.BXDF_IDEAL_REFLECTION), d, 1.0, f)
 
     if scene_types & bx.BXDF_IDEAL_DIELECTRIC:
         # ideal_dielectric.cl:10-45
@@ -122,14 +179,9 @@ def bxdf_sample(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3, seed,
         d_refl = refract_reflect(dir_in, n, cos_i)
         d_refr = refract1(dir_in, n, eta, cos_i, cos_t)
         d = vwhere(refl, d_refl, d_refr)
-        absorb = sp.Ks * (eta * eta)
-        f3 = vwhere(refl, Vec3.ones(shp, dev), absorb)
-        cos_o = dot(normalize(d), n)
-        f3 = f3 * _inv_cos(cos_o)
-        m = _sel(t, bx.BXDF_IDEAL_DIELECTRIC)
-        d_out = vwhere(m, d, d_out)
-        pdf = torch.where(m, 1.0, pdf)
-        bsdf = vwhere(m, f3, bsdf)
+        f3 = vwhere(refl, Vec3.ones(shp, dev), sp.Ks * (eta * eta))
+        f3 = f3 * _inv_cos(dot(normalize(d), n))
+        d_out, pdf, bsdf = put(_sel(t, bx.BXDF_IDEAL_DIELECTRIC), d, 1.0, f3)
 
     return d_out, pdf, bsdf, seed
 
@@ -137,12 +189,25 @@ def bxdf_sample(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3, seed,
 def bxdf_eval(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3,
               dir_out: Vec3, scene_types: int) -> Vec3:
     """bxdfEval (bxdf.cl:112-203); singular lobes evaluate to 0."""
-    check_lobes(scene_types)
     t = sp.type
     out = Vec3.zeros(n.x.shape, n.x.device)
     if scene_types & (bx.BXDF_DIFFUSE | bx.BXDF_MIXED):
         m = _sel(t, bx.BXDF_DIFFUSE, bx.BXDF_MIXED)
         out = vwhere(m, sp.Kd * INV_PI, out)
+    if scene_types & bx.BXDF_GLOSSY:
+        ks, ni = _glossy_params(sp)
+        coat = ggx.eval_reflect(n, ks, sp.alpha, ni, dir_in, dir_out)
+        fr = fresnel_dielectric(-dot(dir_in, n), 1.0, ni)
+        out = vwhere(_sel(t, bx.BXDF_GLOSSY),
+                     sp.Kd * INV_PI * (1.0 - fr) + coat, out)
+    if scene_types & bx.BXDF_GGX_ROUGH_REFLECTION:
+        out = vwhere(_sel(t, bx.BXDF_GGX_ROUGH_REFLECTION),
+                     ggx.eval_reflect(n, sp.Ks, sp.alpha, sp.Ni, dir_in,
+                                      dir_out), out)
+    if scene_types & bx.BXDF_GGX_ROUGH_DIELECTRIC:
+        out = vwhere(_sel(t, bx.BXDF_GGX_ROUGH_DIELECTRIC),
+                     ggx.eval_refract(n, sp.Ks, sp.alpha, sp.Ni, backface,
+                                      dir_in, dir_out), out)
     if scene_types & bx.BXDF_EMISSIVE:
         m = _sel(t, bx.BXDF_EMISSIVE)
         out = vwhere(m, sp.Ke, out)
@@ -152,10 +217,23 @@ def bxdf_eval(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3,
 def bxdf_pdf(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3,
              dir_out: Vec3, scene_types: int):
     """bxdfPdf (bxdf.cl:206-296); singular lobes have pdf 0."""
-    check_lobes(scene_types)
     t = sp.type
     out = torch.zeros(n.x.shape, dtype=torch.float32, device=n.x.device)
     if scene_types & (bx.BXDF_DIFFUSE | bx.BXDF_MIXED):
         m = _sel(t, bx.BXDF_DIFFUSE, bx.BXDF_MIXED)
         out = torch.where(m, dot(n, dir_out) * INV_PI, out)
+    if scene_types & bx.BXDF_GLOSSY:
+        _, ni = _glossy_params(sp)
+        base = dot(n, dir_out) * INV_PI
+        coat = ggx.pdf_reflect(n, sp.alpha, dir_in, dir_out)
+        fr = fresnel_dielectric(-dot(dir_in, n), 1.0, ni)
+        out = torch.where(_sel(t, bx.BXDF_GLOSSY),
+                          (1.0 - fr) * base + fr * coat, out)
+    if scene_types & bx.BXDF_GGX_ROUGH_REFLECTION:
+        out = torch.where(_sel(t, bx.BXDF_GGX_ROUGH_REFLECTION),
+                          ggx.pdf_reflect(n, sp.alpha, dir_in, dir_out), out)
+    if scene_types & bx.BXDF_GGX_ROUGH_DIELECTRIC:
+        out = torch.where(_sel(t, bx.BXDF_GGX_ROUGH_DIELECTRIC),
+                          ggx.pdf_refract(n, sp.alpha, sp.Ni, backface,
+                                          dir_in, dir_out), out)
     return out

@@ -10,12 +10,13 @@ fusing nextVertex (trace + implicit env and area-light hits with MIS,
 mk_next_vertex.cl:72-117) and sampleBsdf (NEE toward the env map and
 toward the area light, each with its own shadow ray; BSDF continuation,
 mk_sample_bsdf.cl:68-187). The per-pixel phase machine becomes an
-``alive`` mask; every lane is traced every bounce. Ported for the
-configurations the port has: the env map and the area light each on or
-off, implicit and explicit sampling, no denoiser, no Russian roulette
-(render_single forces it off). MIS weights, offsets (1e-3 shadow origin,
-1e-4 continuation origin) and the lightPickProb = 1 convention are the
-reference's.
+``alive`` mask; every lane is traced every bounce. The env map and the
+area light are each on or off, implicit light hits and NEE each on or off
+(MIS between them when both are), Russian roulette past MIN_PATH_LENGTH
+when ``config.use_roulette`` (``Renderer.render_single`` turns it off, as
+the reference's), textures and normal maps; no denoiser. MIS weights,
+offsets (1e-3 shadow origin, 1e-4 continuation origin) and the
+lightPickProb = 1 convention are the reference's.
 """
 
 from __future__ import annotations
@@ -27,10 +28,10 @@ import torch
 from .. import bxdf_types as bx
 from ..bsdf import apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample
 from ..envmap import env_radiance_and_pdf, env_sample
-from ..geom import RenderConfig, RenderParams
+from ..geom import MIN_PATH_LENGTH, RenderConfig, RenderParams
 from ..rng import rand
 from ..sampling import pdf_area_to_solid_angle, sample_area_light
-from ..vec import Vec3, dot, is_zero, length, where as vwhere
+from ..vec import Vec3, dot, is_zero, length, luminance, where as vwhere
 from .camera import generate_camera_rays
 from .trace import tangent_space_normal, trace_extension, trace_shadow
 
@@ -73,35 +74,47 @@ def _bounce(scene, params: RenderParams, cfg: RenderConfig, b: int, s: dict):
     orig, d = s["orig"], s["dir"]
     use_mis = (path_len > 1) & ~s["last_specular"]
 
-    hit, sp = trace_extension(orig, d, scene, light, True, want_shading=True)
+    hit, sp = trace_extension(orig, d, scene, light, cfg.sample_impl,
+                              want_shading=True)
     ext_count = s["ext_count"] + alive.sum()
+    n = alive.shape[0]
 
-    # ---- implicit environment hit (mk_next_vertex.cl:72-95) --------------
+    # ---- implicit environment hit (mk_next_vertex.cl:72-95): the camera
+    # ray's always, later ones with implicit sampling, MIS-weighted when
+    # NEE is on too
     miss = alive & (hit.i < 0)
     if use_env:
         bg_raw, direct_pdf = env_radiance_and_pdf(scene.env, d, cfg.fast_env)
         bg = bg_raw * params.env_map_strength
-        w_mis = s["last_pdf_w"] / torch.clamp_min(
-            s["last_pdf_w"] + direct_pdf, 1e-30)
-        w = torch.where(use_mis, w_mis, 1.0)
+        if not cfg.sample_impl and path_len != 1:
+            bg = Vec3.zeros(n, d.x.device)
+        w = 1.0
+        if cfg.sample_impl and cfg.sample_expl:
+            w_mis = s["last_pdf_w"] / torch.clamp_min(
+                s["last_pdf_w"] + direct_pdf, 1e-30)
+            w = torch.where(use_mis, w_mis, 1.0)
         Ei = vwhere(miss, Ei + T * bg * w, Ei)
     alive = alive & ~miss
 
-    # ---- implicit area light hit (mk_next_vertex.cl:96-117) --------------
+    # ---- implicit area light hit (mk_next_vertex.cl:96-117), MIS-weighted
+    # when NEE is on (the trace only reports it with implicit sampling)
     if light is not None:
         al_hit = alive & (hit.area_light_hit > 0)
-        pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
-        dist = length(hit.P - orig)
-        pdf_w = pdf_area_to_solid_angle(pdf_a, dist, -dot(d, hit.N))
-        w_mis = s["last_pdf_w"] / torch.clamp_min(s["last_pdf_w"] + pdf_w,
-                                                  1e-30)
-        mis_w = torch.where(use_mis, w_mis, 1.0)
+        mis_w = 1.0
+        if cfg.sample_expl:
+            pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
+            dist = length(hit.P - orig)
+            pdf_w = pdf_area_to_solid_angle(pdf_a, dist, -dot(d, hit.N))
+            w_mis = s["last_pdf_w"] / torch.clamp_min(
+                s["last_pdf_w"] + pdf_w, 1e-30)
+            mis_w = torch.where(use_mis, w_mis, 1.0)
         Ei = vwhere(al_hit, Ei + T * light.E * mis_w, Ei)
         alive = alive & ~al_hit
 
     # ---- surface shading (mk_sample_bsdf.cl) -----------------------------
-    sp = apply_textures(sp, hit.uv_u, hit.uv_v)
-    nrm = tangent_space_normal(hit)
+    sp = apply_textures(sp, hit.uv_u, hit.uv_v, scene.atlas)
+    nrm = tangent_space_normal(hit, scene.tri_frames, sp.map_N, scene.atlas,
+                               meta=sp.n_meta)
     backface = dot(nrm, d) > 0.0
     nrm = vwhere(backface, -nrm, nrm)
     nee_orig = hit.P - d * 1e-3
@@ -113,12 +126,13 @@ def _bounce(scene, params: RenderParams, cfg: RenderConfig, b: int, s: dict):
     alive = alive & ~em
     singular = (sp.type & bx.BXDF_SINGULAR_MASK) != 0
 
-    # ---- NEE, lightPickProb = 1: toward the env map (a shadow ray of
-    # 2 world radii that the area light's body also blocks), then toward
-    # the area light (mk_sample_bsdf.cl:68-147)
+    # ---- NEE with explicit sampling, lightPickProb = 1: toward the env
+    # map (a shadow ray of 2 world radii that the area light's body also
+    # blocks), then toward the area light (mk_sample_bsdf.cl:68-147)
     do_nee = alive & ~singular
     shadow_count = s["shadow_count"]
-    if use_env:
+    impl = 1.0 if cfg.sample_impl else 0.0
+    if cfg.sample_expl and use_env:
         u_env, seed = rand(seed)
         L, direct_pdf, env_raw = env_sample(scene.env, u_env, cfg.fast_env)
         len_l = params.world_radius + params.world_radius
@@ -130,13 +144,13 @@ def _bounce(scene, params: RenderParams, cfg: RenderConfig, b: int, s: dict):
         bsdf_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, d, L,
                                             cfg.material_types), 0.0)
         env_li = env_raw * params.env_map_strength
-        denom = direct_pdf + bsdf_pdf
+        denom = direct_pdf + impl * bsdf_pdf
         contrib = brdf * T * env_li * (cos_th / torch.clamp_min(denom,
                                                                 1e-30))
         ok = do_nee & ~occluded & (direct_pdf != 0.0)
         Ei = vwhere(ok, Ei + contrib, Ei)
 
-    if light is not None:
+    if cfg.sample_expl and light is not None:
         pdf_a, pos_l, seed = sample_area_light(light, seed)
         L = pos_l - nee_orig
         len_l = length(L)
@@ -149,16 +163,29 @@ def _bounce(scene, params: RenderParams, cfg: RenderConfig, b: int, s: dict):
         direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l, cos_light)
         bsdf_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, d, L,
                                             cfg.material_types), 0.0)
-        denom = direct_pdf + bsdf_pdf
+        denom = direct_pdf + impl * bsdf_pdf
         contrib = brdf * T * light.E * (cos_th / torch.clamp_min(denom,
                                                                  1e-30))
         ok = do_nee & ~occluded & (cos_light > 0.0)
         Ei = vwhere(ok, Ei + contrib, Ei)
 
+    # ---- Russian roulette (mk_sample_bsdf.cl:148-157): its draw before
+    # the BSDF sample's, the continuation pdf scaled by contProb
+    terminate = ~alive
+    cont_prob = 1.0
+    if cfg.use_roulette:
+        u_rr, seed = rand(seed)
+        cp = torch.clamp(luminance(T), 0.01, 0.5)
+        rr_active = path_len > MIN_PATH_LENGTH
+        cont_prob = cp if rr_active else 1.0
+        if rr_active:
+            terminate = terminate | (u_rr > cp)
+
     # ---- continuation (mk_sample_bsdf.cl:159-187) ------------------------
     d_new, pdf_w, f, seed = bxdf_sample(nrm, sp, backface, d, seed,
                                         cfg.material_types)
-    terminate = ~alive | (pdf_w == 0.0) | is_zero(f)
+    pdf_w = pdf_w * cont_prob
+    terminate = terminate | (pdf_w == 0.0) | is_zero(f)
     new_T = T * f * (dot(nrm, d_new) / torch.where(pdf_w == 0.0, 1.0, pdf_w))
     new_orig = hit.P + d_new * 1e-4
     alive = alive & ~terminate

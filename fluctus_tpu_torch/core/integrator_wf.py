@@ -1,8 +1,10 @@
 """Wavefront (throughput) integrator — the port of the reference package's
 core/integrator_wf.py with the block-bound pool, the area light and the
-env map (each on or off; MIS between implicit hits and NEE, NEE picking
-either light with probability 1/2 when both are on), no Russian
-roulette, no denoiser. With ``config.max_spp == 0`` the splat
+env map (each on or off; NEE picking either light with probability 1/2
+when both are on), implicit light hits and NEE each on or off (MIS
+between them when both are), Russian roulette past MIN_PATH_LENGTH when
+``config.use_roulette``, textures and normal maps, and no denoiser. With
+``config.max_spp == 0`` the splat
 runs free (K4); with ``max_spp > 0`` the exact spp cap (CHECK_SPP) is on:
 each segment reads the per-pixel spp of every path's pixel (K8), ends the
 paths of full pixels unsplatted, and splats through the capped kernel
@@ -33,10 +35,10 @@ from .. import bxdf_types as bx
 from .. import flags
 from ..bsdf import apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample
 from ..envmap import env_radiance_and_pdf, env_sample
-from ..geom import RenderConfig, RenderParams
+from ..geom import MIN_PATH_LENGTH, RenderConfig, RenderParams
 from ..rng import burtle_hash, rand
 from ..sampling import pdf_area_to_solid_angle, sample_area_light
-from ..vec import Vec3, dot, is_zero, length, where as vwhere
+from ..vec import Vec3, dot, is_zero, length, luminance, where as vwhere
 from . import block_splat as bs
 from .camera import generate_camera_rays
 from .integrator_mk import Film
@@ -235,8 +237,8 @@ def wf_resolve_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
                      config: RenderConfig, raw):
     """Winner-attribute resolve + hit construction. Returns (hit, sp)."""
     light = params.area_light if config.use_area_light else None
-    return trace_extension(pool.orig, pool.dir, scene, light, True,
-                           want_shading=True, raw=raw)
+    return trace_extension(pool.orig, pool.dir, scene, light,
+                           config.sample_impl, want_shading=True, raw=raw)
 
 
 def wf_shade_phase(scene: DeviceScene, params: RenderParams, state: WfState,
@@ -276,6 +278,15 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     if cfg.max_bounces > 0:
         terminate |= plen >= (cfg.max_bounces + 1)
 
+    # Russian roulette with the T / contProb compensation (wf_logic.cl:
+    # 62-74); its draw comes before the spp cap's fetch, as the reference's
+    if cfg.use_roulette:
+        u_rr, seed = rand(seed)
+        cp = torch.clamp(luminance(T), 0.01, 0.5)
+        rr = ~terminate & (plen > MIN_PATH_LENGTH)
+        terminate |= rr & (u_rr > cp)
+        T = vwhere(rr, T / cp, T)
+
     max_samples_reached = torch.zeros(n, dtype=torch.bool, device=dev)
     if cfg.max_spp > 0:
         # the cap's value comes from params (spp retargets), its presence
@@ -291,37 +302,49 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     terminate |= is_zero(T) | (pool.last_pdf_w == 0.0)
     use_mis = (plen > 1) & ~pool.last_specular
 
-    # ---- implicit environment hit with MIS (wf_logic.cl:98-122) -----------
+    # ---- implicit environment hit (wf_logic.cl:98-122): the camera ray's
+    # always, later ones with implicit sampling, MIS-weighted when NEE is
+    # on too
     if use_env:
         miss = (hit.i < 0) & ~terminate & (plen > 0)
         bg_raw, direct_pdf = env_radiance_and_pdf(scene.env, pool.dir,
                                                   cfg.fast_env)
         bg = bg_raw * params.env_map_strength
-        actual = pool.last_pdf_w * pool.last_light_pick
-        w_mis = actual / torch.clamp_min(actual + direct_pdf, 1e-30)
-        w = torch.where(use_mis, w_mis, 1.0)
+        if not cfg.sample_impl:
+            bg = vwhere(plen == 1, bg, Vec3.zeros(n, dev))
+        w = 1.0
+        if cfg.sample_impl and cfg.sample_expl:
+            actual = pool.last_pdf_w * pool.last_light_pick
+            w_mis = actual / torch.clamp_min(actual + direct_pdf, 1e-30)
+            w = torch.where(use_mis, w_mis, 1.0)
         Ei = vwhere(miss, Ei + T * bg * w, Ei)
     terminate |= hit.i < 0
 
-    # ---- implicit area light hit with MIS (wf_logic.cl:124-147) -----------
+    # ---- implicit area light hit (wf_logic.cl:124-147), MIS-weighted when
+    # NEE is on (the trace only reports it with implicit sampling)
     if light is not None:
         al = (hit.area_light_hit > 0) & ~terminate
-        pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
-        dist = length(hit.P - pool.orig)
-        pdf_w = pdf_area_to_solid_angle(pdf_a, dist, -dot(pool.dir, hit.N))
-        w_mis = pool.last_pdf_w / torch.clamp_min(
-            pool.last_pdf_w + pdf_w * pool.last_light_pick, 1e-30)
-        mis_w = torch.where(use_mis, w_mis, 1.0)
+        mis_w = 1.0
+        if cfg.sample_expl:
+            pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
+            dist = length(hit.P - pool.orig)
+            pdf_w = pdf_area_to_solid_angle(pdf_a, dist,
+                                            -dot(pool.dir, hit.N))
+            w_mis = pool.last_pdf_w / torch.clamp_min(
+                pool.last_pdf_w + pdf_w * pool.last_light_pick, 1e-30)
+            mis_w = torch.where(use_mis, w_mis, 1.0)
         Ei = vwhere(al, Ei + T * light.E * mis_w, Ei)
         terminate |= al
 
     # ---- NEE shadow-ray resolution (wf_logic.cl:149-168) ------------------
-    unblocked = ~shadow_blocked
-    denom = (pool.last_light_pick * pool.last_pdf_direct
-             + pool.last_pdf_implicit)
-    contrib = pool.last_bsdf * pool.last_T * pool.last_emission * (
-        pool.last_cos_th / torch.clamp_min(denom, 1e-30))
-    Ei = vwhere(unblocked, Ei + contrib, Ei)
+    if cfg.sample_expl:
+        unblocked = ~shadow_blocked
+        denom = (pool.last_light_pick * pool.last_pdf_direct
+                 + (1.0 if cfg.sample_impl else 0.0)
+                 * pool.last_pdf_implicit)
+        contrib = pool.last_bsdf * pool.last_T * pool.last_emission * (
+            pool.last_cos_th / torch.clamp_min(denom, 1e-30))
+        Ei = vwhere(unblocked, Ei + contrib, Ei)
 
     # ---- splat terminated paths (wf_logic.cl:171-205) ---------------------
     splat = terminate & (plen > 0) & ~max_samples_reached
@@ -353,14 +376,15 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
 
     # ---- shading of surviving paths: NEE generation + material ------------
     alive = ~terminate
-    sp = apply_textures(sp, hit.uv_u, hit.uv_v)
+    sp = apply_textures(sp, hit.uv_u, hit.uv_v, scene.atlas)
 
     # implicit triangle emission (weight-1; emissive surfaces are never
     # NEE-sampled as lights)
     em = alive & (hit.i >= 0) & (sp.type == bx.BXDF_EMISSIVE)
     Ei = vwhere(em, Ei + T * sp.Ke, Ei)
 
-    nrm = tangent_space_normal(hit)
+    nrm = tangent_space_normal(hit, scene.tri_frames, sp.map_N, scene.atlas,
+                               meta=sp.n_meta)
     backface = dot(nrm, pool.dir) > 0.0
     nrm = vwhere(backface, -nrm, nrm)
     nee_orig = hit.P - pool.dir * 1e-3
@@ -372,53 +396,58 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     l_pdf_direct, l_cos_th = pool.last_pdf_direct, pool.last_cos_th
     l_pick, l_emission = pool.last_light_pick, pool.last_emission
 
-    # ---- NEE: pick the env map or the area light (wf_logic.cl:249-251),
-    # in the reference's order of draws: the pick, the env sample when
-    # there is an env map, the area-light sample when there is a light
-    do_nee = alive & ~singular
-    env_prob = (float(cfg.use_env_map)
-                / max(1, int(cfg.use_env_map) + int(cfg.use_area_light)))
-    u_pick, seed = rand(seed)
-    pick_env = u_pick < env_prob
+    # ---- NEE (with explicit sampling): pick the env map or the area light
+    # (wf_logic.cl:249-251), in the reference's order of draws: the pick,
+    # the env sample when there is an env map, the area-light sample when
+    # there is a light
     shadow_pending = torch.zeros(n, dtype=torch.bool, device=dev)
+    if cfg.sample_expl:
+        do_nee = alive & ~singular
+        env_prob = (float(cfg.use_env_map)
+                    / max(1, int(cfg.use_env_map)
+                          + int(cfg.use_area_light)))
+        u_pick, seed = rand(seed)
+        pick_env = u_pick < env_prob
 
-    if use_env:
-        u_env, seed = rand(seed)
-        L, direct_pdf, env_raw = env_sample(scene.env, u_env, cfg.fast_env)
-        m = do_nee & pick_env
-        shadow_orig = vwhere(m, nee_orig, shadow_orig)
-        shadow_dir = vwhere(m, L, shadow_dir)
-        shadow_len = torch.where(m, params.world_radius * 2.0, shadow_len)
-        l_pdf_direct = torch.where(m, direct_pdf, l_pdf_direct)
-        l_cos_th = torch.where(m, torch.clamp_min(dot(L, nrm), 0.0),
-                               l_cos_th)
-        l_pick = torch.where(m, env_prob, l_pick)
-        l_emission = vwhere(m, env_raw * params.env_map_strength,
-                            l_emission)
-        shadow_pending |= m
+        if use_env:
+            u_env, seed = rand(seed)
+            L, direct_pdf, env_raw = env_sample(scene.env, u_env,
+                                                cfg.fast_env)
+            m = do_nee & pick_env
+            shadow_orig = vwhere(m, nee_orig, shadow_orig)
+            shadow_dir = vwhere(m, L, shadow_dir)
+            shadow_len = torch.where(m, params.world_radius * 2.0,
+                                     shadow_len)
+            l_pdf_direct = torch.where(m, direct_pdf, l_pdf_direct)
+            l_cos_th = torch.where(m, torch.clamp_min(dot(L, nrm), 0.0),
+                                   l_cos_th)
+            l_pick = torch.where(m, env_prob, l_pick)
+            l_emission = vwhere(m, env_raw * params.env_map_strength,
+                                l_emission)
+            shadow_pending |= m
 
-    if light is not None:
-        pdf_a, pos_l, seed = sample_area_light(light, seed)
-        Lv = pos_l - nee_orig
-        len0 = length(Lv)
-        inv_len = 1.0 / torch.clamp_min(len0, 1e-30)
-        Ln = Lv * inv_len
-        cos_light = torch.clamp_min(dot(light.N, -Lv), 0.0)
-        ok = do_nee & ~pick_env & (cos_light > 0.0)
-        len_l = len0 * 0.995                    # wf_logic.cl:308
-        direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l,
-                                             cos_light * inv_len)
-        cos_th = torch.clamp_min(dot(Ln, nrm), 0.0)
-        shadow_orig = vwhere(ok, nee_orig, shadow_orig)
-        shadow_dir = vwhere(ok, Ln, shadow_dir)
-        shadow_len = torch.where(ok, len_l, shadow_len)
-        l_pdf_direct = torch.where(ok, direct_pdf, l_pdf_direct)
-        l_cos_th = torch.where(ok, cos_th, l_cos_th)
-        l_pick = torch.where(ok, 1.0 - env_prob, l_pick)
-        l_emission = vwhere(ok, Vec3(light.E.x.expand(n),
-                                     light.E.y.expand(n),
-                                     light.E.z.expand(n)), l_emission)
-        shadow_pending |= ok
+        if light is not None:
+            pdf_a, pos_l, seed = sample_area_light(light, seed)
+            Lv = pos_l - nee_orig
+            len0 = length(Lv)
+            inv_len = 1.0 / torch.clamp_min(len0, 1e-30)
+            Ln = Lv * inv_len
+            cos_light = torch.clamp_min(dot(light.N, -Lv), 0.0)
+            ok = do_nee & ~pick_env & (cos_light > 0.0)
+            len_l = len0 * 0.995                    # wf_logic.cl:308
+            direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l,
+                                                 cos_light * inv_len)
+            cos_th = torch.clamp_min(dot(Ln, nrm), 0.0)
+            shadow_orig = vwhere(ok, nee_orig, shadow_orig)
+            shadow_dir = vwhere(ok, Ln, shadow_dir)
+            shadow_len = torch.where(ok, len_l, shadow_len)
+            l_pdf_direct = torch.where(ok, direct_pdf, l_pdf_direct)
+            l_cos_th = torch.where(ok, cos_th, l_cos_th)
+            l_pick = torch.where(ok, 1.0 - env_prob, l_pick)
+            l_emission = vwhere(ok, Vec3(light.E.x.expand(n),
+                                         light.E.y.expand(n),
+                                         light.E.z.expand(n)), l_emission)
+            shadow_pending |= ok
 
     # ---- material phase (wf_mat_*.cl) -------------------------------------
     nee_bsdf = bxdf_eval(nrm, sp, backface, pool.dir, shadow_dir,

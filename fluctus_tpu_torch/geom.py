@@ -16,6 +16,8 @@ import torch
 
 from .vec import Vec3
 
+MIN_PATH_LENGTH = 5   # Russian roulette starts past it (geom.h:39)
+
 
 def _f32(v, device):
     return torch.tensor(v, dtype=torch.float32, device=device)
@@ -83,19 +85,23 @@ class RenderParams(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render flags plus film geometry (the reference's kernel
-    defines). The port renders with the block-bound pool, implicit and
-    explicit light sampling, no Russian roulette and no denoiser; those
-    switches are not ported yet. The env map and the area light are each
-    on or off; with both, NEE picks either with probability 1/2.
-    ``fast_env`` takes the env map's single-read forms (on CUDA, as the
-    reference on its TPU). ``max_spp > 0`` switches on the exact spp cap
-    (CHECK_SPP): its value comes from ``RenderParams.max_spp`` when that
-    is > 0."""
+    defines). The port renders with the block-bound pool and no denoiser.
+    The env map and the area light are each on or off; with both, NEE
+    picks either with probability 1/2. ``sample_impl`` (implicit light
+    hits) and ``sample_expl`` (next-event estimation) are each on or off,
+    with MIS between them when both are on; ``use_roulette`` ends paths
+    longer than MIN_PATH_LENGTH by Russian roulette. ``fast_env`` takes
+    the env map's single-read forms (on CUDA, as the reference on its
+    TPU). ``max_spp > 0`` switches on the exact spp cap (CHECK_SPP): its
+    value comes from ``RenderParams.max_spp`` when that is > 0."""
     width: int
     height: int
     max_bounces: int = 4
     use_env_map: bool = False
     use_area_light: bool = True
+    sample_impl: bool = True        # implicit light hits (SAMPLE_IMPLICIT)
+    sample_expl: bool = True        # next-event estimation (SAMPLE_EXPLICIT)
+    use_roulette: bool = False
     fast_env: bool = False
     max_spp: int = 0                # 0 = unbounded (CHECK_SPP off)
     material_types: int = 0         # OR of BXDF type bits present in scene

@@ -30,13 +30,12 @@ from . import flags
 from .accel import build_bvh, export_bvh, import_bvh
 from .accel import mxu_trace as mt
 from .native import build_bvh_native
-from .bsdf import check_lobes
 from .core.camera import generate_camera_rays
 from .core.integrator_mk import Film, RenderStats, render_sample
 from .core.integrator_wf import (unpad_pixels, wf_reset, wf_segment,
                                  wf_shade_phase, wf_trace_phase)
 from .core.tonemap import postprocess
-from .core.trace import DeviceScene, trace_extension
+from .core.trace import DeviceScene, make_tri_frames, trace_extension
 from .geom import AreaLight, Camera, PostProcessParams, RenderConfig, RenderParams
 from .image_io import save_hdr, save_png
 from .scene import Scene
@@ -99,11 +98,14 @@ class Renderer:
         renderer.py:58-70); its BVH from the hierarchy cache or built
         (``_init_hierarchy``); its cluster tables (slim past 65,536
         triangles) from the table cache or built and cached
-        (``MXUScene.build_cached``); and upload them. The tables' content
-        picks the resolve kernel (``resolve_hits_mxu``). Saved render state
-        is not ported yet. ``load_seconds`` keeps the host time of each step
-        and ``cache_hit`` whether the BVH and the tables came from the
-        caches. Ends with ``reset()``. A render-changing switch the port
+        (``MXUScene.build_cached``, with the texture atlas's descriptors
+        baked in; a cache that baked other texture sizes is rebuilt); and
+        upload them with the atlas and, when a material has a normal map,
+        the triangles' tangent frames (``make_tri_frames``). The tables'
+        content picks the resolve kernel (``resolve_hits_mxu``). Saved
+        render state is not ported yet. ``load_seconds`` keeps the host
+        time of each step and ``cache_hit`` whether the BVH and the tables
+        came from the caches. Ends with ``reset()``. A render-changing switch the port
         does not implement, set away from its default, raises
         NotImplementedError first (``settings.check_ported``)."""
         check_ported(self.settings)
@@ -111,7 +113,6 @@ class Renderer:
         t0 = time.perf_counter()
         scene = Scene()
         scene.load_model(scene_file)
-        check_lobes(scene.material_types)
         env_name = env_map or s.env_map_name
         use_env = s.use_env_map
         if env_name and os.path.exists(env_name):
@@ -128,19 +129,24 @@ class Renderer:
         cache = (table_cache_path(self.data_dir, scene,
                                   self.settings.split_mode, slim)
                  if scene.hash else None)
-        tables_hit = cache is not None and os.path.exists(cache)
+        atlas = scene.device_textures(device=self.device)
+        tables_hit = mt.table_cache_fresh(cache, atlas)
         host, statics = mt.MXUScene.build_cached(
             cache, p, bvh, normals=nrm, uvs=uv, mat_ids=mid,
-            materials=scene.materials, slim=slim)
+            materials=scene.materials, atlas=atlas, slim=slim)
         t3 = time.perf_counter()
         if slim:
             print(f"MXU tables: {statics['n_clusters']} clusters, "
                   f"{statics['n_superclusters']} supers ({t3 - t2:.2f}s)")
+        normal_maps = atlas.count > 0 and atlas.has_n
         self.device_scene = DeviceScene(
             mxu=mt.tables_from_numpy(host, statics, self.device),
             material_types=scene.material_types,
             env=(scene.envmap.device_tables(self.device) if scene.envmap
-                 else None))
+                 else None),
+            atlas=atlas,
+            tri_frames=(make_tri_frames(p, uv, device=self.device)
+                        if normal_maps else None))
         self.load_seconds = dict(load=t1 - t0, bvh=t2 - t1, tables=t3 - t2,
                                  upload=time.perf_counter() - t3)
         self.cache_hit = dict(bvh=bvh_hit, tables=tables_hit)
@@ -202,12 +208,15 @@ class Renderer:
             max_bounces=s.max_path_depth,
             use_env_map=use_env and self.scene.envmap is not None,
             use_area_light=s.use_area_light,
+            sample_impl=s.sample_implicit, sample_expl=s.sample_explicit,
+            use_roulette=s.use_russian_roulette,
             fast_env=self.device.type == "cuda", max_spp=s.max_spp,
             material_types=self.scene.material_types, groups=groups)
 
     def rebuild_config(self):
         """Re-derive the config's settings-driven fields (``use_env_map``,
-        ``use_area_light``, ``max_bounces``, ``max_spp``) and re-make the
+        ``use_area_light``, ``sample_impl``, ``sample_expl``,
+        ``use_roulette``, ``max_bounces``, ``max_spp``) and re-make the
         params from the current settings (the reference's rebuild_config,
         the paramsUpdatePending -> recompileKernels path, tracer.cpp:
         216-240): the call that picks up settings edits made after
@@ -218,8 +227,10 @@ class Renderer:
         s = self.settings
         self.config = self.config.replace(
             use_env_map=s.use_env_map and self.scene.envmap is not None,
-            use_area_light=s.use_area_light, max_bounces=s.max_path_depth,
-            max_spp=s.max_spp)
+            use_area_light=s.use_area_light, sample_impl=s.sample_implicit,
+            sample_expl=s.sample_explicit,
+            use_roulette=s.use_russian_roulette,
+            max_bounces=s.max_path_depth, max_spp=s.max_spp)
         self.params = self._make_params()
 
     def _make_params(self) -> RenderParams:
@@ -262,14 +273,14 @@ class Renderer:
         samples for every pixel, accumulated into ``self.film``. The
         exact-spp wavefront (``render_single_wavefront``), or with
         ``flags.FORCE_MK`` the microkernel megastep, one ``render_sample``
-        per sample. Russian roulette is off in both, as the reference
-        forces it (the port has none)."""
+        per sample. Russian roulette is off in both, as the reference turns
+        it off there (renderer.py:409, 620)."""
         if not flags.FORCE_MK:
             return self.render_single_wavefront(spp, accumulate=True)
+        cfg = self.config.replace(use_roulette=False)
         for _ in range(spp):
             self.film, self.seed, st = render_sample(
-                self.device_scene, self.params, self.film, self.seed,
-                self.config)
+                self.device_scene, self.params, self.film, self.seed, cfg)
             self.stats = self.stats + st
         self._sync()
         self._film_src = "mk"
@@ -289,7 +300,7 @@ class Renderer:
         Continuing an accumulation restored into ``self.film`` (the
         reference's checkpoint branch, renderer.py:629-643) waits for
         checkpoints to be ported, and raises."""
-        cfg = self.config.replace(max_spp=1)
+        cfg = self.config.replace(max_spp=1, use_roulette=False)
         n_tasks = num_tasks or self.settings.wf_buffer_size
         state = self._wf_exact_state
         if not accumulate or state is None or \

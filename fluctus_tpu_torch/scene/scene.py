@@ -3,9 +3,10 @@
 src/scene.cpp:59-120 and 864-897), and the content hash that keys the BVH
 and table caches.
 
-Material slot 0 is the default material; ``envmap`` holds the scene's
+Material slot 0 is the default material; ``textures`` holds the scene's
+textures (``HostTexture``), deduplicated by name; ``envmap`` holds its
 environment map (``envmap.EnvironmentMap``) or None. The PLY and PBRT
-loaders and textures are not ported yet and raise.
+loaders are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 from .. import bxdf_types as bx
 from .material import (HostMaterial, default_material, infer_type,
                        materials_to_soa, to_roughness)
+from .texture import HostTexture, TextureAtlas, pack_atlas
 
 
 @dataclasses.dataclass
@@ -37,6 +39,7 @@ class Scene:
     def __init__(self):
         self.materials: List[HostMaterial] = [default_material()]
         self.material_types: int = self.materials[0].type
+        self.textures: List[HostTexture] = []
         self.hash: str = ""    # content hash keying the caches; "" = none
         self._tri_chunks = []  # (p [M,3,3], n [M,3,3], t [M,3,2], matId [M])
         self.envmap = None
@@ -69,15 +72,27 @@ class Scene:
         self.material_types |= m.type
 
     def try_import_texture(self, folder: str, name: str) -> int:
-        """Texture import: a missing file gives -1 like the reference; an
-        existing one raises, since the port has no texture atlas yet."""
+        """Texture import deduplicated by name (scene.cpp:333-349): the
+        index into ``textures``, or -1 for no name, a missing file (looked
+        up in ``folder``, then as given) or one that fails to load."""
         if not name:
             return -1
         name = name.replace("\\", "/")
-        if os.path.exists(os.path.join(folder, name)) or os.path.exists(name):
-            raise NotImplementedError(
-                f"texture {name!r}: textures are not ported yet")
-        return -1
+        for i, t in enumerate(self.textures):
+            if t.name == name:
+                return i
+        path = os.path.join(folder, name)
+        if not os.path.exists(path):
+            if not os.path.exists(name):
+                return -1
+            path = name
+        try:
+            tex = HostTexture(path, name)
+        except (OSError, ValueError) as e:   # PIL: not a readable image
+            print(f"texture load failed for {path}: {e}")
+            return -1
+        self.textures.append(tex)
+        return len(self.textures) - 1
 
     # -- env map --------------------------------------------------------------
     def load_env_map(self, filename: str):
@@ -227,6 +242,12 @@ class Scene:
     # -- device upload ------------------------------------------------------
     def device_materials(self, *, device):
         return materials_to_soa(self.materials, device=device)
+
+    def device_textures(self, *, device) -> TextureAtlas:
+        """The packed atlas on ``device``, with which map types the
+        materials use."""
+        return pack_atlas(self.textures, device=device).with_material_usage(
+            self.materials)
 
     def scene_bounds(self):
         p, _, _, _ = self.triangle_arrays()

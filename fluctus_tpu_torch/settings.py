@@ -243,14 +243,10 @@ class Settings:
 
 # The render-changing switches the port does not implement yet, each with
 # the value under which it renders as the reference does (its default):
-# Russian roulette and the sampling toggles (RenderConfig, read by the
-# integrators), the denoiser's guide features and blend, the render scale
-# (the reference's Renderer scales its film by it), the flat pixel ring
+# the denoiser's guide features and blend, the render scale (the
+# reference's Renderer scales its film by it), the flat pixel ring
 # (wf_block_ring off) and deferred film-scatter batching.
 UNPORTED = {
-    "use_russian_roulette": False,
-    "sample_implicit": True,
-    "sample_explicit": True,
     "use_denoiser": False,
     "denoiser_blend": 1.0,
     "render_scale": 1.0,

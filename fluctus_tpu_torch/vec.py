@@ -100,3 +100,7 @@ def refract1(wi: Vec3, n: Vec3, eta, i_dot_n, cos_theta_t) -> Vec3:
 def is_zero(a: Vec3) -> torch.Tensor:
     return (a.x == 0.0) & (a.y == 0.0) & (a.z == 0.0)
 
+
+def luminance(a: Vec3) -> torch.Tensor:
+    """sRGB luminance (src/utils.cl:262-265)."""
+    return 0.212671 * a.x + 0.715160 * a.y + 0.072169 * a.z

@@ -164,13 +164,24 @@ def test_a_overrides_load_equal(tmp_path):
     assert (mid == 8).sum() > 0 and (mid == 4).sum() == (mid == 2).sum()
 
 
-def test_a_unported_lobe_raises(tmp_path):
-    """An override naming a lobe the port lacks is refused at load."""
+def test_a_glossy_override_renders(tmp_path):
+    """An override to a GGX lobe (glossy, with Ns and Ks) loads and
+    renders: its material row equals the reference's, the config carries
+    the glossy bit, and 2 wavefront segments give a finite film."""
     path = _write(tmp_path, [{"file": LUXBALL, "materials": {
-        "core": {"shader": "glossy", "Ks": [0.9, 0.9, 0.9]}}}])
-    with pytest.raises(NotImplementedError, match="glossy"):
-        Renderer(16, 16, data_dir=str(tmp_path), device="cpu").load_scene(
-            path)
+        "core": {"shader": "glossy", "Ks": [0.9, 0.9, 0.9], "Ns": 200}}}])
+    r = Renderer(32, 16, data_dir=str(tmp_path), device="cpu")
+    r.load_scene(path)
+    js = JScene()
+    js.load_model(path)
+    _assert_scenes_equal(js, r.scene)
+    assert r.config.material_types & bx.BXDF_GLOSSY
+    r.init_wavefront(512)
+    r.render_wavefront(2)
+    film = r.wavefront_film()
+    for c in (*film.color, film.weight):
+        assert torch.isfinite(c).all()
+    assert float(film.weight.sum()) > 0
 
 
 def test_b_native_bvh_equal(grid):

@@ -214,9 +214,7 @@ f 5 6 7
 """
 
 # every switch of settings.UNPORTED, set away from its default
-_REFUSED = [("use_russian_roulette", True),
-            ("sample_implicit", False), ("sample_explicit", False),
-            ("use_denoiser", True), ("denoiser_blend", 0.5),
+_REFUSED = [("use_denoiser", True), ("denoiser_blend", 0.5),
             ("render_scale", 0.5), ("wf_block_ring", False),
             ("wf_splat_every", 4)]
 
@@ -277,22 +275,30 @@ def test_rebuild_config_refuses_unported_switch(tiny_renderer, name, value):
     r.rebuild_config()
 
 
-# the switches the port renders since the env map was ported, each set
-# away from its default: no longer refused
+# the switches the port renders since the env map (and then Russian
+# roulette and the sampling toggles) were ported, each set away from its
+# default: no longer refused
 _ACCEPTED = [("use_env_map", True), ("env_map_name", "sky.hdr"),
-             ("use_area_light", False)]
+             ("use_area_light", False), ("use_russian_roulette", True),
+             ("sample_implicit", False), ("sample_explicit", False)]
+# the RenderConfig field each sampling switch sets
+_CONFIG_FIELD = {"use_russian_roulette": "use_roulette",
+                 "sample_implicit": "sample_impl",
+                 "sample_explicit": "sample_expl"}
 
 
 def _light_flags(cfg):
-    return cfg.use_env_map, cfg.use_area_light
+    return (cfg.use_env_map, cfg.use_area_light, cfg.sample_impl,
+            cfg.sample_expl, cfg.use_roulette)
 
 
 @pytest.mark.parametrize("name,value", _ACCEPTED)
 def test_load_scene_accepts_ported_switch(tmp_path, capsys, name, value):
-    """The env-map switches and the area-light toggle are no longer in
-    settings.UNPORTED: load_scene takes them and sets the config's env map
-    and area light as the reference's renderer does (a named map that is
-    absent leaves the env map off with the reference's WARNING)."""
+    """The env-map switches, the area-light toggle, Russian roulette and
+    the sampling toggles are no longer in settings.UNPORTED: load_scene
+    takes them and sets the config's env map, area light and sampling
+    flags as the reference's renderer does (a named map that is absent
+    leaves the env map off with the reference's WARNING)."""
     from fluctus_tpu.renderer import Renderer as JRenderer
     from fluctus_tpu.settings import Settings as JSettings
     from fluctus_tpu_torch.renderer import Renderer
@@ -311,6 +317,8 @@ def test_load_scene_accepts_ported_switch(tmp_path, capsys, name, value):
     theirs = capsys.readouterr().out
     assert _light_flags(r.config) == _light_flags(jr.config)
     assert r.config.use_area_light == (name != "use_area_light")
+    if name in _CONFIG_FIELD:
+        assert getattr(r.config, _CONFIG_FIELD[name]) == value
     assert not r.config.use_env_map and r.device_scene.env is None
     warn = "WARNING: env map not found: sky.hdr"
     assert (warn in ours) == (warn in theirs) == (name == "env_map_name")
@@ -318,8 +326,9 @@ def test_load_scene_accepts_ported_switch(tmp_path, capsys, name, value):
 
 @pytest.mark.parametrize("name,value", _ACCEPTED)
 def test_rebuild_config_accepts_ported_switch(tiny_renderer, name, value):
-    """rebuild_config takes the same switches and re-derives the env map
-    and area-light flags from them, as the reference's rebuild_config."""
+    """rebuild_config takes the same switches and re-derives the env map,
+    area-light and sampling flags from them, as the reference's
+    rebuild_config."""
     from fluctus_tpu_torch.settings import Settings
     r = tiny_renderer
     setattr(r.settings, name, value)
@@ -327,10 +336,12 @@ def test_rebuild_config_accepts_ported_switch(tiny_renderer, name, value):
         r.rebuild_config()
         assert r.config.use_area_light == (name != "use_area_light")
         assert not r.config.use_env_map     # the scene has no env map
+        if name in _CONFIG_FIELD:
+            assert getattr(r.config, _CONFIG_FIELD[name]) == value
     finally:
         setattr(r.settings, name, getattr(Settings(), name))
         r.rebuild_config()
-    assert _light_flags(r.config) == (False, True)
+    assert _light_flags(r.config) == (False, True, True, True, False)
 
 
 def test_envmap_modules_stand_alone():
@@ -340,6 +351,22 @@ def test_envmap_modules_stand_alone():
             "fluctus_tpu_torch.rgbe; print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', "
             "'fluctus_tpu')))")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    assert out.stdout.strip() == "[]"
+
+
+def test_material_modules_stand_alone():
+    """The texture and GGX modules (scene/texture.py, texture_fetch.py,
+    bsdf/ggx.py) load, in a fresh interpreter, no jax, jaxlib, ml_dtypes
+    or fluctus_tpu module."""
+    code = ("import sys; import fluctus_tpu_torch.scene.texture, "
+            "fluctus_tpu_torch.texture_fetch, fluctus_tpu_torch.bsdf.ggx; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ml_dtypes', 'fluctus_tpu')))")
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
