@@ -134,8 +134,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    sample (render_sample) with roulette on, launches per bounce K1 2, K2
    2, K3 1. 11e: phase 4's parity on the production scene, with
    sample_implicit off, with sample_explicit off and with roulette on.
-10. the kernels line (launches including phase 11's timed runs), the
-   card line, then the final result line.
+12. a user's render job at 1080p with 1M paths, depth 10. 12a: phase
+   11's production luxball with use_denoiser: K4 at 4 channels (the film)
+   and 8 (the guide features, splat after the film) held bit for bit on
+   segments 2 and 4, timed at 8 channels beside its bound and
+   index_add_, and on a synthetic 8-channel call; render_single(JOB_SPP)
+   with every K4 call (the features) held bit for bit, K7 and K8 as in
+   phase 5, spp = weight = JOB_SPP, whole feature weights, the denoised
+   image finite and its device time (atrous_denoise); then
+   DENOISE_SEGMENTS timed and 2 profiled free-running segments beside
+   11a's without the denoiser. K4's wrapper counts its launches by
+   channel count (``launches_by``): the exact render makes one 8-channel
+   launch per segment, the timed segments one 4-channel and one
+   8-channel launch each. 12b: luxball render_single(RESUME_SPP),
+   save_checkpoint, a fresh Renderer's load_checkpoint and
+   render_single(RESUME_SPP): spp = weight = 2 x RESUME_SPP on every
+   pixel, its tonemapped mean within the 1% bias gate of an uninterrupted
+   render_single(2 x RESUME_SPP). 12c: python -m fluctus_tpu_torch in a
+   fresh directory on the luxball (absolute path): -s CLI_SPP
+   --save-state --checkpoint writes the .png, the .hdr, the checkpoint
+   and a state file that round-trips through state_io; then --wavefront
+   24 --preview-every 8 --checkpoint loads the state ("Loaded render
+   state"), resumes the checkpoint and writes 2 preview frames.
+10. the kernels line (launches including phases 11 and 12's timed runs;
+   K4's entry with its 8-channel launches, as counted in 12a), the card
+   line, then the final
+   result line.
 
 Every renderer loads with a fresh temporary ``data_dir`` (removed at the
 end), so phases 2-6 load cold as before (now writing the caches) and
@@ -201,6 +225,14 @@ PROD_SPP = 4
 PROD_PARITY = ({}, {"sample_implicit": False}, {"sample_explicit": False},
                {"use_russian_roulette": True})
 BIAS_GATE = 0.01           # the 1% tonemapped-mean bias gate (ROADMAP)
+# phase 12: with the denoiser K4 also splats the 8 guide-feature channels
+# once a segment, after the film's splat (or K7's, with the spp cap)
+PER_SEGMENT_DENOISE = {**PER_SEGMENT, "block_splat": 2}
+PER_SEGMENT_EXACT_DENOISE = {**PER_SEGMENT_EXACT, "block_splat": 1}
+JOB_SPP = 4
+DENOISE_SEGMENTS = 24       # 12 leave 2.4% of the pixels uncovered
+RESUME_SPP = 8             # 12b: 8 + 8 spp against 16 uninterrupted
+CLI_SPP = 16
 # per bounce of a sample: one extension and one shadow trace, one resolve
 PER_BOUNCE_MK = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
                  "block_splat": 0, **_ZERO}
@@ -792,11 +824,21 @@ def check_luxball_kernels(rec_calls, what):
 
 def phase_kernels(r, rec_calls):
     """Phase 2: every recorded kernel call vs its plain version."""
-    import torch
-    from fluctus_tpu_torch.core import block_splat as bs
     res = check_luxball_kernels(rec_calls, "luxball")
     (local, data, film), kw = rec_calls[(4, "splat")][0]
-    g = kw["groups"]
+    res["block_splat"] = dict(
+        **splat_timing(local, data, film, kw["groups"]),
+        synthetic=check_splat_synthetic(capped=False))
+    res["tile_order"]["synthetic"] = check_k1_synthetic()
+    return res
+
+
+def splat_timing(local, data, film, g):
+    """K4 on one call: its time, its plain version's, its byte bound (each
+    input read once, the film written once) and Tensor.index_add_ of the
+    same records into the flattened film."""
+    import torch
+    from fluctus_tpu_torch.core import block_splat as bs
     c, n = data.shape
     s = n // g
     pk = film.shape[1] // g
@@ -808,17 +850,14 @@ def phase_kernels(r, rec_calls):
         acc = torch.zeros((c, g * pk + 1), device=film.device)
         return film + acc.index_add_(1, pid, data)[:, :g * pk]
     b_ms, b_by = bound(n * c, nbytes(local, data) + 2 * nbytes(film))
-    res["block_splat"] = dict(
+    return dict(
         max_abs_err=0.0, **kernel_ms(lambda: bs.splat(local, data, film,
                                                           groups=g)),
         plain_ms=time_ms(lambda: bs.splat_plain(local, data, film, g), 3, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(library),
         library_call="Tensor.index_add_ on the flattened film",
-        shape=f"{g} groups x {s} lanes, Pk={pk}, {int((local >= 0).sum())} "
-              "splats",
-        synthetic=check_splat_synthetic(capped=False))
-    res["tile_order"]["synthetic"] = check_k1_synthetic()
-    return res
+        shape=f"{c} channels, {g} groups x {s} lanes, Pk={pk}, "
+              f"{int((local >= 0).sum())} splats")
 
 
 def phase_kernels_large(r, rec_calls):
@@ -1019,6 +1058,7 @@ def phase_main(r, card, scene, segments, per_segment, extra=None):
     elapsed = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kb.KERNELS.values()}
     plain = {k.name: k.plain_runs for k in kb.KERNELS.values()}
+    k4_widths = dict(kb.KERNELS["block_splat"].launches_by)
     st = r.wavefront_stats()
     rays = st.primary_rays + st.extension_rays + st.shadow_rays
     film = r.wavefront_film()
@@ -1035,7 +1075,8 @@ def phase_main(r, card, scene, segments, per_segment, extra=None):
                rays=dict(primary=st.primary_rays,
                          extension=st.extension_rays,
                          shadow=st.shadow_rays, samples=st.samples),
-               launches=launches, plain_runs=plain, film_finite=finite,
+               launches=launches, plain_runs=plain,
+               k4_launches_by_channels=k4_widths, film_finite=finite,
                pixels_covered=covered, image_mean=image_mean, card=card,
                **(extra or {}))
     emit(out)
@@ -1172,12 +1213,16 @@ def _candidate_pids(local, groups, pk):
 class ExactRecorder:
     """Record the capped splat's and the fetch's arguments of segment 2 and
     of the last segment in which some pixel had more candidates than its
-    remaining budget (the wrappers run as usual)."""
+    remaining budget, and with ``keep_free`` the arguments of every
+    uncapped splat (the denoiser's features through K4); the wrappers run
+    as usual."""
 
-    def __init__(self):
+    def __init__(self, keep_free=False):
         self.seg = 0
         self.fetch_args = None
         self.early = self.tail = None
+        self.keep_free = keep_free
+        self.free = []
 
     def __enter__(self):
         from fluctus_tpu_torch.core import block_splat as bs
@@ -1190,6 +1235,8 @@ class ExactRecorder:
             return fetch(local, table, groups)
 
         def rec_splat(local, data, film, groups, remaining=None):
+            if remaining is None and self.keep_free:
+                self.free.append((self.seg, (local, data, film, groups)))
             if remaining is not None:
                 self.seg += 1
                 rec = (self.seg, (local, data, film, groups, remaining),
@@ -1294,9 +1341,11 @@ def check_exact_kernels(rec):
     return k7, k8
 
 
-def check_splat_synthetic(capped, groups=4096, s=256, pk=512, seed=9):
+def check_splat_synthetic(capped, groups=4096, s=256, pk=512, seed=9,
+                          channels=4):
     """K7 (``capped``) or K4 on one synthetic call of the main path's
-    shape, made from a numpy seed, against its plain version bit for bit:
+    shape (K4 also with the 8 channels of the denoiser's guide features),
+    made from a numpy seed, against its plain version bit for bit:
     groups in turn with every lane on one pixel, every lane on its own
     pixel, a third of the lanes empty (-1) and the rest on 5 pixels, every
     lane empty, or lanes on 40 random pixels; for K7 each pixel's budget
@@ -1318,9 +1367,9 @@ def check_splat_synthetic(capped, groups=4096, s=256, pk=512, seed=9):
     local[layout == 3] = -1
     budgets = np.array([0.0, 1.0, 2.5, 255.0, 1e30, np.nan], np.float32)
     rem = budgets[rng.integers(0, len(budgets), groups * pk)][None]
-    data = rng.normal(size=(4, groups * s)).astype(np.float32)
+    data = rng.normal(size=(channels, groups * s)).astype(np.float32)
     data[rng.random(data.shape) < 0.05] = -0.0
-    film = rng.normal(size=(4, groups * pk)).astype(np.float32)
+    film = rng.normal(size=(channels, groups * pk)).astype(np.float32)
     args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
             for a in (local.reshape(-1).astype(np.int32), data, film, rem)]
     local_t, data_t, film_t, rem_t = args
@@ -1334,7 +1383,8 @@ def check_splat_synthetic(capped, groups=4096, s=256, pk=512, seed=9):
     differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
     out = dict(differ=differ, candidates=int((local >= 0).sum()),
                pixels_changed=int((got != film_t).any(0).sum()),
-               shape=f"{groups} groups x {s} lanes, Pk={pk}", seed=seed)
+               shape=f"{channels} channels, {groups} groups x {s} lanes, "
+                     f"Pk={pk}", seed=seed)
     if differ:
         raise AssertionError(f"{'K7' if capped else 'K4'} differs from its "
                              f"plain version on the synthetic call: {out}")
@@ -1647,10 +1697,12 @@ def phase_mk(r, card, exact_mean):
 def kernels_line(kres, launches):
     """One entry per ported kernel: its checks and times from phase 2 (K1-K4,
     luxball), 2b (K5, K6), 5a (K7, K8), 6b (K9) or 8a (K10), and its
-    launches on its main path, counted from 0: K1-K6 summed over the two
-    free-running runs (3, 3b), K7 and K8 in the timed exact render (5b),
-    K9 in the rays-on-sublanes render (6b), K10 in the free-running run on
-    tables without B16 (8b)."""
+    launches on its main path, counted from 0: K1-K6 summed over the
+    free-running runs (3, 3b, 11, 12a), K7 and K8 in the timed exact
+    renders (5b, 11c, 12a), K9 in the rays-on-sublanes render (6b), K10 in
+    the free-running run on tables without B16 (8b). K4's entry also
+    carries its 8-channel calls (12a: the denoiser's features), with their
+    launches in 12a's runs."""
     out = []
     for name in SOURCES:
         k = kres[name]
@@ -1663,6 +1715,11 @@ def kernels_line(kres, launches):
         any_ms = k.get("any_hit", {}).get("ms", k.get("any_hit_ms"))
         if any_ms is not None:          # the trace kernels' any-hit call
             entry["any_hit_ms"] = any_ms
+        if "channels_8" in k:           # K4 on the denoiser's features
+            c8 = k["channels_8"]
+            entry["channels_8"] = {key: c8[key] for key in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
         out.append(entry)
     return {"kernels": out}
 
@@ -2321,7 +2378,8 @@ def exact_with_roulette(r, spp):
 def phase_production(card, lux_kres):
     """Phases 11a-11e (see the module docstring). ``lux_kres`` holds phase
     2's kernel results (K2 on luxball's rays). Returns the launches of its
-    timed main-path runs by kernel."""
+    timed main-path runs by kernel, and the scene file, its caches'
+    directory, 11a's timed run and profile (for phase 12)."""
     import torch
     from fluctus_tpu_torch import kernel_build as kb
     from fluctus_tpu_torch.core.integrator_mk import Film, render_sample
@@ -2457,7 +2515,232 @@ def phase_production(card, lux_kres):
     # 11e: whole-path parity, kernels vs plain versions
     for switches in PROD_PARITY:
         phase_parity(scene, data_dir=data_dir, switches=switches)
-    return launches
+    return launches, dict(scene=scene, data_dir=data_dir, main=main,
+                          prof=prof)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: a user's render job (the denoiser, checkpoints, the CLI)
+# ---------------------------------------------------------------------------
+
+def check_free_splats(calls, what):
+    """Every recorded uncapped splat call (K4) against splat_plain, bit for
+    bit. Returns the calls' count per channel count."""
+    import torch
+    from fluctus_tpu_torch.core import block_splat as bs
+    widths = {}
+    for seg, (local, data, film, g) in calls:
+        got = bs.splat(local, data, film, groups=g)
+        ref = bs.splat_plain(local, data, film, g)
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K4 differs from its plain version ({what},"
+                                 f" {data.shape[0]} channels, segment {seg})")
+        widths[data.shape[0]] = widths.get(data.shape[0], 0) + 1
+    return widths
+
+
+def phase_denoiser(card, prod):
+    """Phase 12a (see the module docstring). ``prod`` holds phase 11a's
+    scene, caches, timed run and profile. Returns (K4's 8-channel results
+    for the kernels line, launches of the main-path runs by kernel, K4's
+    8-channel launches among them)."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.denoise import atrous_denoise
+    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    r = make_renderer(1920, 1080, "cuda", prod["scene"],
+                      data_dir=prod["data_dir"],
+                      switches={"use_denoiser": True})
+    if not r.config.denoiser:
+        raise AssertionError("12a: the denoiser is off")
+
+    # K4 at 4 and 8 channels on free-running segments 2 and 4
+    rec = record_segments(r)
+    free = [(seg, args + (kw["groups"],)) for seg in (2, 4)
+            for args, kw in rec[(seg, "splat")]]
+    widths = check_free_splats(free, "denoiser segments")
+    if widths != {4: 2, 8: 2}:
+        raise AssertionError(f"12a: K4 calls by channels {widths}")
+    local, data, film, g = free[-1][1]
+    k4_8 = dict(**splat_timing(local, data, film, g),
+                synthetic=check_splat_synthetic(capped=False, channels=8))
+    del rec, free, local, data, film
+
+    # render_single(JOB_SPP): every K4 call (the features) held, K7 and K8
+    # as phase 5
+    r.reset()
+    torch.cuda.synchronize()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    with ExactRecorder(keep_free=True) as xrec:
+        r.render_single(JOB_SPP)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    lx, plain = counts()
+    exact_k4 = dict(kb.KERNELS["block_splat"].launches_by)
+    segments = len(r._wf_counters)
+    check_launches(lx, plain, PER_SEGMENT_EXACT_DENOISE, segments,
+                   "denoiser exact path")
+    exact_widths = check_free_splats(xrec.free, "denoiser exact path")
+    k7, k8 = check_exact_kernels(xrec)
+    del xrec
+    spp = unpad_pixels(r._wf_state.spp, r.config)
+    exact = bool((spp == JOB_SPP).all() and (r.film.weight == JOB_SPP).all())
+    f = r.features
+    wts = torch.stack([f.albedo_w, f.normal_w])
+    whole = bool((wts == torch.round(wts)).all() and (wts >= 0).all())
+    hdr = r._vec_image(r.film.color, r.film.weight)
+    alb, nrm = r._feature_tensors()
+    den = r.denoised_tensor()
+    finite = bool(torch.isfinite(den).all())
+    den_ms = time_ms(lambda: atrous_denoise(hdr, alb, nrm), reps=5, warm=1)
+    out = dict(phase="denoiser_exact", card=card, spp=JOB_SPP,
+               seconds=elapsed, segments=segments,
+               spp_and_weight_exact=exact, launches=lx, plain_runs=plain,
+               k4_calls_by_channels=exact_widths,
+               k4_launches_by_channels=exact_k4,
+               feature_weights_whole=whole,
+               albedo_w_max=float(f.albedo_w.max()),
+               normal_w_max=float(f.normal_w.max()),
+               pixels_with_normal_w_over_spp=int((f.normal_w > JOB_SPP)
+                                                 .sum()),
+               normal_w_mean=float(f.normal_w.mean()),
+               denoised_finite=finite, denoise_device_ms=den_ms,
+               denoise_shape=list(den.shape),
+               block_splat_capped=k7, fetch=k8)
+    emit(out)
+    if not (exact and whole and finite) or exact_k4 != {8: segments} or (
+            exact_widths != exact_k4):
+        raise AssertionError(f"12a: exact {exact}, whole weights {whole}, "
+                             f"denoised finite {finite}, K4 launches "
+                             f"{exact_k4}, recorded calls {exact_widths}")
+    launches = dict(lx)
+
+    # DENOISE_SEGMENTS free-running segments with the denoiser, profiled
+    lf, main = phase_main(r, card, prod["scene"], DENOISE_SEGMENTS,
+                          PER_SEGMENT_DENOISE,
+                          extra=dict(cell="12a production + denoiser"))
+    for k, v in lf.items():
+        launches[k] = launches.get(k, 0) + v
+    free_k4 = main["k4_launches_by_channels"]
+    if free_k4 != {4: DENOISE_SEGMENTS, 8: DENOISE_SEGMENTS}:
+        raise AssertionError(f"12a: K4 launches by channels {free_k4} over "
+                             f"{DENOISE_SEGMENTS} segments, expected one "
+                             f"of each width per segment")
+    prof = profile_segments(r, card, main["ms_per_segment"])
+    emit(dict(phase="denoiser_cost", card=card,
+              ms_per_segment=main["ms_per_segment"],
+              device_ms_per_segment=prof["device_ms_per_segment"],
+              without_denoiser=dict(
+                  ms_per_segment=prod["main"]["ms_per_segment"],
+                  device_ms_per_segment=prod["prof"][
+                      "device_ms_per_segment"]),
+              denoise_device_ms=den_ms))
+    del r
+    torch.cuda.empty_cache()
+    return k4_8, launches, exact_k4[8] + free_k4[8]
+
+
+def phase_resume(card):
+    """Phase 12b: render_single(RESUME_SPP), save_checkpoint, then a fresh
+    Renderer's load_checkpoint and render_single(RESUME_SPP); against an
+    uninterrupted render_single(2 * RESUME_SPP)."""
+    import torch
+    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    data_dir = fresh_dir()
+    ck = os.path.join(fresh_dir(), "luxball.ckpt.npz")
+    r = make_renderer(1920, 1080, "cuda", data_dir=data_dir)
+    r.render_single(RESUME_SPP)
+    r.save_checkpoint(ck)
+    del r
+    r = make_renderer(1920, 1080, "cuda", data_dir=data_dir)
+    loaded = r.load_checkpoint(ck)
+    t0 = time.perf_counter()
+    film = r.render_single(RESUME_SPP)
+    torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    spp = unpad_pixels(r._wf_state.spp, r.config)
+    total = 2 * RESUME_SPP
+    exact = bool((spp == total).all() and (film.weight == total).all())
+    resumed_mean = float(r.ldr_image().mean())
+    r.reset()
+    r.render_single(total)
+    whole_mean = float(r.ldr_image().mean())
+    bias = abs(resumed_mean - whole_mean) / whole_mean
+    emit(dict(phase="checkpoint_resume", card=card, scene=LUXBALL,
+              spp=[RESUME_SPP, RESUME_SPP], loaded=loaded,
+              checkpoint_bytes=os.path.getsize(ck),
+              resumed_seconds=resumed_s, spp_and_weight_exact=exact,
+              resumed_mean=resumed_mean, uninterrupted_mean=whole_mean,
+              relative_bias=bias, gate=BIAS_GATE))
+    del r
+    torch.cuda.empty_cache()
+    if not (loaded and exact and bias < BIAS_GATE):
+        raise AssertionError(f"12b: loaded {loaded}, exact {exact}, bias "
+                             f"{bias}")
+
+
+def run_cli(cwd, *args, timeout=300):
+    """``python -m fluctus_tpu_torch args`` in ``cwd``, the repository on
+    its path. Returns (exit code, stdout, stderr, seconds)."""
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    env.pop("FLT_FORCE_CPU", None)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "fluctus_tpu_torch", *args],
+                       cwd=cwd, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    return p.returncode, p.stdout, p.stderr, time.perf_counter() - t0
+
+
+def phase_cli(card):
+    """Phase 12c: the CLI as a subprocess in a fresh directory. The state
+    file round-trips: it is the bytes save_state writes for the default
+    Settings the CLI ran with, and load_state then save_state reproduces
+    them."""
+    from fluctus_tpu_torch import state_io
+    from fluctus_tpu_torch.settings import Settings
+    cwd = fresh_dir()
+    scene = os.path.abspath(LUXBALL)
+    rc1, out1, err1, s1 = run_cli(
+        cwd, scene, "-x", "1920", "-y", "1080", "-s", str(CLI_SPP),
+        "--save-state", "--checkpoint", "ck.npz", "-o", "out.png")
+    states = sorted(os.listdir(os.path.join(cwd, "data", "states"))) \
+        if rc1 == 0 else []
+    files1 = sorted(os.listdir(cwd))
+    round_trip = False
+    if len(states) == 1:
+        path = os.path.join(cwd, "data", "states", states[0])
+        loaded = Settings()
+        state_io.load_state(path, loaded)
+        again = os.path.join(fresh_dir(), "state.dat")
+        state_io.save_state(again, loaded)
+        fresh = os.path.join(fresh_dir(), "state.dat")
+        state_io.save_state(fresh, Settings())
+        with open(path, "rb") as a, open(again, "rb") as b, \
+                open(fresh, "rb") as c:
+            got = a.read()
+            round_trip = got == b.read() == c.read()
+    rc2, out2, err2, s2 = run_cli(
+        cwd, scene, "-x", "1920", "-y", "1080", "--wavefront", "24",
+        "--preview-every", "8", "--checkpoint", "ck.npz", "-o", "wf.png")
+    frames = sorted(f for f in os.listdir(cwd) if f.startswith("wf_f"))
+    out = dict(phase="cli", card=card, scene=scene,
+               spp_run=dict(exit=rc1, seconds=s1, files=files1,
+                            states=states, state_round_trip=round_trip,
+                            stdout=out1.strip().splitlines()[-6:],
+                            stderr=err1.strip().splitlines()[-4:]),
+               wavefront_run=dict(exit=rc2, seconds=s2, frames=frames,
+                                  stdout=out2.strip().splitlines()[-8:],
+                                  stderr=err2.strip().splitlines()[-4:]))
+    emit(out)
+    want1 = {"ck.npz", "out.png", "out.hdr", "data"}
+    if rc1 or not want1 <= set(files1) or not round_trip:
+        raise AssertionError(f"12c: the -s {CLI_SPP} run failed")
+    if rc2 or "Loaded render state" not in out2 or \
+            "resumed checkpoint" not in out2 or \
+            frames != ["wf_f0001.png", "wf_f0002.png"] or \
+            not os.path.exists(os.path.join(cwd, "wf.hdr")):
+        raise AssertionError("12c: the --wavefront run failed")
 
 
 def sweep_build_info(kb):
@@ -2522,7 +2805,7 @@ def main():
 
 
 def run(kb):
-    """Phases 1-11 (see the module docstring)."""
+    """Phases 1-12 (see the module docstring)."""
     import torch
 
     # phase 1: device and build
@@ -2622,17 +2905,26 @@ def run(kb):
     phase_env(card, main)
 
     # phase 11: the production luxball (11a-11e)
-    launches_p = phase_production(card, kres)
+    launches_p, prod = phase_production(card, kres)
+
+    # phase 12: a user's render job: the denoiser (12a), checkpoint and
+    # resume (12b), the CLI (12c)
+    kres["block_splat"]["channels_8"], launches_d, k4_8 = phase_denoiser(
+        card, prod)
+    phase_resume(card)
+    phase_cli(card)
 
     # phase 10: result lines
     main_launches = {k: launches[k] + launches_l[k] + launches_p.get(k, 0)
-                     for k in SOURCES}
+                     + launches_d.get(k, 0) for k in SOURCES}
     main_launches.update(
         block_splat_capped=(launches_x["block_splat_capped"]
-                            + launches_p["block_splat_capped"]),
-        fetch=launches_x["fetch"] + launches_p["fetch"],
+                            + launches_p["block_splat_capped"]
+                            + launches_d["block_splat_capped"]),
+        fetch=launches_x["fetch"] + launches_p["fetch"] + launches_d["fetch"],
         trace_ros=launches_ros["trace_ros"],
         resolve_v1=launches_k10["resolve_v1"])
+    kres["block_splat"]["channels_8"]["launches"] = k4_8
     emit(kernels_line(kres, main_launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -43,6 +43,21 @@ class BVHArrays(NamedTuple):
     def num_nodes(self):
         return len(self.n_prims)
 
+    def depth(self) -> int:
+        """Edges from the root to the deepest node, by pointer jumping:
+        ``dist[i]`` is the depth of node i less that of its ancestor
+        ``anc[i]``; each pass doubles the jump, so log2(depth) passes."""
+        n = self.num_nodes
+        if n == 0:
+            return 0
+        anc = self.parent.astype(np.int64)
+        anc[0] = 0
+        dist = (np.arange(n) > 0).astype(np.int64)
+        while anc.any():
+            dist = dist + dist[anc]
+            anc = anc[anc]
+        return int(dist.max())
+
 
 def _aabb_area(bmin, bmax):
     d = np.maximum(bmax - bmin, 0.0)
@@ -50,8 +65,10 @@ def _aabb_area(bmin, bmax):
                   + d[..., 1] * d[..., 2])
 
 
-def build_bvh(positions: np.ndarray) -> BVHArrays:
-    """positions: [M, 3, 3] triangle vertices. Returns flat BVH arrays."""
+def build_bvh(positions: np.ndarray, progress=None) -> BVHArrays:
+    """positions: [M, 3, 3] triangle vertices. Returns flat BVH arrays.
+    ``progress``, when given, is called with the number of leaves emitted
+    so far before each interior node's children are built."""
     m = positions.shape[0]
     if m == 0:
         raise ValueError("empty scene")
@@ -95,6 +112,8 @@ def build_bvh(positions: np.ndarray) -> BVHArrays:
                                     bmin, bmax)
         sub = sub[order]
         left, right = sub[:i_split + 1], sub[i_split + 1:]
+        if progress is not None:
+            progress(len(out_indices))
         build(left, node, depth + 1)
         nodes_right[node] = len(nodes_bmin)
         build(right, node, depth + 1)

@@ -7,9 +7,10 @@ A lane only carries paths of its group's pixels, so a segment's splats
 from group ``g`` land in film block ``g``. Channel-major throughout:
 data ``[C, n]``, film ``[C, G*Pk]``.
 
-On CUDA tensors ``splat`` launches K4 (``csrc/block_splat.cu``), or K7
-(``csrc/block_splat_capped.cu``) when given a per-pixel budget — one
-counting sort per group, ``csrc/splat_sort.cuh``, serves both — and
+On CUDA tensors ``splat`` launches K4 (``csrc/block_splat.cu``; up to 8
+channels: the film's 4, the denoiser's guide features' 8), or K7
+(``csrc/block_splat_capped.cu``; up to 4) when given a per-pixel budget —
+one counting sort per group, ``csrc/splat_sort.cuh``, serves both — and
 ``fetch`` launches K8 (``csrc/fetch.cu``). On CPU tensors each runs its
 plain PyTorch version: ``splat_plain``, ``splat_capped_plain`` (the same
 lane-ordered sums and counts, vectorized over groups) and ``fetch_plain``.
@@ -95,7 +96,8 @@ def splat(local, data, film, groups: int, remaining=None):
 
     local: [n] int32 — pixel index within the lane's group block (0..Pk),
            -1 = no splat this segment.
-    data:  [C, n] f32 — rgbw channels (C <= 4), pre-masked.
+    data:  [C, n] f32 — channels, pre-masked: rgbw (C = 4), or the
+           guide features (C = 8); K4 takes C <= 8, K7 C <= 4.
     film:  [C, G*Pk] f32 padded accumulator.
     remaining: optional [1, G*Pk] f32 per-pixel budget; when given, each
            pixel admits exactly its first min(count, budget) candidates
@@ -110,7 +112,7 @@ def splat(local, data, film, groups: int, remaining=None):
     kb.check_cuda(name, *tensors, dtypes=(torch.int32,) + (torch.float32,)
                   * (len(tensors) - 1))
     c, n = data.shape
-    if c > 4 or n % groups or film.shape[1] % groups or (
+    if c > (4 if capped else 8) or n % groups or film.shape[1] % groups or (
             capped and remaining.shape != (1, film.shape[1])):
         raise ValueError(f"{name}: bad shapes {tuple(data.shape)}, "
                          f"{tuple(film.shape)} for {groups} groups")
@@ -120,7 +122,8 @@ def splat(local, data, film, groups: int, remaining=None):
         K7(kb.ptr(local), kb.ptr(data), kb.ptr(remaining), kb.ptr(film),
            kb.ptr(out), *dims)
     else:
-        K4(kb.ptr(local), kb.ptr(data), kb.ptr(film), kb.ptr(out), *dims)
+        K4(kb.ptr(local), kb.ptr(data), kb.ptr(film), kb.ptr(out), *dims,
+           variant=c)
     return out
 
 

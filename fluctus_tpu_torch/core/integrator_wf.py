@@ -3,8 +3,9 @@ core/integrator_wf.py with the block-bound pool, the area light and the
 env map (each on or off; NEE picking either light with probability 1/2
 when both are on), implicit light hits and NEE each on or off (MIS
 between them when both are), Russian roulette past MIN_PATH_LENGTH when
-``config.use_roulette``, textures and normal maps, and no denoiser. With
-``config.max_spp == 0`` the splat
+``config.use_roulette``, textures and normal maps, and with
+``config.denoiser`` the denoiser's guide features (a second K4 splat, of
+8 channels, after the film's). With ``config.max_spp == 0`` the splat
 runs free (K4); with ``max_spp > 0`` the exact spp cap (CHECK_SPP) is on:
 each segment reads the per-pixel spp of every path's pixel (K8), ends the
 paths of full pixels unsplatted, and splats through the capped kernel
@@ -21,12 +22,13 @@ lengths are mask popcounts (``WfCounters``).
 The pool is partitioned into G groups of S lanes; group g renders the true
 pixels [g*P, g*P + len_g) through its own ring cursor, and its splats land
 in film block g (core/block_splat.py). Film and spp live in the padded
-[G*Pk] layout (``pad_pixels`` / ``unpad_pixels``).
+[G*Pk] layout (``pad_pixels`` / ``unpad_pixels``), and so do the guide
+features.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,7 +43,7 @@ from ..sampling import pdf_area_to_solid_angle, sample_area_light
 from ..vec import Vec3, dot, is_zero, length, luminance, where as vwhere
 from . import block_splat as bs
 from .camera import generate_camera_rays
-from .integrator_mk import Film
+from .integrator_mk import FeatureFilm, Film
 from .trace import (DeviceScene, has_resolve_tables, tangent_space_normal,
                     trace_extension, trace_extension_raw, trace_pair,
                     trace_shadow)
@@ -71,6 +73,7 @@ class WfPool(NamedTuple):
     last_cos_th: torch.Tensor
     last_light_pick: torch.Tensor
     shadow_len: torch.Tensor
+    first_diffuse_hit: Optional[torch.Tensor] = None   # bool, denoiser only
 
 
 class WfState(NamedTuple):
@@ -78,6 +81,7 @@ class WfState(NamedTuple):
     film: Film
     spp: torch.Tensor          # [G*Pk] int32 samples per padded pixel
     curr_pixel: torch.Tensor   # [G] int32 ring cursor per group
+    features: Optional[FeatureFilm] = None   # [G*Pk] guide buffers
 
 
 class WfCounters(NamedTuple):
@@ -130,18 +134,26 @@ def pad_pixels(arr, config: RenderConfig, fill=0):
     return torch.cat([m, pad], dim=1).reshape((g * pk,) + tail)
 
 
+def salt_seeds(seed, salt: int):
+    """The seeds of a statistically independent stream: each seed mixed
+    with ``salt`` by burtle_hash (FLT_SEED_SALT's mix, and the resumed
+    pools' after a checkpoint)."""
+    return burtle_hash(seed ^ ((salt * 0x9E3779B9) & 0xFFFFFFFF))
+
+
 def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0, *,
              device) -> WfState:
     """wf_reset.cl: clear film, reset pool, seed = lane id (salted by
     FLT_SEED_SALT when set). path_len = -1 marks paths as pre-birth: the
     first segment regenerates them without splatting. Padded dead pixels'
-    spp is parked at 2^29."""
+    spp is parked at 2^29. With ``config.denoiser`` the pool tracks each
+    path's first diffuse hit and the state holds zero guide features."""
     config.block_plan(num_tasks)
     n = num_tasks
     salt = flags.env_int("SEED_SALT", 0)
     seed0 = torch.arange(n, dtype=torch.int64, device=device)
     if salt:
-        seed0 = burtle_hash(seed0 ^ ((salt * 0x9E3779B9) & 0xFFFFFFFF))
+        seed0 = salt_seeds(seed0, salt)
     f32 = lambda v: torch.full((n,), v, dtype=torch.float32, device=device)
     z = f32(0.0)
     b = lambda v: torch.full((n,), v, dtype=torch.bool, device=device)
@@ -159,7 +171,8 @@ def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0, *,
         pixel_index=torch.zeros(n, dtype=torch.int32, device=device),
         last_pdf_direct=z, last_pdf_implicit=z, last_cos_th=z,
         last_light_pick=f32(1.0),
-        shadow_len=f32(2.0 * float(world_radius)))
+        shadow_len=f32(2.0 * float(world_radius)),
+        first_diffuse_hit=b(False) if config.denoiser else None)
     p_true, pk = _block_geom(config)
     npix = config.groups * pk
     gi = torch.arange(npix, dtype=torch.int32, device=device) // pk
@@ -168,15 +181,19 @@ def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0, *,
     spp0 = torch.where(live, 0, 1 << 29).to(torch.int32)
     curr0 = torch.zeros(config.groups, dtype=torch.int32, device=device)
     return WfState(pool=pool, film=Film.zeros(npix, device), spp=spp0,
-                   curr_pixel=curr0)
+                   curr_pixel=curr0,
+                   features=(FeatureFilm.zeros(npix, device)
+                             if config.denoiser else None))
 
 
 def wf_state_from_numpy(st: dict, *, device) -> WfState:
     """WfState from numpy arrays: ``{"pool": {field: array or (x, y, z)},
     "film": {"color": (x, y, z), "weight": array}, "spp": array,
-    "curr_pixel": array}`` — e.g. the reference package's wf_reset state,
-    so both integrators can start from one state. uint32 seeds become
-    int64."""
+    "curr_pixel": array}``, with ``"features": {"albedo": (x, y, z),
+    "albedo_w": array, "normal": (x, y, z), "normal_w": array}`` and the
+    pool's ``first_diffuse_hit`` when the denoiser is on — e.g. the
+    reference package's wf_reset state, so both integrators can start
+    from one state. uint32 seeds become int64."""
     def t(a):
         a = np.asarray(a)
         if a.dtype == np.uint32:
@@ -186,22 +203,32 @@ def wf_state_from_numpy(st: dict, *, device) -> WfState:
     def v(x):
         return Vec3(*(t(c) for c in x)) if isinstance(x, (tuple, list)) \
             else t(x)
-    pool = WfPool(**{k: v(st["pool"][k]) for k in WfPool._fields})
+    pool = WfPool(**{k: v(st["pool"][k]) for k in WfPool._fields
+                     if st["pool"].get(k) is not None})
     film = Film(color=v(st["film"]["color"]), weight=t(st["film"]["weight"]))
+    f = st.get("features")
+    features = None if f is None else FeatureFilm(
+        **{k: v(f[k]) for k in FeatureFilm._fields})
     return WfState(pool=pool, film=film, spp=t(st["spp"]).to(torch.int32),
-                   curr_pixel=t(st["curr_pixel"]).to(torch.int32))
+                   curr_pixel=t(st["curr_pixel"]).to(torch.int32),
+                   features=features)
 
 
 def wf_state_to_numpy(state: WfState) -> dict:
     """Inverse of wf_state_from_numpy (seeds back to uint32)."""
     n = lambda a: a.detach().cpu().numpy()
     v = lambda x: tuple(n(c) for c in x) if isinstance(x, Vec3) else n(x)
-    pool = {k: v(getattr(state.pool, k)) for k in WfPool._fields}
+    pool = {k: v(a) for k, a in state.pool._asdict().items()
+            if a is not None}
     pool["seed"] = pool["seed"].astype(np.uint32)
-    return dict(pool=pool,
-                film=dict(color=v(state.film.color),
-                          weight=n(state.film.weight)),
-                spp=n(state.spp), curr_pixel=n(state.curr_pixel))
+    out = dict(pool=pool,
+               film=dict(color=v(state.film.color),
+                         weight=n(state.film.weight)),
+               spp=n(state.spp), curr_pixel=n(state.curr_pixel))
+    if state.features is not None:
+        out["features"] = {k: v(a) for k, a in
+                           state.features._asdict().items()}
+    return out
 
 
 def wf_segment(scene: DeviceScene, params: RenderParams, state: WfState,
@@ -391,6 +418,33 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
 
     singular = (sp.type & bx.BXDF_SINGULAR_MASK) != 0
 
+    # ---- denoiser guide features (wf_logic.cl:214-237): the first hit's
+    # normal in camera space (rows right, up, -dir) and the first
+    # non-singular hit's albedo, splat as one [8, n] record through K4
+    # after the film's splat; a path's first-diffuse flag ends with it
+    features = state.features
+    first_diffuse = pool.first_diffuse_hit
+    if cfg.denoiser:
+        cam = params.camera
+        nm = alive & (plen == 1)
+        cs = Vec3(dot(cam.right, nrm), dot(cam.up, nrm), -dot(cam.dir, nrm))
+        am = alive & ~singular & ~first_diffuse
+        first_diffuse = ~terminate & (first_diffuse | (alive & ~singular))
+        fdata_t = torch.stack([
+            torch.where(am, sp.Kd.x, 0.0), torch.where(am, sp.Kd.y, 0.0),
+            torch.where(am, sp.Kd.z, 0.0), am.to(torch.float32),
+            torch.where(nm, cs.x, 0.0), torch.where(nm, cs.y, 0.0),
+            torch.where(nm, cs.z, 0.0), nm.to(torch.float32)], dim=0)
+        f_local = torch.where(nm | am, torch.remainder(lpid, pk_), -1).to(
+            torch.int32)
+        f_new = bs.splat(f_local, fdata_t, torch.stack(
+            [*features.albedo, features.albedo_w, *features.normal,
+             features.normal_w], dim=0), groups=g_local)
+        features = FeatureFilm(albedo=Vec3(f_new[0], f_new[1], f_new[2]),
+                               albedo_w=f_new[3],
+                               normal=Vec3(f_new[4], f_new[5], f_new[6]),
+                               normal_w=f_new[7])
+
     shadow_orig, shadow_dir = pool.shadow_orig, pool.shadow_dir
     shadow_len = pool.shadow_len
     l_pdf_direct, l_cos_th = pool.last_pdf_direct, pool.last_cos_th
@@ -511,7 +565,7 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         pixel_index=pixel_index,
         last_pdf_direct=l_pdf_direct, last_pdf_implicit=l_pdf_implicit,
         last_cos_th=l_cos_th, last_light_pick=l_pick,
-        shadow_len=shadow_len)
+        shadow_len=shadow_len, first_diffuse_hit=first_diffuse)
 
     counters = WfCounters(
         raygen=n_regen,
@@ -521,5 +575,5 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         shadow=shadow_pending.sum(),
         splatted=n_splatted)
     new_state = WfState(pool=new_pool, film=film, spp=spp_counts,
-                        curr_pixel=curr_out)
+                        curr_pixel=curr_out, features=features)
     return new_state, counters

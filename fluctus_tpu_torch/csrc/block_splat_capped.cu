@@ -24,7 +24,8 @@ __global__ void __launch_bounds__(ss::THREADS)
                               const float* __restrict__ film,
                               float* __restrict__ out, int c, int n, int s,
                               int pk) {
-  ss::splat_group<true>(local, data, remaining, film, out, c, n, s, pk);
+  ss::splat_group<true, 4>(local, data, remaining, film, out, c, n, s,
+                           pk);
 }
 
 extern "C" int block_splat_capped_launch(const int* local, const float* data,

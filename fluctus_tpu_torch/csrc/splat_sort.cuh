@@ -1,6 +1,9 @@
 // The dense per-group film splat of K4 (block_splat.cu) and K7
 // (block_splat_capped.cu): a stable counting sort of each group's lanes by
-// pixel, then each pixel's lanes summed in lane order.
+// pixel, then each pixel's lanes summed in lane order. c channels, at most
+// the template's C: each thread keeps C values of a lane and of a pixel in
+// registers. K4 is instantiated at C = 4 (the film: rgb + weight) and C = 8
+// (the denoiser's guide features), K7 at C = 4.
 //
 //   out[ch, g*pk + p] = film[ch, g*pk + p]
 //                       + sum over the group's lanes l (in lane order)
@@ -13,9 +16,10 @@
 // as the reference does, so each pixel takes exactly its first
 // min(count, remaining) candidates in lane order.
 //
-// Bound on the H100: memory. Data (16 B) and local (4 B) per lane, K7's
-// budget (4 B) per pixel, one read and one write of the [C, G*pk] film:
-// about 90 MB (K4) and 96 MB (K7) per segment at 1080p with 1M paths.
+// Bound on the H100: memory. Data (4c B) and local (4 B) per lane, K7's
+// budget (4 B) per pixel, one read and one write of the [c, G*pk] film:
+// about 90 MB (K4 at 4 channels), 96 MB (K7) and 170 MB (K4 at 8
+// channels) per segment at 1080p with 1M paths.
 //
 // Design: O(s + pk) work per group. One CTA per group, one thread per lane
 // (THREADS lanes per pass):
@@ -80,9 +84,9 @@ __device__ __forceinline__ void block_inclusive_scan(int* a, int n,
   for (int i = b; i < e; ++i) a[i] += before;
 }
 
-// One group (blockIdx.x) of THREADS threads; remaining is read only when
-// CAPPED.
-template <bool CAPPED>
+// One group (blockIdx.x) of THREADS threads, c <= C channels; remaining
+// is read only when CAPPED.
+template <bool CAPPED, int C>
 __device__ __forceinline__ void splat_group(
     const int* __restrict__ local, const float* __restrict__ data,
     const float* __restrict__ remaining, const float* __restrict__ film,
@@ -103,20 +107,20 @@ __device__ __forceinline__ void splat_group(
   // thread's first lane (the sort waits on them), then the film and
   // budgets of its first PRE pixels (only the sums wait on those)
   int p0 = -1;
-  float v0[4] = {};
+  float v0[C] = {};
   if (tid < s) {
     p0 = local[g * s + tid];
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch)
+    for (int ch = 0; ch < C; ++ch)
       if (ch < c) v0[ch] = data[(size_t)ch * n + g * s + tid];
   }
-  float pre[PRE][4] = {}, pre_rem[PRE] = {};
+  float pre[PRE][C] = {}, pre_rem[PRE] = {};
 #pragma unroll
   for (int q = 0; q < PRE; ++q) {
     const int p = tid + q * THREADS;
     if (p < pk) {
 #pragma unroll
-      for (int ch = 0; ch < 4; ++ch)
+      for (int ch = 0; ch < C; ++ch)
         if (ch < c) pre[q][ch] = film[ch * npix + g * pk + p];
       if (CAPPED) pre_rem[q] = remaining[g * pk + p];
     }
@@ -124,16 +128,18 @@ __device__ __forceinline__ void splat_group(
   // stage the lanes in shared memory; zero the counts and running counts
   for (int l = tid; l < s; l += THREADS) {
     int p = p0;
-    float v[4] = {v0[0], v0[1], v0[2], v0[3]};
+    float v[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) v[ch] = v0[ch];
     if (l != tid) {                   // lanes past the first pass
       p = local[g * s + l];
 #pragma unroll
-      for (int ch = 0; ch < 4; ++ch)
+      for (int ch = 0; ch < C; ++ch)
         if (ch < c) v[ch] = data[(size_t)ch * n + g * s + l];
     }
     sloc[l] = p;
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch)
+    for (int ch = 0; ch < C; ++ch)
       if (ch < c) sdat[ch * s + l] = v[ch];
   }
   for (int p = tid; p <= pk; p += THREADS) off[p] = 0;
@@ -182,15 +188,17 @@ __device__ __forceinline__ void splat_group(
       k = 0;
       while (k < cnt && (float)k < rem) ++k;
     }
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float acc[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) acc[ch] = 0.0f;
     for (int r = 0; r < k; ++r) {
       const int ln = sorted[o + r];
 #pragma unroll
-      for (int ch = 0; ch < 4; ++ch)
+      for (int ch = 0; ch < C; ++ch)
         if (ch < c) acc[ch] += sdat[ch * s + ln];
     }
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch)
+    for (int ch = 0; ch < C; ++ch)
       if (ch < c) out[ch * npix + idx] = f[ch] + acc[ch];
   };
 #pragma unroll
@@ -199,9 +207,9 @@ __device__ __forceinline__ void splat_group(
     if (p < pk) finish(p, pre[q], pre_rem[q]);
   }
   for (int p = tid + PRE * THREADS; p < pk; p += THREADS) {
-    float f[4];
+    float f[C];
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch)
+    for (int ch = 0; ch < C; ++ch)
       if (ch < c) f[ch] = film[ch * npix + g * pk + p];
     finish(p, f, CAPPED ? remaining[g * pk + p] : 0.0f);
   }

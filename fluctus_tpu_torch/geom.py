@@ -85,7 +85,9 @@ class RenderParams(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render flags plus film geometry (the reference's kernel
-    defines). The port renders with the block-bound pool and no denoiser.
+    defines). The port renders with the block-bound pool; ``denoiser``
+    accumulates the denoiser's guide features (first-hit albedo and
+    camera-space normal) beside the film.
     The env map and the area light are each on or off; with both, NEE
     picks either with probability 1/2. ``sample_impl`` (implicit light
     hits) and ``sample_expl`` (next-event estimation) are each on or off,
@@ -105,6 +107,7 @@ class RenderConfig:
     fast_env: bool = False
     max_spp: int = 0                # 0 = unbounded (CHECK_SPP off)
     material_types: int = 0         # OR of BXDF type bits present in scene
+    denoiser: bool = False          # accumulate the guide features
     # block-bound wavefront pool: `groups` groups of pool lanes, each bound
     # to one contiguous pixel block with its own raygen ring
     groups: int = 1024

@@ -107,8 +107,10 @@ def build_log(source: str) -> str:
 
 class Kernel:
     """One CUDA launcher: ``symbol`` in the library built from ``source``.
-    ``launches`` counts successful launches; ``plain_runs`` counts calls
-    of the plain PyTorch version beside it (bumped by that function)."""
+    ``launches`` counts successful launches, and ``launches_by`` the same
+    launches by the ``variant`` the wrapper names (K4: its channel count);
+    ``plain_runs`` counts calls of the plain PyTorch version beside it
+    (bumped by that function)."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes):
         self.name = name
@@ -116,6 +118,7 @@ class Kernel:
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
         self.launches = 0
+        self.launches_by = {}
         self.plain_runs = 0
         self._fn = None
         self._err = None
@@ -134,7 +137,7 @@ class Kernel:
             self._fn, self._err = fn, err
         return self._fn
 
-    def __call__(self, *args):
+    def __call__(self, *args, variant=None):
         fn = self._load()
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*args, stream)
@@ -142,6 +145,8 @@ class Kernel:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {rc} "
                                f"({self._err(rc).decode()})")
         self.launches += 1
+        if variant is not None:
+            self.launches_by[variant] = self.launches_by.get(variant, 0) + 1
 
 
 KERNELS: dict = {}
@@ -150,6 +155,7 @@ KERNELS: dict = {}
 def reset_counts():
     for k in KERNELS.values():
         k.launches = 0
+        k.launches_by = {}
         k.plain_runs = 0
 
 

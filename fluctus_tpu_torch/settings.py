@@ -6,9 +6,14 @@ the same fields and defaults (settings.cpp:17-58), the same
 Fields fall in three kinds:
 
 - read by the port: ``wf_buffer_size``, ``max_path_depth``, ``max_spp``,
-  ``tonemap``, ``split_mode`` ("sbvh" raises on a hierarchy-cache miss:
-  the SBVH builder is not ported), ``camera`` (but the two below) and
-  ``area_light``;
+  ``tonemap``, ``render_scale`` (the Renderer scales its film by it),
+  ``use_denoiser`` and ``denoiser_blend``, the light and sampling
+  switches, ``env_map_name``, ``split_mode`` ("sbvh" raises on a
+  hierarchy-cache miss: the SBVH builder is not ported), ``camera`` and
+  ``area_light`` (a saved render state, ``state_io``, holds and restores
+  them with ``camera_rotation`` and ``camera_speed``); the CLI
+  (``python -m fluctus_tpu_torch``) also reads ``shortcuts`` (the scene
+  when none is given) and ``max_render_time`` (its wavefront loop's stop);
 - render-changing switches the port does not implement yet (``UNPORTED``):
   ``Renderer.load_scene`` and ``Renderer.rebuild_config`` raise
   NotImplementedError naming the first one set away from the value the
@@ -16,16 +21,12 @@ Fields fall in three kinds:
 - accepted and ignored, as the reference ignores them for its results:
   ``platform_name`` and ``device_name`` (the Renderer's ``device``
   chooses), ``window_width`` and ``window_height`` (the Renderer is given
-  its width and height), ``shortcuts`` and ``default_scene`` (scene
-  selection of a front end), ``max_render_time`` and ``use_wavefront``
-  (the caller picks render_wavefront or render_single and how long),
+  its width and height), ``default_scene``, ``use_wavefront`` (the caller
+  picks render_wavefront or render_single),
   ``use_bitstack``, ``use_soa`` and ``use_separate_queues`` (OpenCL kernel
   variants of the original renderer; the reference reads none of them),
   ``wf_phases`` and ``wf_fused_shade`` (how the reference cuts a segment
-  into programs; every cut renders the same film),
-  ``camera.camera_speed`` (an interactive step size) and
-  ``camera.camera_rotation`` (the angles ``import_json`` turns into
-  dir / right / up).
+  into programs; every cut renders the same film).
 """
 
 from __future__ import annotations
@@ -243,13 +244,9 @@ class Settings:
 
 # The render-changing switches the port does not implement yet, each with
 # the value under which it renders as the reference does (its default):
-# the denoiser's guide features and blend, the render scale (the
-# reference's Renderer scales its film by it), the flat pixel ring
-# (wf_block_ring off) and deferred film-scatter batching.
+# the flat pixel ring (wf_block_ring off) and deferred film-scatter
+# batching.
 UNPORTED = {
-    "use_denoiser": False,
-    "denoiser_blend": 1.0,
-    "render_scale": 1.0,
     "wf_block_ring": True,
     "wf_splat_every": 1,
 }

@@ -52,10 +52,14 @@ It also profiles two luxball segments with each K1 (torch.profiler):
 device operations and device ms per segment. Two versions are so
 compared within one run on one card.
 
-``--fetch-only`` runs K8's part alone.
+``--fetch-only`` runs K8's part alone. ``--splat-only`` runs K4 alone:
+its 4-channel call of segment 4 of the luxball wavefront (1920x1080, 1M
+paths), the committed build and, with ``--baseline``, the block_splat.cu
+of DIR, in turns (DIR, committed, committed, DIR, three times), each bit
+for bit against splat_plain.
 
 Run from the repository root:
-``python3 sweep_shapes.py [--baseline DIR] [--fetch-only]``.
+``python3 sweep_shapes.py [--baseline DIR] [--fetch-only | --splat-only]``.
 """
 
 import argparse
@@ -370,12 +374,65 @@ def profile_wavefront(cs, r, n=2):
                 device_ms_per_segment=dev_us / n / 1e3)
 
 
+def sweep_splat(cs, kb, bs, card, baseline):
+    """K4 on its call of segment 4 of the luxball wavefront, the committed
+    build and the block_splat.cu of ``baseline`` (when given) in turns,
+    each bit-equal to splat_plain. Prints one line per turn; returns
+    {version: [ms, ...]}."""
+    import ctypes
+    import torch
+    r = cs.make_renderer(1920, 1080, "cuda")
+    (local, data, film), kw = cs.record_segments(r)[(4, "splat")][0]
+    del r
+    g = kw["groups"]
+    c, n = data.shape
+    dims = (c, n, g, n // g, film.shape[1] // g)
+    bs.K4._load()
+    kernels = {"committed": bs.K4}
+    if baseline:
+        csrc = kb.CSRC
+        try:
+            kb.CSRC = baseline
+            k = kb.Kernel("block_splat baseline", "block_splat.cu",
+                          "block_splat_launch",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
+            del kb.KERNELS[k.name]         # not one of the port's kernels
+            k._load()
+        finally:
+            kb.CSRC = csrc
+        kernels["baseline"] = k
+    plain = bs.splat_plain(local, data, film, g)
+    out = torch.empty_like(film)
+    turns = ["baseline", "committed", "committed", "baseline"] * 3 \
+        if baseline else ["committed"] * 6
+    times = {}
+    for name in turns:
+        k = kernels[name]
+
+        def run():
+            k(kb.ptr(local), kb.ptr(data), kb.ptr(film), kb.ptr(out), *dims)
+        run()
+        torch.cuda.synchronize()
+        differ = int((out.view(torch.int32) != plain.view(torch.int32))
+                     .sum())
+        line = dict(set=name, kernel="block_splat", call="luxball segment 4",
+                    channels=c, ms=cs.time_ms(run), differ=differ, card=card)
+        print(json.dumps(line), flush=True)
+        if differ:
+            raise AssertionError(f"block_splat of {name} differs from its "
+                                 "plain version")
+        times.setdefault(name, []).append(line["ms"])
+    return times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="another csrc/ directory to build "
                     "and time beside the committed one")
     ap.add_argument("--fetch-only", action="store_true",
                     help="time K8's shapes (and the baseline's) alone")
+    ap.add_argument("--splat-only", action="store_true",
+                    help="time K4 (and the baseline's) alone")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -395,6 +452,11 @@ def main():
         card = cs.card_line()
         print(card, flush=True)
         kb.build_all()                  # the committed kernels, at once
+        if opts.splat_only:
+            times = sweep_splat(cs, kb, bs, card, baseline)
+            print(json.dumps({"ms": {"block_splat: luxball segment 4":
+                                     times}}), flush=True)
+            return 0
         k7_args, k8_args = exact_calls(cs)
         k8_times = sweep_fetch(cs, kb, bs, card, baseline, k8_args)
         if opts.fetch_only:

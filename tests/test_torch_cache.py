@@ -102,6 +102,15 @@ def test_bvh_cache_bytes_match_reference(lux, tmp_path):
             np.testing.assert_array_equal(a, b, err_msg=name)
 
 
+def test_bvh_depth_matches_reference(lux):
+    """BVHArrays.depth (pointer jumping) equals the JAX package's node loop
+    on luxball's BVH and on a 3000-triangle random soup's."""
+    from fluctus_tpu.accel.bvh import BVHArrays as JBVHArrays
+    soup = np.random.default_rng(7).random((3000, 3, 3)).astype(np.float32)
+    for bvh in (lux["bvh"], tbuild_bvh(soup)):
+        assert bvh.depth() == JBVHArrays(*bvh).depth() > 0
+
+
 def test_build_cached_miss_then_hit(lux, tmp_path, monkeypatch):
     """A miss builds and writes the npz; a hit builds nothing (build is
     patched to raise) and gives the same host tables; the upload of either

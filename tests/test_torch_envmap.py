@@ -454,8 +454,10 @@ def test_renderer_load_scene_env_map(tmp_path, capsys):
     missing = str(tmp_path / "absent.hdr")
     r3 = Renderer(32, 16, data_dir=str(tmp_path / "port"), device="cpu")
     r3.load_scene(LUXBALL, env_map=missing)
-    assert capsys.readouterr().out.strip().endswith(
-        f"WARNING: env map not found: {missing}")
+    lines = capsys.readouterr().out.strip().splitlines()
+    # the warning, then the reference's line of the BVH cache
+    assert lines[-2] == f"WARNING: env map not found: {missing}"
+    assert lines[-1].startswith("BVH cache hit: ")
     assert not r3.config.use_env_map and r3.device_scene.env is None
     s = _settings(Settings)
     s.use_env_map = True

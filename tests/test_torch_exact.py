@@ -458,21 +458,6 @@ def test_render_single_wavefront_contract(tmp_path):
     assert len(r._wf_counters) == 3
 
 
-def test_exact_refuses_to_continue_a_foreign_film(tmp_path):
-    """An accumulation left in self.film by the mk route cannot be
-    continued by the exact-spp wavefront (the reference's checkpoint
-    branch is not ported): it raises until reset()."""
-    s = Settings()
-    s.wf_buffer_size = 1024
-    r = Renderer(16, 8, settings=s, data_dir=str(tmp_path), device="cpu")
-    r.load_scene(LUXBALL)
-    r.film = r.film._replace(weight=r.film.weight + 1.0)
-    with pytest.raises(NotImplementedError, match="reset"):
-        r.render_single_wavefront(1, accumulate=True)
-    r.reset()
-    assert float(r.film.weight.max()) == 0.0
-
-
 def test_save_hdr_matches_reference_writer(tmp_path):
     """save_hdr writes the reference writer's bytes (header, flat RGBE,
     zero pixels and the bright tail included)."""

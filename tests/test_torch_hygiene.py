@@ -214,9 +214,7 @@ f 5 6 7
 """
 
 # every switch of settings.UNPORTED, set away from its default
-_REFUSED = [("use_denoiser", True), ("denoiser_blend", 0.5),
-            ("render_scale", 0.5), ("wf_block_ring", False),
-            ("wf_splat_every", 4)]
+_REFUSED = [("wf_block_ring", False), ("wf_splat_every", 4)]
 
 
 def _tiny_scene(d):
@@ -227,7 +225,10 @@ def _tiny_scene(d):
 
 
 def test_refused_switches_are_the_unported_ones():
+    """UNPORTED holds the flat pixel ring and splat batching alone; the
+    denoiser, its blend and the render scale are rendered."""
     from fluctus_tpu_torch import settings as tsettings
+    assert list(tsettings.UNPORTED) == ["wf_block_ring", "wf_splat_every"]
     assert [n for n, _ in _REFUSED] == list(tsettings.UNPORTED)
     for name, value in _REFUSED:
         assert value != tsettings.UNPORTED[name]
@@ -275,16 +276,19 @@ def test_rebuild_config_refuses_unported_switch(tiny_renderer, name, value):
     r.rebuild_config()
 
 
-# the switches the port renders since the env map (and then Russian
-# roulette and the sampling toggles) were ported, each set away from its
-# default: no longer refused
+# the switches the port renders since the env map (then Russian roulette
+# and the sampling toggles, then the denoiser and the render scale) were
+# ported, each set away from its default: no longer refused
 _ACCEPTED = [("use_env_map", True), ("env_map_name", "sky.hdr"),
              ("use_area_light", False), ("use_russian_roulette", True),
-             ("sample_implicit", False), ("sample_explicit", False)]
-# the RenderConfig field each sampling switch sets
+             ("sample_implicit", False), ("sample_explicit", False),
+             ("use_denoiser", True), ("denoiser_blend", 0.5),
+             ("render_scale", 0.5)]
+# the RenderConfig field each sampling switch (and the denoiser) sets
 _CONFIG_FIELD = {"use_russian_roulette": "use_roulette",
                  "sample_implicit": "sample_impl",
-                 "sample_explicit": "sample_expl"}
+                 "sample_explicit": "sample_expl",
+                 "use_denoiser": "denoiser"}
 
 
 def _light_flags(cfg):
@@ -316,6 +320,10 @@ def test_load_scene_accepts_ported_switch(tmp_path, capsys, name, value):
     jr.load_scene(scene, use_saved_state=False)
     theirs = capsys.readouterr().out
     assert _light_flags(r.config) == _light_flags(jr.config)
+    assert (r.width, r.height, r.config.denoiser) == \
+        (jr.width, jr.height, jr.config.denoiser)
+    assert (r.width, r.height) == ((16, 8) if name == "render_scale"
+                                   else (32, 16))
     assert r.config.use_area_light == (name != "use_area_light")
     if name in _CONFIG_FIELD:
         assert getattr(r.config, _CONFIG_FIELD[name]) == value
@@ -454,3 +462,34 @@ def test_init_wavefront_keeps_params(tmp_path):
         assert (r.config.max_bounces, r.config.max_spp) == (3, 5)
         assert not np.array_equal(flat(r.params), before)
     np.testing.assert_array_equal(flat(ours.params), flat(ref.params))
+
+
+def test_job_modules_stand_alone():
+    """The modules of a user's render job (the CLI, state_io, progress and
+    core/denoise.py) load, in a fresh interpreter, no jax, jaxlib,
+    ml_dtypes or fluctus_tpu module."""
+    code = ("import sys; import fluctus_tpu_torch.__main__, "
+            "fluctus_tpu_torch.state_io, fluctus_tpu_torch.progress, "
+            "fluctus_tpu_torch.core.denoise; print(sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'ml_dtypes', 'fluctus_tpu')))")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    assert out.stdout.strip() == "[]"
+
+
+def test_cli_requires_cuda(monkeypatch, tmp_path):
+    """The CLI without CUDA and without FLT_FORCE_CPU raises (the
+    Renderer's refusal) before it loads the scene or writes anything;
+    there is no route to the CPU but that switch."""
+    from fluctus_tpu_torch.__main__ import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("FLT_FORCE_CPU", raising=False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([_tiny_scene(tmp_path), "-x", "32", "-y", "16", "-s", "1",
+              "-o", "out.png"])
+    assert sorted(os.listdir(tmp_path)) == ["tiny.obj"]

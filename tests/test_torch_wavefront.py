@@ -147,12 +147,23 @@ def test_wavefront_slice_matches_reference(reference_kernels):
 
 
 def test_state_numpy_round_trip():
-    cfg = TConfig(width=W, height=H, groups=GROUPS)
-    st = twf.wf_reset(cfg, PATHS, world_radius=3.0, device="cpu")
-    back = twf.wf_state_from_numpy(twf.wf_state_to_numpy(st), device="cpu")
-    for a, b in zip(torch.utils._pytree.tree_leaves(st),
-                    torch.utils._pytree.tree_leaves(back)):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    """Every tensor of a wf_reset state through numpy and back, without
+    and with the denoiser (whose pool flag and guide features are None
+    without it)."""
+    for denoiser in (False, True):
+        cfg = TConfig(width=W, height=H, groups=GROUPS, denoiser=denoiser)
+        st = twf.wf_reset(cfg, PATHS, world_radius=3.0, device="cpu")
+        back = twf.wf_state_from_numpy(twf.wf_state_to_numpy(st),
+                                       device="cpu")
+        leaves = list(zip(torch.utils._pytree.tree_leaves(st),
+                          torch.utils._pytree.tree_leaves(back)))
+        assert len(leaves) == len(torch.utils._pytree.tree_leaves(back))
+        for a, b in leaves:
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        assert (st.features is not None) == denoiser
+        assert (back.pool.first_diffuse_hit is not None) == denoiser
 
 
 def test_pad_unpad_and_true_pid():
