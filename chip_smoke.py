@@ -156,10 +156,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and a state file that round-trips through state_io; then --wavefront
    24 --preview-every 8 --checkpoint loads the state ("Loaded render
    state"), resumes the checkpoint and writes 2 preview frames.
-10. the kernels line (launches including phases 11 and 12's timed runs;
-   K4's entry with its 8-channel launches, as counted in 12a), the card
-   line, then the final
-   result line.
+13. the flat pixel ring (film in true pixel order, one raygen cursor,
+   the film scatter an index_add_ into num_pixels + 1 buckets) on luxball
+   at 1080p, depth 10. 13a: wf_block_ring off, K1-K3 held to their plain
+   versions on the recorded calls of segments 2 and 4 (no K4 call), then
+   SEGMENTS timed segments with 1M paths (launches per segment K1 2, K2 2,
+   K3 1, K4/K7/K8 0), 2 profiled (the index_add_ kernels' device time and
+   share), the scatter alone on its segment's call; phase 4's parity on
+   the flat ring (integer state and weights equal, rgb within FLAT_RTOL).
+   13c: wf_splat_every = FLAT_SPLAT_EVERY (accepted and ignored: the
+   port scatters every segment), the same timed segments: the counters
+   equal 13a's and the film equals 13a's (weights exactly, rgb within
+   FLAT_RTOL); one scatter of 4 segments' records timed, as the JAX
+   package's batching would make it. 13d: the
+   denoiser on the flat ring, 4 segments: whole feature weights, a finite
+   denoised image, the 8-channel scatter timed. 13b: the default config
+   (block ring, 4096 groups) and render_single_wavefront(FLAT_SPP,
+   num_tasks=1,000,000), which the groups do not divide: the flat ring,
+   spp = weight = FLAT_SPP on every pixel, its tonemapped mean within the
+   1% bias gate of phase 5's block-ring render, seconds and Mrays/s
+   beside phase 5's. 13e: FLT_BLOCK_RING=0 in a subprocess takes the flat
+   ring and says so; the same process without it, the block ring. 13f:
+   luxball's 5,642 triangles written as an ASCII PLY, loaded cold (both
+   caches written) and warm (both hit), 4 flat segments with a finite
+   film.
+10. the kernels line (launches including phases 11, 12 and 13's timed
+   runs; K4's entry with its 8-channel launches, as counted in 12a), the
+   card line, then the final result line.
 
 Every renderer loads with a fresh temporary ``data_dir`` (removed at the
 end), so phases 2-6 load cold as before (now writing the caches) and
@@ -225,6 +248,19 @@ PROD_SPP = 4
 PROD_PARITY = ({}, {"sample_implicit": False}, {"sample_explicit": False},
                {"use_russian_roulette": True})
 BIAS_GATE = 0.01           # the 1% tonemapped-mean bias gate (ROADMAP)
+# phase 13: the flat pixel ring. Its film scatter (index_add_) adds by
+# atomics in no fixed order, so two flat films agree to a few ulp of each
+# pixel's sum of non-negative samples: rgb is held at FLAT_RTOL / FLAT_ATOL,
+# whole-number weights and integer state exactly
+FLAT_RTOL, FLAT_ATOL = 1e-5, 1e-6
+FLAT = {"wf_block_ring": False}
+FLAT_SPLAT_EVERY = 4
+FLAT_SPP = 16
+FLAT_POOL = 1_000_000      # 1,000,000 % 4096 = 576: the exact path's pool
+PER_SEGMENT_FLAT = {**PER_SEGMENT, "block_splat": 0}
+LUXBALL_TRIANGLES = 5642
+# the device kernels of Tensor.index_add_ (the profiler's names)
+INDEX_ADD = r"indexFunc\w*Index"
 # phase 12: with the denoiser K4 also splats the 8 guide-feature channels
 # once a segment, after the film's splat (or K7's, with the spp cap)
 PER_SEGMENT_DENOISE = {**PER_SEGMENT, "block_splat": 2}
@@ -1103,7 +1139,9 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
     timed run's average. The kernels' own launch counts over the same
     segments stand beside the profiler's call counts, which show any
     events the profiler lost; ``device_launches_per_segment`` counts every
-    device operation (kernels, copies, fills) the profiler saw."""
+    device operation (kernels, copies, fills) the profiler saw;
+    ``index_add_us_per_segment`` the device time of Tensor.index_add_'s
+    kernels (the flat ring's film scatter)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from fluctus_tpu_torch import kernel_build as kb
@@ -1132,6 +1170,7 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
         m = re.search(r"(?:^|\s)(\w+)_kernel[<(]", key)
         if m and m.group(1) in kb.KERNELS:
             ours[m.group(1)] = ours.get(m.group(1), 0.0) + dt / n
+    index_add = sum(dt for dt, key, _ in rows if re.search(INDEX_ADD, key))
     out = dict(phase="profile", segments=n, unit=unit, card=card,
                device_ms_per_segment=dev_ms,
                device_launches_per_segment=sum(c for _, _, c in rows) / n,
@@ -1139,6 +1178,8 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
                profiled_wall_ms_per_segment=wall_ms,
                launches_per_segment=launches,
                kernels_us_per_segment=ours,
+               index_add_us_per_segment=index_add / n,
+               index_add_share=index_add / n / 1e3 / dev_ms,
                top=[dict(name=k[:90], us_per_segment=dt / n,
                          calls_per_segment=c / n)
                     for dt, k, c in rows[:14]])
@@ -1148,14 +1189,17 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
 
 def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
                  device="cuda", data_dir=None, exact=False, env_map=None,
-                 area_light=True, fast_env=True, switches=None):
-    """Phase 4 / 4b / 8c / 9d / 11e: 4 segments through the kernels and
+                 area_light=True, fast_env=True, switches=None, flat=False):
+    """Phase 4 / 4b / 8c / 9d / 11e / 13a: 4 segments through the kernels and
     through the plain versions on the card, from the same reset (both
     loads from ``data_dir`` when given, else each from a fresh one), with
     the env map file ``env_map`` on its fast route or (``fast_env`` False)
     its bilinear + alias route, the area light unless ``area_light`` is
     False, and the Settings fields of ``switches`` set. With ``exact`` the
-    films and per-pixel spp must be equal. Returns the printed object."""
+    films and per-pixel spp must be equal. With ``flat`` both runs must be
+    on the flat pixel ring, with the integer state and the film weights
+    equal and the rgb within FLAT_RTOL / FLAT_ATOL (its scatter adds in no
+    fixed order on the card). Returns the printed object."""
     import torch
     runs = []
     for use_plain in (False, True):
@@ -1166,15 +1210,17 @@ def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
             r.config = r.config.replace(fast_env=fast_env)
             r.init_wavefront(paths)
             r.render_wavefront(4)
-            runs.append((r._wf_state, r.wavefront_stats()))
+            runs.append((r._wf_state, r.wavefront_stats(),
+                         r._wf_cfg.block_ring))
         finally:
             undo()
-    (a, sa), (b, sb) = runs
+    (a, sa, ring_a), (b, sb, ring_b) = runs
     out = dict(phase="parity", scene=scene, width=width, height=height,
                paths=paths, b16_tables=r.device_scene.mxu.b16r is not None,
                env_map=env_map, use_env_map=r.config.use_env_map,
                fast_env=fast_env, use_area_light=r.config.use_area_light,
                switches=switches or {}, segments=4,
+               block_ring=[ring_a, ring_b],
                counters_kernel=list(sa), counters_plain=list(sb))
     for name in ("pixel_index", "seed", "path_len"):
         frac = float((getattr(a.pool, name) == getattr(b.pool, name))
@@ -1187,11 +1233,19 @@ def phase_parity(scene=LUXBALL, width=256, height=144, paths=1 << 16,
     fb = torch.stack([*b.film.color, b.film.weight])
     out["film_max_abs_err"] = float((fa - fb).abs().max())
     out["film_equal"] = bool(torch.equal(fa, fb))
+    out["weights_equal"] = bool(torch.equal(a.film.weight, b.film.weight))
     out["spp_equal"] = bool(torch.equal(a.spp, b.spp))
     emit(out)
     if sa != sb:
         raise AssertionError(f"parity: counters {sa} != {sb}")
     torch.testing.assert_close(fa, fb, rtol=1e-4, atol=1e-6)
+    if flat:
+        if ring_a or ring_b or not out["weights_equal"] or min(
+                out[f"{k}_equal"] for k in ("pixel_index", "seed",
+                                            "path_len")) < 1.0:
+            raise AssertionError(f"flat parity failed: {out}")
+        torch.testing.assert_close(fa[:3], fb[:3], rtol=FLAT_RTOL,
+                                   atol=FLAT_ATOL)
     if exact and not (out["film_equal"] and out["spp_equal"]):
         raise AssertionError("parity: film or spp differ")
     return out
@@ -1409,7 +1463,7 @@ def counts():
 def phase_exact(r, card):
     """Phase 5a/5b on a 1080p luxball renderer with a 1M-path pool.
     Returns (kernel results, K7/K8 launches of the timed render, the
-    exact image's mean)."""
+    exact image's mean, the timed render's line)."""
     import torch
     from fluctus_tpu_torch import kernel_build as kb
     from fluctus_tpu_torch.core.integrator_wf import _block_geom, unpad_pixels
@@ -1458,7 +1512,8 @@ def phase_exact(r, card):
                phantom_slots=int(phantom.sum()),
                phantom_weights=torch.unique(
                    state.film.weight[phantom]).tolist(),
-               image_mean=mean, card=card)
+               image_mean=mean, tonemapped_mean=float(r.ldr_image().mean()),
+               card=card)
     emit(out)
     check_launches(launches, plain, PER_SEGMENT_EXACT, segments,
                    "exact path")
@@ -1484,7 +1539,7 @@ def phase_exact(r, card):
     if not (acc and reinit):
         raise AssertionError(f"exact path: accumulate {acc}, re-init "
                              f"{reinit}")
-    return dict(block_splat_capped=k7, fetch=k8), launches, mean
+    return dict(block_splat_capped=k7, fetch=k8), launches, mean, out
 
 
 def phase_exact_parity(width=256, height=144, paths=1 << 16, spp=4):
@@ -1698,7 +1753,8 @@ def kernels_line(kres, launches):
     """One entry per ported kernel: its checks and times from phase 2 (K1-K4,
     luxball), 2b (K5, K6), 5a (K7, K8), 6b (K9) or 8a (K10), and its
     launches on its main path, counted from 0: K1-K6 summed over the
-    free-running runs (3, 3b, 11, 12a), K7 and K8 in the timed exact
+    free-running runs (3, 3b, 11, 12a, and 13a and 13c on the flat ring,
+    where K4, K7 and K8 launch 0 times), K7 and K8 in the timed exact
     renders (5b, 11c, 12a), K9 in the rays-on-sublanes render (6b), K10 in
     the free-running run on tables without B16 (8b). K4's entry also
     carries its 8-channel calls (12a: the denoiser's features), with their
@@ -2743,6 +2799,264 @@ def phase_cli(card):
         raise AssertionError("12c: the --wavefront run failed")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the flat pixel ring and the PLY loader
+# ---------------------------------------------------------------------------
+
+def scatter_timing(seg, data, num_pixels, what):
+    """The flat ring's film scatter (``integrator_wf.scatter_pixels``: a
+    zeroed [num_pixels + 1, C] buffer and one index_add_) on one recorded
+    call: its device time and its byte bound (the pixel ids and records
+    read once, the [num_pixels, C] sums written once)."""
+    from fluctus_tpu_torch.core import integrator_wf as wf
+    m, c = data.shape
+    b_ms, b_by = bound(m * c, nbytes(seg, data) + num_pixels * c * 4)
+    return dict(**kernel_ms(lambda: wf.scatter_pixels(seg, data,
+                                                      num_pixels)),
+                bound_ms=b_ms, bound_by=b_by, cell=what,
+                shape=f"{m} records x {c} channels into {num_pixels} + 1 "
+                      f"buckets, {int((seg < num_pixels).sum())} splats")
+
+
+def flat_kernels(rec_calls):
+    """K1-K3 vs their plain versions on the recorded calls of segments 2
+    and 4 of the flat path (phase 2's helpers; no K4 call there)."""
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    if any(name == "splat" for _, name in rec_calls):
+        raise AssertionError("13a: K4 ran on the flat ring")
+    res = {"tile_order": check_tile_order(mt, rec_calls)}
+    res["trace_rol"], _ = check_trace("trace_rol", mt.trace_rol,
+                                      mt.trace_rol_plain, rec_calls, 256)
+    res["resolve_v5"], _ = check_resolve("resolve_v5", mt.resolve_v5,
+                                         mt.resolve_v5_plain, rec_calls)
+    return res
+
+
+def film_diff(fa, fb):
+    """Two films: weights equal, and the largest rgb difference."""
+    import torch
+    ca, cb = torch.stack(list(fa.color)), torch.stack(list(fb.color))
+    return dict(weights_equal=bool(torch.equal(fa.weight, fb.weight)),
+                rgb_max_abs_err=float((ca - cb).abs().max()),
+                rgb_close=bool(torch.allclose(ca, cb, rtol=FLAT_RTOL,
+                                              atol=FLAT_ATOL)))
+
+
+FLAT_ENV_SCRIPT = """
+import os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+for ring_env in ("0", None):
+    if ring_env is None:
+        os.environ.pop("FLT_BLOCK_RING")
+    r = cs.make_renderer(256, 144, "cuda", data_dir=sys.argv[1])
+    r.init_wavefront(1 << 16)
+    r.render_wavefront(2)
+    print(f"FLT_BLOCK_RING={os.environ.get('FLT_BLOCK_RING')}",
+          f"ring={'block' if r._wf_cfg.block_ring else 'flat'}",
+          f"samples={r.wavefront_stats().samples}",
+          f"weight={int(r.wavefront_film().weight.sum())}", flush=True)
+"""
+
+
+def flat_env_run(data_dir):
+    """Phase 13e: a subprocess started with FLT_BLOCK_RING=0 renders 2
+    segments at 256x144 and says which ring it took; then, with the
+    variable removed, the same (the block-ring control)."""
+    env = dict(os.environ, PYTHONPATH=os.getcwd(), FLT_BLOCK_RING="0")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", FLAT_ENV_SCRIPT, data_dir],
+                       env=env, capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in p.stdout.splitlines()
+             if ln.startswith("FLT_BLOCK_RING=")]
+    out = dict(exit=p.returncode, seconds=time.perf_counter() - t0,
+               lines=lines, stderr=p.stderr.strip().splitlines()[-4:])
+    ok = (p.returncode == 0 and len(lines) == 2
+          and lines[0].startswith("FLT_BLOCK_RING=0 ring=flat")
+          and lines[1].startswith("FLT_BLOCK_RING=None ring=block")
+          and all(ln.split()[2][8:] == ln.split()[3][7:] for ln in lines))
+    return out, ok
+
+
+def write_ply(path, scene_file=LUXBALL):
+    """``scene_file``'s triangles as an ASCII PLY: three vertices of its
+    own (x, y, z, nx, ny, nz) a triangle, and the triangle faces."""
+    import numpy as np
+    from fluctus_tpu_torch.scene import Scene
+    sc = Scene()
+    sc.load_model(scene_file)
+    p, n, _, _ = sc.triangle_arrays()
+    m = p.shape[0]
+    with open(path, "w") as f:
+        f.write(f"ply\nformat ascii 1.0\nelement vertex {3 * m}\n"
+                + "".join(f"property float {a}\n"
+                          for a in ("x", "y", "z", "nx", "ny", "nz"))
+                + f"element face {m}\nproperty list uchar int "
+                  "vertex_indices\nend_header\n")
+        np.savetxt(f, np.concatenate([p, n], axis=2).reshape(3 * m, 6),
+                   fmt="%.9g")
+        np.savetxt(f, np.concatenate([np.full((m, 1), 3), np.arange(
+            3 * m).reshape(m, 3)], axis=1), fmt="%d")
+    return m
+
+
+def phase_flat(card, exact_line, plain_main):
+    """Phases 13a-13f (see the module docstring). ``exact_line`` is phase
+    5b's timed exact render, ``plain_main`` phase 3's timed block-ring run.
+    Returns the launches of 13a's and 13c's timed runs."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core import integrator_wf as wf
+    data_dir = fresh_dir()
+
+    # 13a: free-running on the flat ring: K1-K3 held, timed, profiled
+    r = make_renderer(1920, 1080, "cuda", data_dir=data_dir, switches=FLAT)
+    if r.config.block_ring:
+        raise AssertionError("13a: the config is on the block ring")
+    kres = flat_kernels(record_segments(r))
+    emit(dict(phase="flat_kernels_vs_plain", card=card, scene=LUXBALL,
+              **kres))
+    la, main = phase_main(r, card, LUXBALL, SEGMENTS, PER_SEGMENT_FLAT,
+                          extra=dict(cell="13a flat ring",
+                                     block_ring=r._wf_cfg.block_ring))
+    if r._wf_cfg.block_ring:
+        raise AssertionError("13a: the pool is on the block ring")
+    film_k1 = r.wavefront_film()
+    with LastCalls(wf, "scatter_pixels", keep=1) as rec:
+        r.render_wavefront(1)
+    scatter = {"channels_4": scatter_timing(*rec.calls[0], "13a")}
+    prof = profile_segments(r, card, main["ms_per_segment"])
+    emit(dict(phase="flat_cost", card=card,
+              ms_per_segment=main["ms_per_segment"],
+              mrays_per_s=main["mrays_per_s"],
+              device_ms_per_segment=prof["device_ms_per_segment"],
+              index_add_us_per_segment=prof["index_add_us_per_segment"],
+              index_add_share=prof["index_add_share"],
+              scatter=scatter["channels_4"],
+              block_ring=dict(ms_per_segment=plain_main["ms_per_segment"],
+                              mrays_per_s=plain_main["mrays_per_s"])))
+    phase_parity(LUXBALL, switches=FLAT, flat=True)
+
+    # 13c: the same 24 segments with wf_splat_every set, which the port
+    # accepts and ignores: 13a's counters and film
+    r.settings.wf_splat_every = FLAT_SPLAT_EVERY
+    lc, again = phase_main(r, card, LUXBALL, SEGMENTS, PER_SEGMENT_FLAT,
+                           extra=dict(cell="13c flat ring, splat every "
+                                           f"{FLAT_SPLAT_EVERY}"))
+    diff = film_diff(r.wavefront_film(), film_k1)
+    same = again["rays"] == main["rays"]
+    # what the reference's batching would scatter at once: one index_add_
+    # of 4 segments' records (against 4 of 13a's single ones)
+    with LastCalls(wf, "scatter_pixels", keep=FLAT_SPLAT_EVERY) as rec:
+        r.render_wavefront(FLAT_SPLAT_EVERY)
+    segs, datas, npx = zip(*rec.calls)
+    scatter["batch"] = scatter_timing(torch.cat(segs), torch.cat(datas),
+                                      npx[0], "13c")
+    emit(dict(phase="flat_splat_every", card=card, k=FLAT_SPLAT_EVERY,
+              ms_per_segment=again["ms_per_segment"],
+              mrays_per_s=again["mrays_per_s"],
+              k1_ms_per_segment=main["ms_per_segment"],
+              counters_equal=same, scatter_batch=scatter["batch"], **diff))
+    if not (same and diff["weights_equal"] and diff["rgb_close"]):
+        raise AssertionError(f"13c: the film with wf_splat_every set "
+                             f"differs from 13a's: counters {same}, {diff}")
+    r.settings.wf_splat_every = 1
+
+    # 13d: the denoiser on the flat ring
+    r.settings.use_denoiser = True
+    r.rebuild_config()
+    r.init_wavefront(1 << 20)
+    with LastCalls(wf, "scatter_pixels", keep=1) as rec:
+        r.render_wavefront(4)
+    r.wavefront_film()
+    f = r.features
+    wts = torch.stack([f.albedo_w, f.normal_w])
+    whole = bool((wts == torch.round(wts)).all() and (wts >= 0).all()
+                 and float(f.normal_w.sum()) > 0)
+    finite = bool(torch.isfinite(r.denoised_tensor()).all())
+    scatter["channels_8"] = scatter_timing(*rec.calls[0], "13d")
+    emit(dict(phase="flat_denoiser", card=card, segments=4,
+              block_ring=r._wf_cfg.block_ring, feature_weights_whole=whole,
+              normal_w_max=float(f.normal_w.max()), denoised_finite=finite,
+              scatter=scatter["channels_8"]))
+    if r._wf_cfg.block_ring or not (whole and finite):
+        raise AssertionError(f"13d: whole weights {whole}, finite {finite}")
+    del r, film_k1
+    torch.cuda.empty_cache()
+
+    # 13b: the default config (block ring, 4096 groups) with a pool the
+    # groups do not divide: render_single_wavefront falls to the flat ring
+    r = make_renderer(1920, 1080, "cuda", data_dir=data_dir)
+    torch.cuda.synchronize()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    film = r.render_single_wavefront(FLAT_SPP, num_tasks=FLAT_POOL)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    lx, plain = counts()
+    exact = bool((r._wf_state.spp == FLAT_SPP).all()
+                 and (film.weight == FLAT_SPP).all())
+    mean = float(r.ldr_image().mean())
+    bias = abs(mean - exact_line["tonemapped_mean"]) / \
+        exact_line["tonemapped_mean"]
+    out = dict(phase="flat_exact", card=card, paths=FLAT_POOL,
+               groups=r.config.groups, config_block_ring=r.config.block_ring,
+               block_ring=r._wf_cfg.block_ring, spp=FLAT_SPP,
+               seconds=elapsed, segments=len(r._wf_counters),
+               mrays_per_s=r.perf_mrays(elapsed)["total"],
+               spp_and_weight_exact=exact, tonemapped_mean=mean,
+               block_ring_run=dict(
+                   seconds=exact_line["seconds"],
+                   segments=exact_line["segments"],
+                   mrays_per_s=exact_line["mrays_per_s"],
+                   tonemapped_mean=exact_line["tonemapped_mean"]),
+               relative_bias=bias, gate=BIAS_GATE, launches=lx)
+    emit(out)
+    check_launches(lx, plain, PER_SEGMENT_FLAT, len(r._wf_counters),
+                   "13b flat exact path")
+    if not (r.config.block_ring and not r._wf_cfg.block_ring and exact
+            and bias < BIAS_GATE):
+        raise AssertionError(f"13b failed: {out}")
+    del r, film
+    torch.cuda.empty_cache()
+
+    # 13e: FLT_BLOCK_RING=0 in a subprocess, and the block-ring control
+    env_out, ok = flat_env_run(data_dir)
+    emit(dict(phase="flat_env", card=card, **env_out))
+    if not ok:
+        raise AssertionError("13e: FLT_BLOCK_RING=0 was not honoured")
+
+    # 13f: luxball's triangles as an ASCII PLY, loaded cold, then warm
+    ply_dir = fresh_dir()
+    ply = os.path.join(ply_dir, "luxball.ply")
+    tris = write_ply(ply)
+    loads = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        r = make_renderer(1920, 1080, "cuda", ply, data_dir=ply_dir,
+                          switches=FLAT)
+        loads.append(dict(seconds=time.perf_counter() - t0,
+                          cache_hit=r.cache_hit, steps=r.load_seconds))
+    r.init_wavefront(1 << 20)
+    r.render_wavefront(4)
+    film = r.wavefront_film()
+    finite = bool(all(torch.isfinite(c).all() for c in film.color))
+    out = dict(phase="ply", card=card, triangles=r.scene.num_triangles,
+               ply_bytes=os.path.getsize(ply), cold=loads[0],
+               warm=loads[1], block_ring=r._wf_cfg.block_ring,
+               film_finite=finite,
+               pixels_covered=float((film.weight > 0).float().mean()))
+    emit(out)
+    if not (tris == r.scene.num_triangles == LUXBALL_TRIANGLES and finite
+            and loads[0]["cache_hit"] == dict(bvh=False, tables=False)
+            and loads[1]["cache_hit"] == dict(bvh=True, tables=True)
+            and not r._wf_cfg.block_ring):
+        raise AssertionError(f"13f failed: {out}")
+    del r, film
+    torch.cuda.empty_cache()
+    return {k: la[k] + lc[k] for k in la}
+
+
 def sweep_build_info(kb):
     """Per instantiation of K2, K5 and K9 (closest-hit, any-hit): registers,
     spill bytes and shared memory from ptxas (-Xptxas -v), and for a
@@ -2805,7 +3119,7 @@ def main():
 
 
 def run(kb):
-    """Phases 1-12 (see the module docstring)."""
+    """Phases 1-13 (see the module docstring)."""
     import torch
 
     # phase 1: device and build
@@ -2850,7 +3164,7 @@ def run(kb):
 
     # phases 5 and 6: exact-spp, the megastep, rays on sublanes, pick
     r = make_renderer(1920, 1080, "cuda")
-    exact_res, launches_x, exact_mean = phase_exact(r, card)
+    exact_res, launches_x, exact_mean, exact_line = phase_exact(r, card)
     phase_exact_parity()
     kres.update(exact_res)
     kres["trace_ros"], launches_ros = phase_mk(r, card, exact_mean)
@@ -2914,9 +3228,13 @@ def run(kb):
     phase_resume(card)
     phase_cli(card)
 
+    # phase 13: the flat pixel ring (13a-13e) and a PLY scene (13f)
+    launches_f = phase_flat(card, exact_line, main)
+
     # phase 10: result lines
     main_launches = {k: launches[k] + launches_l[k] + launches_p.get(k, 0)
-                     + launches_d.get(k, 0) for k in SOURCES}
+                     + launches_d.get(k, 0) + launches_f.get(k, 0)
+                     for k in SOURCES}
     main_launches.update(
         block_splat_capped=(launches_x["block_splat_capped"]
                             + launches_p["block_splat_capped"]

@@ -19,11 +19,21 @@ resolve, the film splat of terminated paths, NEE generation, BSDF
 sampling and per-group pixel-ring raygen). Queues are masks; queue
 lengths are mask popcounts (``WfCounters``).
 
-The pool is partitioned into G groups of S lanes; group g renders the true
-pixels [g*P, g*P + len_g) through its own ring cursor, and its splats land
-in film block g (core/block_splat.py). Film and spp live in the padded
+With ``config.block_ring`` (the renderer's default) the pool is
+partitioned into G groups of S lanes; group g renders the true pixels
+[g*P, g*P + len_g) through its own ring cursor, and its splats land in
+film block g (core/block_splat.py). Film and spp live in the padded
 [G*Pk] layout (``pad_pixels`` / ``unpad_pixels``), and so do the guide
 features.
+
+Without it the pixel ring is flat, the reference's own (wf_raygen.cl:25):
+film, spp and features in true pixel order, one global raygen cursor
+(a 0-d tensor) whose ranks are an exclusive prefix count over the whole
+pool (``exclusive_rank``), and terminated paths splat by a scatter-add
+into ``num_pixels + 1`` buckets, the last one the overflow bucket of
+lanes that do not splat (``scatter_pixels``). Under the spp cap each
+segment reads the spp by a gather and admits exactly each pixel's
+remaining budget, ranking a pixel's splatting lanes by a stable sort.
 """
 
 from __future__ import annotations
@@ -77,11 +87,13 @@ class WfPool(NamedTuple):
 
 
 class WfState(NamedTuple):
+    """Film, spp and features are [G*Pk] (block ring) or [num_pixels]
+    (flat ring); the cursor is [G] or 0-d."""
     pool: WfPool
     film: Film
-    spp: torch.Tensor          # [G*Pk] int32 samples per padded pixel
-    curr_pixel: torch.Tensor   # [G] int32 ring cursor per group
-    features: Optional[FeatureFilm] = None   # [G*Pk] guide buffers
+    spp: torch.Tensor          # int32 samples per (padded) pixel
+    curr_pixel: torch.Tensor   # int32 ring cursor(s)
+    features: Optional[FeatureFilm] = None   # guide buffers
 
 
 class WfCounters(NamedTuple):
@@ -102,14 +114,19 @@ def _block_geom(config: RenderConfig):
 
 def padded_to_true_pid(config: RenderConfig, idx):
     """Padded pixel index (group g, slot k -> g*Pk + k) to the true pixel
-    id (g*P + k)."""
+    id (g*P + k). The identity on the flat ring."""
+    if not config.block_ring:
+        return idx
     p_true, pk = _block_geom(config)
     return torch.div(idx, pk, rounding_mode="floor") * p_true \
         + torch.remainder(idx, pk)
 
 
 def unpad_pixels(arr, config: RenderConfig):
-    """Padded per-pixel array [G*Pk(, C)] -> true layout [num_pixels(, C)]."""
+    """Padded per-pixel array [G*Pk(, C)] -> true layout [num_pixels(, C)].
+    The identity on the flat ring."""
+    if not config.block_ring:
+        return arr
     p_true, pk = _block_geom(config)
     g = arr.shape[0] // pk
     tail = tuple(arr.shape[1:])
@@ -119,7 +136,10 @@ def unpad_pixels(arr, config: RenderConfig):
 
 def pad_pixels(arr, config: RenderConfig, fill=0):
     """True per-pixel array [num_pixels(, C)] -> padded block layout
-    [G*Pk(, C)] (inverse of unpad_pixels); ``fill`` lands in dead slots."""
+    [G*Pk(, C)] (inverse of unpad_pixels); ``fill`` lands in dead slots.
+    The identity on the flat ring."""
+    if not config.block_ring:
+        return arr
     p_true, pk = _block_geom(config)
     g = config.groups
     total = g * p_true
@@ -141,14 +161,56 @@ def salt_seeds(seed, salt: int):
     return burtle_hash(seed ^ ((salt * 0x9E3779B9) & 0xFFFFFFFF))
 
 
+def exclusive_rank(mask):
+    """Exclusive prefix count of a bool [n] mask in int32, and its total:
+    the flat ring's raygen ranks (the reference's ``exclusive_rank``
+    computes the same counts by triangular matmuls, a TPU workaround)."""
+    m = mask.to(torch.int32)
+    incl = torch.cumsum(m, 0, dtype=torch.int32)
+    return incl - m, incl[-1]
+
+
+def run_ranks(key):
+    """Each lane's rank among the lanes of equal ``key`` [n], in lane
+    order (int64): a stable sort by key, each run's start by cummax, and
+    the ranks scattered back to lane order (the reference sorts them back,
+    its second ``lax.sort``, integrator_wf.py:462-470)."""
+    n = key.shape[0]
+    skey, slane = torch.sort(key, stable=True)
+    pos = torch.arange(n, dtype=torch.int64, device=key.device)
+    newrun = torch.ones(n, dtype=torch.bool, device=key.device)
+    newrun[1:] = skey[1:] != skey[:-1]
+    runstart = torch.cummax(torch.where(newrun, pos, 0), 0).values
+    return torch.empty_like(pos).scatter_(0, slane, pos - runstart)
+
+
+def scatter_pixels(seg, data, num_pixels: int):
+    """The flat ring's film scatter: the rows of ``data`` [m, C] summed by
+    pixel ``seg`` [m] into ``num_pixels + 1`` buckets, the last one the
+    overflow bucket of lanes that do not splat; returns [num_pixels, C].
+    This is the reference's own semantics for the flat ring (its
+    ``segment_sum``), so it stays one ``index_add_``, not a kernel: on the
+    CPU it adds in lane order, as XLA's CPU scatter does; on CUDA it adds
+    by atomics in no fixed order, so float sums are not bit-reproducible
+    there (whole-number weights and int32 counts are)."""
+    acc = torch.zeros((num_pixels + 1,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    return acc.index_add_(0, seg, data)[:num_pixels]
+
+
 def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0, *,
              device) -> WfState:
     """wf_reset.cl: clear film, reset pool, seed = lane id (salted by
     FLT_SEED_SALT when set). path_len = -1 marks paths as pre-birth: the
-    first segment regenerates them without splatting. Padded dead pixels'
-    spp is parked at 2^29. With ``config.denoiser`` the pool tracks each
-    path's first diffuse hit and the state holds zero guide features."""
-    config.block_plan(num_tasks)
+    first segment regenerates them without splatting. On the block ring
+    (whose geometry ``config.block_plan`` checks, raising on a pool the
+    groups do not divide) padded dead pixels' spp is parked at 2^29 and
+    each group has a cursor; on the flat ring spp is zero over the true
+    pixels and the cursor is one 0-d tensor. With ``config.denoiser`` the
+    pool tracks each path's first diffuse hit and the state holds zero
+    guide features."""
+    if config.block_ring:
+        config.block_plan(num_tasks)
     n = num_tasks
     salt = flags.env_int("SEED_SALT", 0)
     seed0 = torch.arange(n, dtype=torch.int64, device=device)
@@ -173,13 +235,18 @@ def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0, *,
         last_light_pick=f32(1.0),
         shadow_len=f32(2.0 * float(world_radius)),
         first_diffuse_hit=b(False) if config.denoiser else None)
-    p_true, pk = _block_geom(config)
-    npix = config.groups * pk
-    gi = torch.arange(npix, dtype=torch.int32, device=device) // pk
-    li = torch.arange(npix, dtype=torch.int32, device=device) % pk
-    live = li < torch.clamp(config.num_pixels - gi * p_true, 1, p_true)
-    spp0 = torch.where(live, 0, 1 << 29).to(torch.int32)
-    curr0 = torch.zeros(config.groups, dtype=torch.int32, device=device)
+    if config.block_ring:
+        p_true, pk = _block_geom(config)
+        npix = config.groups * pk
+        gi = torch.arange(npix, dtype=torch.int32, device=device) // pk
+        li = torch.arange(npix, dtype=torch.int32, device=device) % pk
+        live = li < torch.clamp(config.num_pixels - gi * p_true, 1, p_true)
+        spp0 = torch.where(live, 0, 1 << 29).to(torch.int32)
+        curr0 = torch.zeros(config.groups, dtype=torch.int32, device=device)
+    else:
+        npix = config.num_pixels
+        spp0 = torch.zeros(npix, dtype=torch.int32, device=device)
+        curr0 = torch.zeros((), dtype=torch.int32, device=device)
     return WfState(pool=pool, film=Film.zeros(npix, device), spp=spp0,
                    curr_pixel=curr0,
                    features=(FeatureFilm.zeros(npix, device)
@@ -287,11 +354,13 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     use_env = cfg.use_env_map and scene.env is not None
     light = params.area_light if cfg.use_area_light else None
     num_pixels = state.film.weight.shape[0]
-    p_true, pk_ = _block_geom(cfg)
-    g_local = num_pixels // pk_
-    s_ = n // g_local
-    lpid = pool.pixel_index
-    lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s_
+    block = cfg.block_ring
+    if block:
+        p_true, pk_ = _block_geom(cfg)
+        g_local = num_pixels // pk_
+        s_ = n // g_local
+        lpid = pool.pixel_index
+        lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s_
 
     seed = pool.seed
     T = pool.T
@@ -320,9 +389,12 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         # and fallback value from the config (integrator_wf.py:392-406)
         cap = torch.as_tensor(params.max_spp, dtype=torch.int32, device=dev)
         spp_cap = torch.where(cap > 0, cap, cfg.max_spp)
-        pix_spp = bs.fetch(torch.remainder(lpid, pk_).to(torch.int32),
-                           state.spp.to(torch.float32)[None, :],
-                           groups=g_local).to(torch.int32)
+        if block:
+            pix_spp = bs.fetch(torch.remainder(lpid, pk_).to(torch.int32),
+                               state.spp.to(torch.float32)[None, :],
+                               groups=g_local).to(torch.int32)
+        else:
+            pix_spp = state.spp[pool.pixel_index.long()]
         max_samples_reached = pix_spp >= spp_cap
         terminate |= max_samples_reached
 
@@ -376,30 +448,59 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     # ---- splat terminated paths (wf_logic.cl:171-205) ---------------------
     splat = terminate & (plen > 0) & ~max_samples_reached
     film = state.film
-    data_t = torch.stack([torch.where(splat, Ei.x, 0.0),
-                          torch.where(splat, Ei.y, 0.0),
-                          torch.where(splat, Ei.z, 0.0),
-                          splat.to(torch.float32)], dim=0)
-    local_col = torch.where(splat, torch.remainder(lpid, pk_), -1).to(
-        torch.int32)
-    fmat = torch.stack([film.color.x, film.color.y, film.color.z,
-                        film.weight], dim=0)
-    if cfg.max_spp > 0:
-        # each pixel admits exactly its remaining budget (K7); the weight
-        # deltas are whole numbers below 2^24, so rounding them is exact
-        remaining = torch.clamp_min(spp_cap - state.spp, 0).to(
-            torch.float32)[None, :]
-        new_mat = bs.splat(local_col, data_t, fmat, groups=g_local,
-                           remaining=remaining)
-        delta_w = new_mat[3] - film.weight
-        spp_counts = state.spp + torch.round(delta_w).to(torch.int32)
-        n_splatted = torch.round(delta_w.sum()).to(torch.int32)
+    splat_records = None
+    if block:
+        data_t = torch.stack([torch.where(splat, Ei.x, 0.0),
+                              torch.where(splat, Ei.y, 0.0),
+                              torch.where(splat, Ei.z, 0.0),
+                              splat.to(torch.float32)], dim=0)
+        local_col = torch.where(splat, torch.remainder(lpid, pk_), -1).to(
+            torch.int32)
+        fmat = torch.stack([film.color.x, film.color.y, film.color.z,
+                            film.weight], dim=0)
+        if cfg.max_spp > 0:
+            # each pixel admits exactly its remaining budget (K7); the
+            # weight deltas are whole numbers below 2^24, so rounding them
+            # is exact
+            remaining = torch.clamp_min(spp_cap - state.spp, 0).to(
+                torch.float32)[None, :]
+            new_mat = bs.splat(local_col, data_t, fmat, groups=g_local,
+                               remaining=remaining)
+            delta_w = new_mat[3] - film.weight
+            spp_counts = state.spp + torch.round(delta_w).to(torch.int32)
+            n_splatted = torch.round(delta_w.sum()).to(torch.int32)
+        else:
+            new_mat = bs.splat(local_col, data_t, fmat, groups=g_local)
+            spp_counts = state.spp
+            n_splatted = splat.sum()
+        film = Film(color=Vec3(new_mat[0], new_mat[1], new_mat[2]),
+                    weight=new_mat[3])
     else:
-        new_mat = bs.splat(local_col, data_t, fmat, groups=g_local)
-        spp_counts = state.spp
+        if cfg.max_spp > 0:
+            # exact admission (integrator_wf.py:453-471): rank each
+            # pixel's splatting lanes in lane order and admit the pixel's
+            # remaining budget
+            rank = run_ranks(torch.where(splat, pool.pixel_index,
+                                         0x7FFFFFFF))
+            splat &= rank < (spp_cap - pix_spp)
+        data = torch.stack([torch.where(splat, Ei.x, 0.0),
+                            torch.where(splat, Ei.y, 0.0),
+                            torch.where(splat, Ei.z, 0.0),
+                            splat.to(torch.float32)], dim=1)
+        seg = torch.where(splat, pool.pixel_index, num_pixels).to(
+            torch.int32)
         n_splatted = splat.sum()
-    film = Film(color=Vec3(new_mat[0], new_mat[1], new_mat[2]),
-                weight=new_mat[3])
+        spp_counts = state.spp
+        acc = scatter_pixels(seg, data, num_pixels)
+        film = Film(color=Vec3(film.color.x + acc[:, 0],
+                               film.color.y + acc[:, 1],
+                               film.color.z + acc[:, 2]),
+                    weight=film.weight + acc[:, 3])
+        if cfg.max_spp > 0:
+            spp_counts = torch.minimum(
+                spp_counts + scatter_pixels(seg, splat.to(torch.int32),
+                                            num_pixels),
+                spp_cap)
 
     # ---- shading of surviving paths: NEE generation + material ------------
     alive = ~terminate
@@ -420,8 +521,9 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
 
     # ---- denoiser guide features (wf_logic.cl:214-237): the first hit's
     # normal in camera space (rows right, up, -dir) and the first
-    # non-singular hit's albedo, splat as one [8, n] record through K4
-    # after the film's splat; a path's first-diffuse flag ends with it
+    # non-singular hit's albedo, splat as one 8-channel record after the
+    # film's (K4, or the flat ring's scatter); a path's first-diffuse flag
+    # ends with it
     features = state.features
     first_diffuse = pool.first_diffuse_hit
     if cfg.denoiser:
@@ -430,16 +532,23 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         cs = Vec3(dot(cam.right, nrm), dot(cam.up, nrm), -dot(cam.dir, nrm))
         am = alive & ~singular & ~first_diffuse
         first_diffuse = ~terminate & (first_diffuse | (alive & ~singular))
-        fdata_t = torch.stack([
+        # [8, n] for K4, [n, 8] rows for the flat scatter
+        fdata = torch.stack([
             torch.where(am, sp.Kd.x, 0.0), torch.where(am, sp.Kd.y, 0.0),
             torch.where(am, sp.Kd.z, 0.0), am.to(torch.float32),
             torch.where(nm, cs.x, 0.0), torch.where(nm, cs.y, 0.0),
-            torch.where(nm, cs.z, 0.0), nm.to(torch.float32)], dim=0)
-        f_local = torch.where(nm | am, torch.remainder(lpid, pk_), -1).to(
-            torch.int32)
-        f_new = bs.splat(f_local, fdata_t, torch.stack(
-            [*features.albedo, features.albedo_w, *features.normal,
-             features.normal_w], dim=0), groups=g_local)
+            torch.where(nm, cs.z, 0.0), nm.to(torch.float32)],
+            dim=0 if block else 1)
+        f_old = torch.stack([*features.albedo, features.albedo_w,
+                             *features.normal, features.normal_w], dim=0)
+        if block:
+            f_local = torch.where(nm | am, torch.remainder(lpid, pk_),
+                                  -1).to(torch.int32)
+            f_new = bs.splat(f_local, fdata, f_old, groups=g_local)
+        else:
+            fseg = torch.where(nm | am, pool.pixel_index, num_pixels).to(
+                torch.int32)
+            f_new = f_old + scatter_pixels(fseg, fdata, num_pixels).T
         features = FeatureFilm(albedo=Vec3(f_new[0], f_new[1], f_new[2]),
                                albedo_w=f_new[3],
                                normal=Vec3(f_new[4], f_new[5], f_new[6]),
@@ -515,18 +624,26 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
                    T * f * (dot(nrm, d_new) / torch.where(bad, 1.0, pdf_w)))
     cont_orig = hit.P + d_new * 1e-4
 
-    # ---- RAYGEN for terminated paths (wf_raygen.cl): one ring per group --
-    term_i = terminate.to(torch.int32).view(g_local, s_)
-    rank2 = (torch.cumsum(term_i, dim=1) - term_i).to(torch.int32)
-    n_term_g = term_i.sum(dim=1).to(torch.int32)
-    n_regen = n_term_g.sum()
-    g_row = torch.arange(g_local, dtype=torch.int32, device=dev)
-    len_g = torch.clamp(cfg.num_pixels - g_row * p_true, 1, p_true)
-    new_l = torch.remainder(state.curr_pixel[:, None] + rank2,
-                            len_g[:, None])
-    new_pixel = (lane_g * pk_ + new_l.reshape(n)).to(torch.int32)
-    curr_out = torch.remainder(state.curr_pixel + n_term_g, len_g).to(
-        torch.int32)
+    # ---- RAYGEN for terminated paths (wf_raygen.cl): one ring per group,
+    # or the flat ring's one cursor over every pixel
+    if block:
+        term_i = terminate.to(torch.int32).view(g_local, s_)
+        rank2 = (torch.cumsum(term_i, dim=1) - term_i).to(torch.int32)
+        n_term_g = term_i.sum(dim=1).to(torch.int32)
+        n_regen = n_term_g.sum()
+        g_row = torch.arange(g_local, dtype=torch.int32, device=dev)
+        len_g = torch.clamp(cfg.num_pixels - g_row * p_true, 1, p_true)
+        new_l = torch.remainder(state.curr_pixel[:, None] + rank2,
+                                len_g[:, None])
+        new_pixel = (lane_g * pk_ + new_l.reshape(n)).to(torch.int32)
+        curr_out = torch.remainder(state.curr_pixel + n_term_g, len_g).to(
+            torch.int32)
+    else:
+        rank, n_regen = exclusive_rank(terminate)
+        new_pixel = torch.remainder(state.curr_pixel + rank, num_pixels).to(
+            torch.int32)
+        curr_out = torch.remainder(state.curr_pixel + n_regen,
+                                   num_pixels).to(torch.int32)
     pixel_index = torch.where(terminate, new_pixel, pool.pixel_index)
     # camera rays address TRUE pixels
     cam_pid = padded_to_true_pid(cfg, pixel_index)

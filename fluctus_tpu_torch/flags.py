@@ -11,6 +11,11 @@ package's helpers, and the knobs the port reads:
                    K5); 0 falls back to the rays-on-sublanes kernel (K9).
   FORCE_MK (0)     Renderer.render_single runs the microkernel megastep
                    instead of the exact-spp wavefront.
+  BLOCK_RING       over Settings.wf_block_ring when the renderer derives
+                   its config: 0 renders on the flat pixel ring.
+
+SPLAT_EVERY is accepted and ignored, as Settings.wf_splat_every is
+(settings.py).
 
 SORT_RAYS, ROL and FORCE_MK are read once, at import, into module
 constants, as the reference does for the first two (mxu_trace.py:1281-1282);

@@ -109,7 +109,10 @@ class RenderConfig:
     material_types: int = 0         # OR of BXDF type bits present in scene
     denoiser: bool = False          # accumulate the guide features
     # block-bound wavefront pool: `groups` groups of pool lanes, each bound
-    # to one contiguous pixel block with its own raygen ring
+    # to one contiguous pixel block with its own raygen ring; False is the
+    # flat pixel ring (the reference's default is False; the port's is
+    # True, and Renderer._derive_config always sets it)
+    block_ring: bool = True
     groups: int = 1024
 
     def block_plan(self, num_tasks: int):

@@ -46,7 +46,7 @@ from .geom import AreaLight, Camera, PostProcessParams, RenderConfig, RenderPara
 from .image_io import save_hdr, save_png
 from .progress import ProgressView
 from .scene import Scene
-from .settings import Settings, check_ported
+from .settings import Settings
 from .vec import Vec3
 
 
@@ -128,10 +128,7 @@ class Renderer:
         (``_init_hierarchy``); and its device tables
         (``_upload_device_scene``). ``load_seconds`` keeps the host time of
         each step and ``cache_hit`` whether the BVH and the tables came
-        from the caches. Ends with ``reset()``. A render-changing switch
-        the port does not implement, set away from its default, raises
-        NotImplementedError first (``settings.check_ported``)."""
-        check_ported(self.settings)
+        from the caches. Ends with ``reset()``."""
         s = self.settings
         t0 = time.perf_counter()
         scene = Scene()
@@ -248,7 +245,12 @@ class Renderer:
         single-read forms (``fast_env``), as the reference on its TPU. The
         pool group count: a power of two with >= 4 pixels per group
         dividing the pool, at most 1/16 of its lanes on empty tail groups
-        (target ~512 pixels per group)."""
+        (target ~512 pixels per group). The block ring runs when such a
+        count > 1 exists and ``FLT_BLOCK_RING`` (over
+        ``settings.wf_block_ring``) is on; otherwise the flat pixel ring
+        (the reference's renderer.py:177-178). The reference also takes the
+        flat ring whenever it runs off its TPU; the port runs the block
+        ring on both devices, so its CPU tests hold the card's path."""
         s = self.settings
         npx = self.width * self.height
         ntasks = s.wf_buffer_size
@@ -260,10 +262,7 @@ class Renderer:
         while groups > 1 and (npx < 4 * groups or ntasks % groups
                               or _lane_waste(groups) > 1 / 16):
             groups //= 2
-        if groups <= 1:
-            raise NotImplementedError(
-                f"{self.width}x{self.height} with {ntasks} paths gives no "
-                "block-bound pool; the flat pixel ring is not ported yet")
+        block = groups > 1 and flags.env_bool("BLOCK_RING", s.wf_block_ring)
         self.config = RenderConfig(
             width=self.width, height=self.height,
             max_bounces=s.max_path_depth,
@@ -273,7 +272,7 @@ class Renderer:
             use_roulette=s.use_russian_roulette,
             fast_env=self.device.type == "cuda", max_spp=s.max_spp,
             material_types=self.scene.material_types,
-            denoiser=s.use_denoiser, groups=groups)
+            denoiser=s.use_denoiser, block_ring=block, groups=groups)
 
     def rebuild_config(self):
         """Re-derive the config's settings-driven fields (``use_env_map``,
@@ -283,9 +282,8 @@ class Renderer:
         rebuild_config, the paramsUpdatePending -> recompileKernels path,
         tracer.cpp:216-240): the call that picks up settings edits made
         after load_scene. As the reference's, it sets the env map from
-        ``settings.use_env_map`` (and the scene having one). Refuses what
-        load_scene refuses."""
-        check_ported(self.settings)
+        ``settings.use_env_map`` (and the scene having one); as the
+        reference's, it leaves the pixel ring as load_scene chose it."""
         s = self.settings
         self.config = self.config.replace(
             use_env_map=s.use_env_map and self.scene.envmap is not None,
@@ -382,9 +380,9 @@ class Renderer:
     def load_checkpoint(self, path: str) -> bool:
         """Restore a checkpoint into ``self.film`` (which
         ``render_single`` then continues) and, when a wavefront state is
-        live, into its padded film, spp (dead slots parked at 2^29) and
-        guide features. False, with a message, when the scene hash or the
-        resolution differ.
+        live, into its film, spp (padded on the block ring, dead slots
+        parked at 2^29) and guide features. False, with a message, when
+        the scene hash or the resolution differ.
 
         The samples that follow draw a stream of their own: the megastep's
         seeds and a live pool's are salted with the restored sample count
@@ -494,9 +492,13 @@ class Renderer:
         samples are independent of the restored ones. Leaves
         the film in ``self.film`` and adds the segments' counters to
         ``self.stats``. With ``progress`` it prints "Rendered: k/N" after
-        every 16 segments."""
+        every 16 segments. A pool size the config's groups do not divide
+        renders on the flat pixel ring (the reference's renderer.py:
+        622-623)."""
         cfg = self.config.replace(max_spp=1, use_roulette=False)
         n_tasks = num_tasks or self.settings.wf_buffer_size
+        if cfg.block_ring and n_tasks % cfg.groups:
+            cfg = cfg.replace(block_ring=False)   # the pool fits no groups
         state = self._wf_exact_state
         if not accumulate or state is None or \
                 state.pool.seed.shape[0] != n_tasks:
@@ -549,13 +551,18 @@ class Renderer:
 
     # -- wavefront (throughput) mode ------------------------------------------
     def init_wavefront(self, num_tasks: Optional[int] = None):
-        """Reset the persistent path pool (wf_reset analogue). The params
-        stay as they are: settings edits since load_scene take effect
-        through ``rebuild_config``."""
+        """Reset the persistent path pool (wf_reset analogue). A pool size
+        the config's groups do not divide renders on the flat pixel ring
+        (the reference's renderer.py:436-437). The params stay as they
+        are: settings edits since load_scene take effect through
+        ``rebuild_config``."""
         self.num_tasks = num_tasks or self.settings.wf_buffer_size
-        self._wf_cfg = self.config
+        cfg = self.config
+        if cfg.block_ring and self.num_tasks % cfg.groups:
+            cfg = cfg.replace(block_ring=False)
+        self._wf_cfg = cfg
         self._wf_exact_mode = False
-        self._wf_state = wf_reset(self.config, self.num_tasks,
+        self._wf_state = wf_reset(cfg, self.num_tasks,
                                   world_radius=self.world_radius,
                                   device=self.device)
         self._wf_counters = []

@@ -3,7 +3,7 @@ the same fields and defaults (settings.cpp:17-58), the same
 ``settings.json`` schema with ``release`` / ``debug`` overlay sections
 (settings.cpp:61-87) and the same key set (settings.cpp:89-247).
 
-Fields fall in three kinds:
+Fields fall in two kinds:
 
 - read by the port: ``wf_buffer_size``, ``max_path_depth``, ``max_spp``,
   ``tonemap``, ``render_scale`` (the Renderer scales its film by it),
@@ -11,13 +11,11 @@ Fields fall in three kinds:
   switches, ``env_map_name``, ``split_mode`` ("sbvh" raises on a
   hierarchy-cache miss: the SBVH builder is not ported), ``camera`` and
   ``area_light`` (a saved render state, ``state_io``, holds and restores
-  them with ``camera_rotation`` and ``camera_speed``); the CLI
-  (``python -m fluctus_tpu_torch``) also reads ``shortcuts`` (the scene
-  when none is given) and ``max_render_time`` (its wavefront loop's stop);
-- render-changing switches the port does not implement yet (``UNPORTED``):
-  ``Renderer.load_scene`` and ``Renderer.rebuild_config`` raise
-  NotImplementedError naming the first one set away from the value the
-  port renders with, so no edit renders another configuration in silence;
+  them with ``camera_rotation`` and ``camera_speed``),
+  ``wf_block_ring`` (False, or ``FLT_BLOCK_RING=0``, renders on the flat
+  pixel ring); the CLI (``python -m fluctus_tpu_torch``) also reads ``shortcuts`` (the
+  scene when none is given) and ``max_render_time`` (its wavefront loop's
+  stop);
 - accepted and ignored, as the reference ignores them for its results:
   ``platform_name`` and ``device_name`` (the Renderer's ``device``
   chooses), ``window_width`` and ``window_height`` (the Renderer is given
@@ -26,7 +24,11 @@ Fields fall in three kinds:
   ``use_bitstack``, ``use_soa`` and ``use_separate_queues`` (OpenCL kernel
   variants of the original renderer; the reference reads none of them),
   ``wf_phases`` and ``wf_fused_shade`` (how the reference cuts a segment
-  into programs; every cut renders the same film).
+  into programs; every cut renders the same film), and ``wf_splat_every``
+  and its ``FLT_SPLAT_EVERY`` (the reference batches the flat ring's film
+  scatter over K segments; the film is the same up to float order, and
+  the batch was slower on the H100 as on the TPU, so the port scatters
+  every segment).
 """
 
 from __future__ import annotations
@@ -241,23 +243,3 @@ class Settings:
         self.camera.up = (sa * sb, cb, -ca * sb)
         self.camera.dir = (sa * cb, -sb, -ca * cb)
 
-
-# The render-changing switches the port does not implement yet, each with
-# the value under which it renders as the reference does (its default):
-# the flat pixel ring (wf_block_ring off) and deferred film-scatter
-# batching.
-UNPORTED = {
-    "wf_block_ring": True,
-    "wf_splat_every": 1,
-}
-
-
-def check_ported(s: Settings):
-    """Raise NotImplementedError naming the first switch of ``UNPORTED``
-    that ``s`` sets away from the value the port renders with."""
-    for name, value in UNPORTED.items():
-        got = getattr(s, name)
-        if got != value:
-            raise NotImplementedError(
-                f"Settings.{name} = {got!r} is not ported; the port renders "
-                f"with {value!r}")

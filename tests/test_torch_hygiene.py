@@ -196,8 +196,8 @@ def test_helpers_require_a_device():
 
 
 # ---------------------------------------------------------------------------
-# Settings: the reference's fields, the refusal of what is not ported, and
-# the params' life cycle
+# Settings: the reference's fields, every render-changing switch rendered,
+# and the params' life cycle
 # ---------------------------------------------------------------------------
 
 # a small scene: a floor of two triangles and one above it
@@ -213,41 +213,12 @@ f 1 3 4
 f 5 6 7
 """
 
-# every switch of settings.UNPORTED, set away from its default
-_REFUSED = [("wf_block_ring", False), ("wf_splat_every", 4)]
-
 
 def _tiny_scene(d):
     path = os.path.join(str(d), "tiny.obj")
     with open(path, "w") as f:
         f.write(_TINY_OBJ)
     return path
-
-
-def test_refused_switches_are_the_unported_ones():
-    """UNPORTED holds the flat pixel ring and splat batching alone; the
-    denoiser, its blend and the render scale are rendered."""
-    from fluctus_tpu_torch import settings as tsettings
-    assert list(tsettings.UNPORTED) == ["wf_block_ring", "wf_splat_every"]
-    assert [n for n, _ in _REFUSED] == list(tsettings.UNPORTED)
-    for name, value in _REFUSED:
-        assert value != tsettings.UNPORTED[name]
-        assert getattr(tsettings.Settings(), name) == \
-            tsettings.UNPORTED[name]
-
-
-@pytest.mark.parametrize("name,value", _REFUSED)
-def test_load_scene_refuses_unported_switch(tmp_path, name, value):
-    """load_scene raises NotImplementedError naming a render-changing
-    switch the port does not implement, before it loads anything."""
-    from fluctus_tpu_torch.renderer import Renderer
-    from fluctus_tpu_torch.settings import Settings
-    s = Settings()
-    setattr(s, name, value)
-    r = Renderer(32, 16, settings=s, data_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match=rf"Settings\.{name} "):
-        r.load_scene(_tiny_scene(tmp_path))
-    assert r.scene is None and not os.path.exists(tmp_path / "hierarchies")
 
 
 @pytest.fixture(scope="module")
@@ -259,31 +230,17 @@ def tiny_renderer(tmp_path_factory):
     return r
 
 
-@pytest.mark.parametrize("name,value", _REFUSED)
-def test_rebuild_config_refuses_unported_switch(tiny_renderer, name, value):
-    """rebuild_config refuses what load_scene refuses, naming the switch,
-    and leaves config and params as they were."""
-    from fluctus_tpu_torch.settings import UNPORTED
-    r = tiny_renderer
-    config, params = r.config, r.params
-    setattr(r.settings, name, value)
-    try:
-        with pytest.raises(NotImplementedError, match=rf"Settings\.{name} "):
-            r.rebuild_config()
-    finally:
-        setattr(r.settings, name, UNPORTED[name])
-    assert r.config is config and r.params is params
-    r.rebuild_config()
-
-
-# the switches the port renders since the env map (then Russian roulette
-# and the sampling toggles, then the denoiser and the render scale) were
-# ported, each set away from its default: no longer refused
+# the render-changing switches, each set away from its default (the env
+# map, Russian roulette and the sampling toggles, the denoiser and the
+# render scale, the flat pixel ring), and two the reference reads and the
+# port ignores (splat batching, and the cut of a segment into programs:
+# each renders the same film): none is refused
 _ACCEPTED = [("use_env_map", True), ("env_map_name", "sky.hdr"),
              ("use_area_light", False), ("use_russian_roulette", True),
              ("sample_implicit", False), ("sample_explicit", False),
              ("use_denoiser", True), ("denoiser_blend", 0.5),
-             ("render_scale", 0.5)]
+             ("render_scale", 0.5), ("wf_block_ring", False),
+             ("wf_splat_every", 4), ("wf_fused_shade", False)]
 # the RenderConfig field each sampling switch (and the denoiser) sets
 _CONFIG_FIELD = {"use_russian_roulette": "use_roulette",
                  "sample_implicit": "sample_impl",
@@ -298,16 +255,18 @@ def _light_flags(cfg):
 
 @pytest.mark.parametrize("name,value", _ACCEPTED)
 def test_load_scene_accepts_ported_switch(tmp_path, capsys, name, value):
-    """The env-map switches, the area-light toggle, Russian roulette and
-    the sampling toggles are no longer in settings.UNPORTED: load_scene
-    takes them and sets the config's env map, area light and sampling
-    flags as the reference's renderer does (a named map that is absent
-    leaves the env map off with the reference's WARNING)."""
+    """load_scene takes every switch and sets the config's env map, area
+    light and sampling flags as the reference's renderer does (a named map
+    that is absent leaves the env map off with the reference's WARNING);
+    wf_block_ring off puts the config on the flat pixel ring, where the
+    port otherwise runs the block ring (the reference runs the flat ring
+    off its TPU)."""
     from fluctus_tpu.renderer import Renderer as JRenderer
     from fluctus_tpu.settings import Settings as JSettings
+    from fluctus_tpu_torch import settings as tsettings
     from fluctus_tpu_torch.renderer import Renderer
-    from fluctus_tpu_torch.settings import UNPORTED, Settings
-    assert name not in UNPORTED
+    from fluctus_tpu_torch.settings import Settings
+    assert not hasattr(tsettings, "UNPORTED")
     s, js = Settings(), JSettings()
     setattr(s, name, value)
     setattr(js, name, value)
@@ -327,6 +286,8 @@ def test_load_scene_accepts_ported_switch(tmp_path, capsys, name, value):
     assert r.config.use_area_light == (name != "use_area_light")
     if name in _CONFIG_FIELD:
         assert getattr(r.config, _CONFIG_FIELD[name]) == value
+    assert r.config.block_ring == (name != "wf_block_ring")
+    assert not jr.config.block_ring
     assert not r.config.use_env_map and r.device_scene.env is None
     warn = "WARNING: env map not found: sky.hdr"
     assert (warn in ours) == (warn in theirs) == (name == "env_map_name")
@@ -336,7 +297,8 @@ def test_load_scene_accepts_ported_switch(tmp_path, capsys, name, value):
 def test_rebuild_config_accepts_ported_switch(tiny_renderer, name, value):
     """rebuild_config takes the same switches and re-derives the env map,
     area-light and sampling flags from them, as the reference's
-    rebuild_config."""
+    rebuild_config; as the reference's, it leaves the pixel ring as
+    load_scene chose it."""
     from fluctus_tpu_torch.settings import Settings
     r = tiny_renderer
     setattr(r.settings, name, value)
@@ -344,6 +306,7 @@ def test_rebuild_config_accepts_ported_switch(tiny_renderer, name, value):
         r.rebuild_config()
         assert r.config.use_area_light == (name != "use_area_light")
         assert not r.config.use_env_map     # the scene has no env map
+        assert r.config.block_ring
         if name in _CONFIG_FIELD:
             assert getattr(r.config, _CONFIG_FIELD[name]) == value
     finally:

@@ -181,6 +181,16 @@ def test_pad_unpad_and_true_pid():
     np.testing.assert_array_equal(
         np.asarray(jwf.pad_pixels(jnp.asarray(x.numpy()), jcfg, fill=-1)),
         padded.numpy())
+    # the flat ring keeps the true layout: all three are identities, as
+    # the reference's
+    flat = cfg.replace(block_ring=False)
+    assert twf.pad_pixels(x, flat, fill=-1) is x
+    assert twf.unpad_pixels(x, flat) is x
+    assert twf.padded_to_true_pid(flat, idx) is idx
+    jflat = jcfg.replace(block_ring=False)
+    np.testing.assert_array_equal(
+        np.asarray(jwf.pad_pixels(jnp.asarray(x.numpy()), jflat, fill=-1)),
+        twf.pad_pixels(x, flat, fill=-1).numpy())
 
 
 def _renderer(data_dir):
