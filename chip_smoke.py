@@ -180,9 +180,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    luxball's 5,642 triangles written as an ASCII PLY, loaded cold (both
    caches written) and warm (both hit), 4 flat segments with a finite
    film.
-10. the kernels line (launches including phases 11, 12 and 13's timed
-   runs; K4's entry with its 8-channel launches, as counted in 12a), the
-   card line, then the final result line.
+14. production scene import. 14a: the 8x8 grid written as a PBRT scene
+   (luxball as a PLY, 64 AttributeBegin/Translate/Material/plymesh
+   blocks at the grid's positions, the materials cycling through matte,
+   plastic, rough metal, glass and mirror, LookAt + Camera at the grid's
+   view) loaded at 1080p under split_mode "sbvh", cold (parse, native
+   SBVH, tables, upload; host seconds by step), a second time (the
+   .flc.npz parse cache and hierarchy_<hash>_sbvh.bin hit; the table
+   cache misses once, as in the JAX package: its key hashes the
+   materials, python floats from the parse and float32 from the parse
+   cache) and warm (all three hit; the PBRT loader is swapped for one
+   that raises on every load after the first); the camera is the
+   file's; nodes, depth, duplicate share, clusters, superclusters and
+   table MiB; K1 (over superclusters), K5, K6 and K4 held to their plain
+   versions on the recorded calls of segments 2 and 4, K5's visits per
+   tile and times beside phase 2b's SAH numbers; LARGE_SEGMENTS timed
+   segments (launches per segment as 3b), 2 profiled. 14b: the PBRT
+   luxball (one plymesh) at 256x144, 4 segments under the SAH and under
+   the SBVH: the camera is the file's, the tonemapped means within
+   BIAS_GATE of each other, the extension rays of one segment traced on
+   both trees hit the same triangle on >= 99.9% of the rays with t equal
+   there, and phase 4's parity (K1-K4 against their plain versions)
+   under the SBVH. 14c: 14a's table cache rewritten without B16 (slim, so
+   without attrs: the tables resolve nothing), the trace's third branch
+   (closest_hit_mxu_full + reconstruct_hit + resolve_material):
+   PBRT_SEGMENTS timed segments with K3, K6 and K10 at 0 launches, K1
+   and K5 2 a segment, K4 1, a finite film with whole weights. 14d:
+   python -m fluctus_tpu_torch on 14b's file with -s PBRT_CLI_SPP and a
+   settings file holding "splitMode": "sbvh": exit 0, the image, the
+   SBVH's hierarchy file.
+10. the kernels line (launches including phases 11, 12, 13 and 14's
+   timed runs; K4's entry with its 8-channel launches, as counted in
+   12a), the card line, then the final result line.
 
 Every renderer loads with a fresh temporary ``data_dir`` (removed at the
 end), so phases 2-6 load cold as before (now writing the caches) and
@@ -840,14 +869,21 @@ def check_luxball_kernels(rec_calls, what):
     """K1-K4 vs their plain versions on the recorded calls of segments 2
     and 4 of a luxball path (``what`` names it): K1-K3 checked and timed
     by their helpers, K4 on all four channels bit for bit."""
-    import torch
     from fluctus_tpu_torch.accel import mxu_trace as mt
-    from fluctus_tpu_torch.core import block_splat as bs
     res = {"tile_order": check_tile_order(mt, rec_calls)}
     res["trace_rol"], _ = check_trace("trace_rol", mt.trace_rol,
                                       mt.trace_rol_plain, rec_calls, 256)
     res["resolve_v5"], _ = check_resolve("resolve_v5", mt.resolve_v5,
                                          mt.resolve_v5_plain, rec_calls)
+    check_splats(rec_calls, what)
+    return res
+
+
+def check_splats(rec_calls, what):
+    """K4 on its recorded calls of segments 2 and 4, all channels bit for
+    bit against its plain version."""
+    import torch
+    from fluctus_tpu_torch.core import block_splat as bs
     for seg in (2, 4):
         for args, kw in rec_calls[(seg, "splat")]:
             got = bs.splat(*args, **kw)
@@ -855,7 +891,6 @@ def check_luxball_kernels(rec_calls, what):
             if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
                 raise AssertionError(f"K4 differs from its plain version "
                                      f"({what}, segment {seg})")
-    return res
 
 
 def phase_kernels(r, rec_calls):
@@ -1753,8 +1788,9 @@ def kernels_line(kres, launches):
     """One entry per ported kernel: its checks and times from phase 2 (K1-K4,
     luxball), 2b (K5, K6), 5a (K7, K8), 6b (K9) or 8a (K10), and its
     launches on its main path, counted from 0: K1-K6 summed over the
-    free-running runs (3, 3b, 11, 12a, and 13a and 13c on the flat ring,
-    where K4, K7 and K8 launch 0 times), K7 and K8 in the timed exact
+    free-running runs (3, 3b, 11, 12a, 13a and 13c on the flat ring,
+    where K4, K7 and K8 launch 0 times, 14a on the SBVH grid and 14c on
+    its tables without B16), K7 and K8 in the timed exact
     renders (5b, 11c, 12a), K9 in the rays-on-sublanes render (6b), K10 in
     the free-running run on tables without B16 (8b). K4's entry also
     carries its 8-channel calls (12a: the denoiser's features), with their
@@ -3057,6 +3093,302 @@ def phase_flat(card, exact_line, plain_main):
     return {k: la[k] + lc[k] for k in la}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: production scene import: PBRT, the SBVH, the trace's third branch
+# ---------------------------------------------------------------------------
+
+# the PBRT grid's materials, cycling over the 64 luxballs: matte, plastic,
+# rough metal, glass and mirror (diffuse, glossy, GGX rough reflection,
+# ideal dielectric, ideal reflection)
+PBRT_MATERIALS = (
+    '"matte" "rgb Kd" [0.6 0.6 0.6]',
+    '"plastic" "rgb Kd" [0.3 0.4 0.6] "rgb Ks" [0.4 0.4 0.4] '
+    '"float roughness" [0.05]',
+    '"metal" "float roughness" [0.2]',
+    '"glass" "float index" [1.5]',
+    '"mirror" "rgb Kr" [0.9 0.9 0.9]')
+SBVH = {"split_mode": "sbvh"}
+PBRT_SEGMENTS = 4          # 14b and 14c
+PBRT_CLI_SPP = 4
+PER_SEGMENT_BARE = {**PER_SEGMENT_LARGE, "resolve_v5s": 0}
+
+
+def write_pbrt(out_dir, name, view, blocks):
+    """``name``.pbrt in ``out_dir``: the camera of ``view`` (a VIEWS
+    entry) as LookAt + Camera, then one AttributeBegin block per (x, y,
+    z, material) of ``blocks``, each a Translate, a Material and the
+    luxball as a plymesh (luxball.ply, written here once). The file's
+    path is registered in VIEWS under the view, for its area light."""
+    ply = os.path.join(out_dir, "luxball.ply")
+    if not os.path.exists(ply):
+        write_ply(ply)
+    (px, py, pz), (dx, dy, dz) = view[0], view[1]
+    lines = [f"LookAt {px} {py} {pz}  {px + dx} {py + dy} {pz + dz}  0 1 0",
+             'Camera "perspective" "float fov" [60]', "WorldBegin"]
+    for x, y, z, mat in blocks:
+        lines += ["AttributeBegin", f"  Translate {x} {y} {z}",
+                  f"  Material {mat}",
+                  '  Shape "plymesh" "string filename" "luxball.ply"',
+                  "AttributeEnd"]
+    path = os.path.join(out_dir, f"{name}.pbrt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ["WorldEnd", ""]))
+    VIEWS[path] = view
+    return path
+
+
+def write_pbrt_grid(out_dir):
+    """Phase 14a's scene: the 8x8 grid's luxballs at the positions of
+    scenes/luxball_grid_8x8.sc.json, seen from its view."""
+    with open(LARGE) as f:
+        entries = json.load(f)
+    return write_pbrt(out_dir, "grid", VIEWS[LARGE], [
+        (*e["translation"], PBRT_MATERIALS[i % len(PBRT_MATERIALS)])
+        for i, e in enumerate(entries)])
+
+
+def camera_gate(r, what):
+    """The renderer's camera is the PBRT file's (dir as normalized by
+    _calc_camera_rotation)."""
+    import numpy as np
+    c, co = r.settings.camera, r.scene.camera_override
+    ok = (co is not None and c.pos == co.pos and c.up == co.up
+          and c.right == co.right and c.fov == co.fov
+          and np.allclose(c.dir, co.dir, rtol=0, atol=1e-7))
+    if not ok:
+        raise AssertionError(f"{what}: the camera is not the file's")
+    return dict(pos=[float(x) for x in c.pos],
+                dir=[float(x) for x in c.dir], fov=float(c.fov))
+
+
+def table_mib(sc):
+    """MiB of the device tables' tensors."""
+    import torch
+    return sum(t.numel() * t.element_size() for t in sc
+               if isinstance(t, torch.Tensor)) / 2 ** 20
+
+
+def load_pbrt_sbvh(path, data_dir, warm):
+    """make_renderer at 1080p under split_mode "sbvh"; on a warm load the
+    PBRT parse must come from its .flc.npz (the loader is swapped for one
+    that raises). Returns (renderer, a line: host seconds by step, the
+    cache hits and the SBVH's build line)."""
+    import contextlib
+    import io
+    from fluctus_tpu_torch.scene import pbrt_loader
+    parse = pbrt_loader.load_pbrt
+
+    def refuse(*a, **k):
+        raise AssertionError("14a: the warm load parsed the .pbrt")
+    if warm:
+        pbrt_loader.load_pbrt = refuse
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            r = make_renderer(1920, 1080, "cuda", path, data_dir=data_dir,
+                              switches=SBVH)
+    finally:
+        pbrt_loader.load_pbrt = parse
+    line = dict(host_seconds=time.perf_counter() - t0,
+                load_seconds=r.load_seconds,
+                cache_hit=dict(r.cache_hit, parse=warm),
+                log=[ln for ln in log.getvalue().splitlines()
+                     if ln.startswith(("SBVH", "BVH", "MXU"))])
+    return r, line
+
+
+def phase_pbrt_grid(card, sah_large):
+    """Phase 14a: the 8x8 grid as a PBRT scene under the SBVH, cold then
+    warm; K1 (over superclusters), K5, K6 and K4 held to their plain
+    versions on recorded calls, LARGE_SEGMENTS timed segments, 2
+    profiled; K5 beside phase 2b's SAH numbers (``sah_large``). Returns
+    (launches of the timed run, the data_dir, the grid's path)."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    d = fresh_dir()
+    path = write_pbrt_grid(d)
+    loads = []
+    for warm in (False, True, True):
+        r, line = load_pbrt_sbvh(path, d, warm)
+        loads.append(line)
+        if len(loads) < 3:
+            del r
+            torch.cuda.empty_cache()
+    cold, second, warm = loads
+    bvh, sc = r._bvh_host, r.device_scene.mxu
+    m = r.scene.num_triangles
+    info = dict(triangles=m, nodes=int(bvh.num_nodes),
+                depth=bvh.depth(), references=int(len(bvh.indices)),
+                duplicate_share=(len(bvh.indices) - m) / m,
+                n_clusters=sc.n_clusters,
+                n_superclusters=sc.n_superclusters,
+                table_mib=table_mib(sc), camera=camera_gate(r, "14a"))
+    emit(dict(phase="pbrt_sbvh_load", card=card, scene=path, cold=cold,
+              second=second, warm=warm, **info))
+    # the second load misses the table cache once, in both packages: the
+    # cache's key hashes the materials, which the parse gives as python
+    # floats and the parse cache as float32 (ROADMAP, reference caveats)
+    hits = [ld["cache_hit"] for ld in loads]
+    if hits != [dict(bvh=False, tables=False, parse=False),
+                dict(bvh=True, tables=False, parse=True),
+                dict(bvh=True, tables=True, parse=True)]:
+        raise AssertionError(f"14a: cache hits {hits}")
+    if sc.n_clusters <= mt.SC_THRESHOLD or sc.sc_box is None:
+        raise AssertionError("14a: the grid is not on the supercluster tier")
+    rec = record_segments(r)
+    kres, primary_hit = phase_kernels_large(r, rec)
+    check_splats(rec, "14a")
+    k5 = kres["trace_rol_sc"]
+    emit(dict(phase="kernels_vs_plain", card=card, scene=path,
+              split_mode="sbvh", primary_hit_share=primary_hit,
+              tile_order_on_supers=kres["tile_order"], trace_rol_sc=k5,
+              resolve_v5s=kres["resolve_v5s"], block_splat="bit-equal",
+              trace_rol_sc_sah_2b={k: sah_large[k] for k in (
+                  "ms", "visits_p50", "visits_p99", "visits_max",
+                  "pairs_per_s", "any_hit", "shape")}))
+    launches, main = phase_main(r, card, path, LARGE_SEGMENTS,
+                                PER_SEGMENT_LARGE,
+                                extra=dict(info, split_mode="sbvh"))
+    profile_segments(r, card, main["ms_per_segment"])
+    del r, rec
+    torch.cuda.empty_cache()
+    return launches, d, path
+
+
+def phase_pbrt_parity(card):
+    """Phase 14b: the PBRT luxball (one plymesh) at 256x144, 4 segments,
+    under the SAH and under the SBVH: the camera is the file's; the
+    tonemapped means within BIAS_GATE of each other; from the SBVH run's
+    pool after 3 segments, the extension rays traced on both trees hit
+    the same triangle on >= 99.9% of the rays, with t equal where they
+    do; K1-K4 held to their plain versions by phase 4's parity under the
+    SBVH."""
+    import torch
+    from fluctus_tpu_torch.core.trace import trace_extension
+    d = fresh_dir()
+    view = VIEWS[LUXBALL]
+    path = write_pbrt(d, "luxball", view,
+                      [(0.0, 0.0, 0.0, PBRT_MATERIALS[0])])
+    runs = {}
+    for mode in ("sah", "sbvh"):
+        r = make_renderer(256, 144, "cuda", path,
+                          switches={"split_mode": mode})
+        cam = camera_gate(r, "14b")
+        r.init_wavefront(1 << 16)
+        r.render_wavefront(PBRT_SEGMENTS - 1)
+        pool = r._wf_state.pool
+        r.render_wavefront(1)
+        runs[mode] = dict(r=r, mean=float(r.ldr_image().mean()),
+                          rays=(pool.orig, pool.dir))
+    o, dr = runs["sbvh"]["rays"]
+    hits = {mode: trace_extension(o, dr, runs[mode]["r"].device_scene, None,
+                                  False) for mode in runs}
+    a, b = hits["sah"], hits["sbvh"]
+    same = a.i == b.i
+    share = float(same.float().mean())
+    t_equal = bool(torch.equal(a.t[same], b.t[same]))
+    ma, mb = runs["sah"]["mean"], runs["sbvh"]["mean"]
+    rel = abs(mb - ma) / max(abs(ma), 1e-12)
+    trees = {mode: dict(nodes=int(runs[mode]["r"]._bvh_host.num_nodes),
+                        references=int(len(runs[mode]["r"]._bvh_host
+                                           .indices)),
+                        n_clusters=runs[mode]["r"].device_scene.mxu
+                        .n_clusters) for mode in runs}
+    del runs, hits, a, b
+    parity = phase_parity(path, switches=SBVH)
+    out = dict(phase="pbrt_tree_parity", card=card, scene=path,
+               triangles=LUXBALL_TRIANGLES, camera=cam, trees=trees,
+               image_mean_sah=ma, image_mean_sbvh=mb, mean_rel_diff=rel,
+               hit_share_same_triangle=share, t_equal_where_same=t_equal,
+               rays=int(same.numel()),
+               kernel_parity_film_max_abs_err=parity["film_max_abs_err"])
+    emit(out)
+    if rel > BIAS_GATE or share < 0.999 or not t_equal:
+        raise AssertionError(f"14b failed: {out}")
+    return path
+
+
+def phase_third_branch(card, data_dir, path):
+    """Phase 14c: the grid's SBVH table cache (14a's) rewritten without
+    B16 (slim, so without attrs too): the tables resolve nothing, the
+    trace takes its third branch (closest_hit_mxu_full, reconstruct_hit,
+    resolve_material). PBRT_SEGMENTS timed segments after one warm-up:
+    K3, K6 and K10 launch 0 times, K1 and K5 twice a segment, K4 once; a
+    finite film with whole weights. Returns the timed run's launches."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    from fluctus_tpu_torch.core.trace import has_resolve_tables
+    from fluctus_tpu_torch.renderer import table_cache_path
+    from fluctus_tpu_torch.scene import Scene
+    scene = Scene()
+    scene.load_model(path)
+    cache = table_cache_path(data_dir, scene, "sbvh", True)
+    host, statics = mt.load_table_cache(cache)
+    mt.write_table_cache(cache, dict(host, b16t=None, attr_b16=None),
+                         statics)
+    del host, scene
+    r = make_renderer(1920, 1080, "cuda", path, data_dir=data_dir,
+                      switches=SBVH)
+    ds = r.device_scene
+    if has_resolve_tables(ds) or ds.tris is None or ds.mats is None:
+        raise AssertionError("14c: the tables still resolve")
+    r.init_wavefront(1 << 20)
+    r.render_wavefront(1)
+    torch.cuda.synchronize()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    r.render_wavefront(PBRT_SEGMENTS)
+    elapsed = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kb.KERNELS.values()}
+    plain = {k.name: k.plain_runs for k in kb.KERNELS.values()}
+    film = r.wavefront_film()
+    w = film.weight
+    finite = bool(all(torch.isfinite(c).all() for c in film.color))
+    whole = bool(torch.equal(w, torch.round(w)))
+    out = dict(phase="third_branch", card=card, scene=path,
+               segments=PBRT_SEGMENTS, paths=1 << 20,
+               ms_per_segment=elapsed / PBRT_SEGMENTS * 1e3,
+               txy_t=ds.mxu.txy_t is not None, table_mib=table_mib(ds.mxu),
+               launches=launches, plain_runs=plain, film_finite=finite,
+               whole_weights=whole, cache_hit=r.cache_hit,
+               pixels_covered=float((w > 0).float().mean()))
+    emit(out)
+    want = {k: v * PBRT_SEGMENTS for k, v in PER_SEGMENT_BARE.items()}
+    if {k: launches[k] for k in want} != want or any(plain.values()) \
+            or not (finite and whole and float(w.sum()) > 0):
+        raise AssertionError(f"14c failed: {out}")
+    del r, ds, film
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pbrt_cli(card, path):
+    """Phase 14d: python -m fluctus_tpu_torch on the PBRT luxball (14b's
+    file) with -s PBRT_CLI_SPP and a settings file holding
+    "splitMode": "sbvh" (the reference's key) in a fresh directory: exit
+    0, the image written, the SBVH built and cached under data/."""
+    cwd = fresh_dir()
+    settings = os.path.join(cwd, "sbvh.json")
+    with open(settings, "w") as f:
+        json.dump({"release": {"splitMode": "sbvh"}, "debug": {}}, f)
+    rc, out, err, secs = run_cli(
+        cwd, os.path.abspath(path), "-x", "1920", "-y", "1080", "-s",
+        str(PBRT_CLI_SPP), "--settings", settings, "-o", "pbrt.png")
+    hier = os.path.join(cwd, "data", "hierarchies")
+    files = sorted(os.listdir(hier)) if os.path.isdir(hier) else []
+    line = dict(phase="pbrt_cli", card=card, exit=rc, seconds=secs,
+                hierarchies=files, outputs=sorted(os.listdir(cwd)),
+                stdout=out.strip().splitlines()[-6:],
+                stderr=err.strip().splitlines()[-4:])
+    emit(line)
+    if rc or "SBVH(native):" not in out or not any(
+            f.endswith("_sbvh.bin") for f in files) or not os.path.exists(
+            os.path.join(cwd, "pbrt.png")):
+        raise AssertionError("14d: the CLI run failed")
+
+
 def sweep_build_info(kb):
     """Per instantiation of K2, K5 and K9 (closest-hit, any-hit): registers,
     spill bytes and shared memory from ptxas (-Xptxas -v), and for a
@@ -3119,7 +3451,7 @@ def main():
 
 
 def run(kb):
-    """Phases 1-13 (see the module docstring)."""
+    """Phases 1-14 (see the module docstring)."""
     import torch
 
     # phase 1: device and build
@@ -3180,7 +3512,7 @@ def run(kb):
                       n_clusters=sc.n_clusters,
                       n_superclusters=sc.n_superclusters,
                       host_seconds=host_s, host_steps=r.load_seconds,
-                      cache_hit=r.cache_hit,
+                      cache_hit=r.cache_hit, table_mib=table_mib(sc),
                       vertex_table_bytes=vertex_table_bytes(r))
     kres_l, primary_hit = phase_kernels_large(r, record_segments(r))
     emit(dict(phase="kernels_vs_plain", card=card, scene=LARGE, **scene_info,
@@ -3231,9 +3563,17 @@ def run(kb):
     # phase 13: the flat pixel ring (13a-13e) and a PLY scene (13f)
     launches_f = phase_flat(card, exact_line, main)
 
+    # phase 14: PBRT scenes under the SBVH (14a, 14b), the trace's third
+    # branch (14c), the CLI on a PBRT scene (14d)
+    launches_s, grid_dir, grid = phase_pbrt_grid(card, kres["trace_rol_sc"])
+    lux_pbrt = phase_pbrt_parity(card)
+    launches_t = phase_third_branch(card, grid_dir, grid)
+    phase_pbrt_cli(card, lux_pbrt)
+
     # phase 10: result lines
     main_launches = {k: launches[k] + launches_l[k] + launches_p.get(k, 0)
                      + launches_d.get(k, 0) + launches_f.get(k, 0)
+                     + launches_s.get(k, 0) + launches_t.get(k, 0)
                      for k in SOURCES}
     main_launches.update(
         block_splat_capped=(launches_x["block_splat_capped"]

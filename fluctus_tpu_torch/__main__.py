@@ -27,8 +27,8 @@ import time
 
 def _parser():
     ap = argparse.ArgumentParser(prog="fluctus_tpu_torch")
-    ap.add_argument("scenes", nargs="*", help=".obj/.ply/.sc.json scene files "
-                    "or .bm.json benchmark files")
+    ap.add_argument("scenes", nargs="*", help=".obj/.ply/.pbrt/.sc.json "
+                    "scene files or .bm.json benchmark files")
     ap.add_argument("-x", "--width", type=int, default=1024)
     ap.add_argument("-y", "--height", type=int, default=768)
     ap.add_argument("-s", "--spp", type=int, default=0,

@@ -1,9 +1,9 @@
 """Cluster-table ray tracing: the port of the reference package's
 accel/mxu_trace.py (the rays-on-lanes trace tiers and the B16 resolve).
 
-Triangles are cut into clusters of ``cluster_size`` (the subtrees of a SAH
-BVH cut at that many refs). Each triangle carries the affine map that
-takes world points to its unit right triangle: for a ray (o, d),
+Triangles are cut into clusters of ``cluster_size`` (the subtrees of the
+BVH, SAH or SBVH, cut at that many refs). Each triangle carries the affine
+map that takes world points to its unit right triangle: for a ray (o, d),
 t = -o'_w / d'_w, u = o'_u + t d'_u, v = o'_v + t d'_v, hit iff t > 0,
 u, v >= 0, u + v <= 1. Rays are sorted by a coherence key and cut into
 tiles; each tile gets a private front-to-back candidate list (K1, the
@@ -227,10 +227,13 @@ def _cut_supers(bvh: BVHArrays, counts, cluster_lo, super_size: int):
 
 
 def _cut_clusters(bvh: BVHArrays, cluster_size: int):
-    """Cut the BVH into subtrees holding <= cluster_size triangle refs.
-    Returns (list of (index slice, bmin, bmax), subtree counts, slice
-    starts). Each cut subtree's leaf refs are one contiguous slice of
-    ``indices`` (build_bvh appends leaves in DFS order)."""
+    """Cut the BVH into subtrees holding <= cluster_size triangle refs
+    (duplicated SBVH references count once each). Returns (list of
+    (index slice, bmin, bmax), subtree counts, slice starts). The builders
+    append leaves in DFS order, so each cut subtree's leaf refs are one
+    contiguous slice of ``indices``; a tree whose slices are not (a
+    foreign hierarchy cache) takes the explicit walk and returns
+    (clusters, None, None), as the reference's mxu_trace.py:274-277."""
     n_prims = bvh.n_prims.astype(np.int64)
     right = bvh.right_or_start.astype(np.int64)
     leaf = n_prims > 0
@@ -259,9 +262,44 @@ def _cut_clusters(bvh: BVHArrays, cluster_size: int):
     good = (lo[0] == 0 and (hi >= lo).all()
             and (hi - lo == counts[cut]).all())
     if not good:
-        raise ValueError("BVH leaf slices are not DFS-contiguous")
+        return _cut_clusters_walk(bvh, cluster_size, counts), None, None
     return ([(bvh.indices[lo[j]:hi[j]], bvh.box_min[i], bvh.box_max[i])
              for j, i in enumerate(cut)], counts, lo)
+
+
+def _cut_clusters_walk(bvh: BVHArrays, cluster_size: int, counts):
+    """The cut by an explicit stack, for trees whose leaf slices are not
+    DFS-contiguous (the reference's mxu_trace.py:282-307): a node is cut
+    when its subtree holds <= cluster_size refs or it is a leaf; its index
+    list gathers its leaves' slices. The clusters come out in the stack's
+    order (right subtree first), as the reference's."""
+    n_prims = bvh.n_prims
+    right = bvh.right_or_start
+
+    def leaves_of(i):
+        out = []
+        stack = [i]
+        while stack:
+            k = stack.pop()
+            if n_prims[k] > 0:
+                out.append((int(right[k]), int(n_prims[k])))
+            else:
+                stack.append(k + 1)
+                stack.append(int(right[k]))
+        return out
+
+    clusters = []
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        if counts[i] <= cluster_size or n_prims[i] > 0:
+            idx = np.concatenate([bvh.indices[s:s + c]
+                                  for s, c in leaves_of(i)])
+            clusters.append((idx, bvh.box_min[i], bvh.box_max[i]))
+        else:
+            stack.append(i + 1)
+            stack.append(int(right[i]))
+    return clusters
 
 
 def _bake_tex_meta(a, atlas, materials, mid):
@@ -326,7 +364,7 @@ class MXUScene:
 
         sc_box = None
         n_sc = 0
-        if n_clusters > 1:
+        if counts is not None and n_clusters > 1:
             sc_size = SC_CLUSTERS * cluster_size
             sc_nodes, sc_c0, sc_c1 = _cut_supers(bvh, counts, cluster_lo,
                                                  sc_size)
@@ -540,7 +578,8 @@ class MXUSceneT(NamedTuple):
 
     cluster_box [ncl, 8] f32   bmin3 bmax3 pad2 (centered)
     sc_box  [n_sc, 8] f32      supercluster bmin3 bmax3, first member
-                               cluster, member count (None for one cluster)
+                               cluster, member count (None for one cluster
+                               or a cut by _cut_clusters_walk)
     t12   [12, Mpad] f32       coefficient-major transforms (K2, K5)
     b16r  [Mpad, 128] bf16     the B16 table, row-major (K3/K6 row reads);
                                None when the tables carry no B16 table
@@ -1067,9 +1106,12 @@ def _dispatch_trace(o4, d4, tmax_col, scene: MXUSceneT, any_hit,
                     ray_tile: int = RAY_TILE):
     """Select the trace kernel as the reference does (mxu_trace.py:
     1288-1314): with ``flags.ROL`` the two-level tier past SC_THRESHOLD
-    clusters (K5), else the flat rays-on-lanes tier (K2); without it the
-    rays-on-sublanes kernel (K9), which slim tables cannot run."""
-    if flags.ROL and scene.n_clusters > SC_THRESHOLD:
+    clusters (K5) when the tables have superclusters, else the flat
+    rays-on-lanes tier (K2; a tree cut by ``_cut_clusters_walk`` has no
+    superclusters); without it the rays-on-sublanes kernel (K9), which
+    slim tables cannot run."""
+    if flags.ROL and scene.sc_box is not None \
+            and scene.n_clusters > SC_THRESHOLD:
         return _trace_rol_sc(o4, d4, tmax_col, scene.t12, scene.cluster_box,
                              scene.sc_box, scene.cluster_size, any_hit,
                              ROL_TILE)

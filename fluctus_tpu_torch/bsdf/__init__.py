@@ -1,6 +1,7 @@
 from .dispatch import (ShadingParams, apply_textures, bxdf_eval, bxdf_pdf,
-                       bxdf_sample)
+                       bxdf_sample, resolve_material)
 from .fresnel import fresnel_dielectric, fresnel_dielectric_cos_t
 
 __all__ = ["ShadingParams", "apply_textures", "bxdf_eval", "bxdf_pdf",
-           "bxdf_sample", "fresnel_dielectric", "fresnel_dielectric_cos_t"]
+           "bxdf_sample", "fresnel_dielectric", "fresnel_dielectric_cos_t",
+           "resolve_material"]

@@ -49,6 +49,19 @@ class ShadingParams(NamedTuple):
     n_meta: tuple = None
 
 
+def resolve_material(mats, mat_id, uv_u, uv_v, atlas) -> ShadingParams:
+    """Each lane's material row from ``mats`` (a MaterialsSoA) with its Kd
+    (gamma-linearized) and Ks textures fetched (getMaterialParameters,
+    utils.cl:209-219; the reference's dispatch.py:59-68): the shading
+    parameters of tables that resolve nothing."""
+    m = mats.gather(mat_id)
+    return ShadingParams(
+        Kd=mat_get_albedo(m.Kd, uv_u, uv_v, m.map_Kd, atlas),
+        Ks=mat_get_float3(m.Ks, uv_u, uv_v, m.map_Ks, atlas),
+        Ke=m.Ke, Kt=m.Kt, alpha=m.Ns, Ni=m.Ni, d=m.d, type=m.type,
+        map_N=m.map_N, map_Kd=m.map_Kd, map_Ks=m.map_Ks)
+
+
 def apply_textures(sp: ShadingParams, uv_u, uv_v, atlas) -> ShadingParams:
     """Overlay the Kd (gamma-linearized) and Ks textures onto the baked
     material parameters on the lanes whose material has the map

@@ -27,7 +27,8 @@ from typing import NamedTuple
 import torch
 
 from .. import bxdf_types as bx
-from ..bsdf import apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample
+from ..bsdf import (apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample,
+                    resolve_material)
 from ..envmap import env_radiance_and_pdf, env_sample
 from ..geom import MIN_PATH_LENGTH, RenderConfig, RenderParams
 from ..rng import rand
@@ -130,7 +131,11 @@ def _bounce(scene, params: RenderParams, cfg: RenderConfig, b: int, s: dict):
         alive = alive & ~al_hit
 
     # ---- surface shading (mk_sample_bsdf.cl) -----------------------------
-    sp = apply_textures(sp, hit.uv_u, hit.uv_v, scene.atlas)
+    if sp is None:      # tables that resolve nothing (trace.py's third branch)
+        sp = resolve_material(scene.mats, hit.mat_id, hit.uv_u, hit.uv_v,
+                              scene.atlas)
+    else:
+        sp = apply_textures(sp, hit.uv_u, hit.uv_v, scene.atlas)
     nrm = tangent_space_normal(hit, scene.tri_frames, sp.map_N, scene.atlas,
                                meta=sp.n_meta)
     backface = dot(nrm, d) > 0.0

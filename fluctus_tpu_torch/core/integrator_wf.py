@@ -45,7 +45,8 @@ import torch
 
 from .. import bxdf_types as bx
 from .. import flags
-from ..bsdf import apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample
+from ..bsdf import (apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample,
+                    resolve_material)
 from ..envmap import env_radiance_and_pdf, env_sample
 from ..geom import MIN_PATH_LENGTH, RenderConfig, RenderParams
 from ..rng import burtle_hash, rand
@@ -504,7 +505,11 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
 
     # ---- shading of surviving paths: NEE generation + material ------------
     alive = ~terminate
-    sp = apply_textures(sp, hit.uv_u, hit.uv_v, scene.atlas)
+    if sp is None:      # tables that resolve nothing (trace.py's third branch)
+        sp = resolve_material(scene.mats, hit.mat_id, hit.uv_u, hit.uv_v,
+                              scene.atlas)
+    else:
+        sp = apply_textures(sp, hit.uv_u, hit.uv_v, scene.atlas)
 
     # implicit triangle emission (weight-1; emissive surfaces are never
     # NEE-sampled as lights)

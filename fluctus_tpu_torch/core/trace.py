@@ -5,8 +5,10 @@ package's core/trace.py, MXU raw-hit path, wf_extrays.cl:16-35 and
 wf_shadowrays.cl:27-33): the wavefront's shared-order pair trace
 (``trace_pair``) and the single-set entry points (``trace_extension_raw``,
 ``trace_extension``, ``trace_shadow``) of the microkernel integrator, the
-pick and the wavefront with ``flags.SORT_RAYS`` off; and the normal
-mapping of the hits (``tangent_space_normal``, trace.py:237-270)."""
+pick and the wavefront with ``flags.SORT_RAYS`` off; the hit records of
+tables that can resolve nothing (``TrianglesDevice``,
+``reconstruct_hit``); and the normal mapping of the hits
+(``tangent_space_normal``, trace.py:237-270)."""
 
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 from ..accel import mxu_trace as mt
 from ..bsdf import ShadingParams
 from ..envmap import EnvMapTables
-from ..geom import AreaLight, Hit
+from ..geom import AreaLight, Hit, MaterialsSoA
 from ..scene.texture import TextureAtlas
 from ..texture_fetch import mat_get_float3
 from ..vec import Vec3, dot, normalize, where as vwhere
@@ -26,17 +28,59 @@ from ..vec import Vec3, dot, normalize, where as vwhere
 F32_MAX = 3.4028235e38
 
 
+class TrianglesDevice(NamedTuple):
+    """The triangle arrays on the device (the reference's
+    accel/traverse.py:32-66): v0 and the edges e1 = p1 - p0, e2 = p2 - p0
+    (in float32), the vertex normals, the vertex uvs and the material id
+    of each original triangle, which ``reconstruct_hit`` gathers."""
+    v0: Vec3
+    e1: Vec3
+    e2: Vec3
+    n0: Vec3
+    n1: Vec3
+    n2: Vec3
+    t0u: torch.Tensor
+    t0v: torch.Tensor
+    t1u: torch.Tensor
+    t1v: torch.Tensor
+    t2u: torch.Tensor
+    t2v: torch.Tensor
+    mat_id: torch.Tensor
+
+    @staticmethod
+    def from_arrays(p, n, t, mat_id, *, device) -> "TrianglesDevice":
+        """p [M,3,3], n [M,3,3], t [M,3,2], mat_id [M] (host numpy)."""
+        p = np.asarray(p, np.float32)
+        n = np.asarray(n, np.float32)
+        t = np.asarray(t, np.float32)
+        col = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        v = lambda a: Vec3(col(a[:, 0]), col(a[:, 1]), col(a[:, 2]))
+        return TrianglesDevice(
+            v0=v(p[:, 0]), e1=v(p[:, 1] - p[:, 0]), e2=v(p[:, 2] - p[:, 0]),
+            n0=v(n[:, 0]), n1=v(n[:, 1]), n2=v(n[:, 2]),
+            t0u=col(t[:, 0, 0]), t0v=col(t[:, 0, 1]),
+            t1u=col(t[:, 1, 0]), t1v=col(t[:, 1, 1]),
+            t2u=col(t[:, 2, 0]), t2v=col(t[:, 2, 1]),
+            mat_id=col(np.asarray(mat_id, np.int32)))
+
+
 class DeviceScene(NamedTuple):
     """Device-resident scene data: the cluster tables, the static OR of
     the BXDF type bits present, the env map's tables (None without one),
-    the texture atlas (None or count 0 without textures) and, when a
-    material has a normal map, ``tri_frames`` (``make_tri_frames``): the
-    part of the reference's TrianglesDevice that normal mapping reads."""
+    the texture atlas (None or count 0 without textures), when a material
+    has a normal map ``tri_frames`` (``make_tri_frames``): the part of the
+    reference's TrianglesDevice that normal mapping reads; and, only for
+    tables that can resolve nothing (``has_resolve_tables`` False), the
+    triangle arrays ``tris`` and the materials ``mats`` that the trace's
+    third branch and ``resolve_material`` read. The other routes upload
+    neither."""
     mxu: mt.MXUSceneT
     material_types: int
     env: Optional[EnvMapTables] = None
     atlas: Optional[TextureAtlas] = None
     tri_frames: Optional[torch.Tensor] = None
+    tris: Optional[TrianglesDevice] = None
+    mats: Optional[MaterialsSoA] = None
 
 
 def make_tri_frames(p, uv, *, device) -> torch.Tensor:
@@ -65,6 +109,26 @@ def intersect_area_light(orig: Vec3, d: Vec3, light: AreaLight, t_prev):
     inside = (torch.abs(lx) <= light.size_x) & (torch.abs(ly) <= light.size_y)
     hit = facing & (denom != 0.0) & inside & (t > 0.0) & (t < t_prev)
     return hit, t
+
+
+def reconstruct_hit(orig: Vec3, d: Vec3, t, tri_idx, u, v,
+                    tris: TrianglesDevice) -> Hit:
+    """The hit record from a trace's (t, triangle, u, v) (bvh.cl:271-279;
+    the reference's core/trace.py:60-74): P on the ray, the vertex normals
+    and uvs interpolated with the barycentrics (1 - u - v, u, v), the
+    normal normalized, and the material id (-1 on a miss)."""
+    safe = torch.clamp_min(tri_idx, 0).long()
+    w = 1.0 - u - v
+    g = lambda a: a[safe]
+    bary = lambda a, b, c: g(a) * w + g(b) * u + g(c) * v
+    n = normalize(Vec3(bary(tris.n0.x, tris.n1.x, tris.n2.x),
+                       bary(tris.n0.y, tris.n1.y, tris.n2.y),
+                       bary(tris.n0.z, tris.n1.z, tris.n2.z)))
+    uu = w * g(tris.t0u) + u * g(tris.t1u) + v * g(tris.t2u)
+    vv = w * g(tris.t0v) + u * g(tris.t1v) + v * g(tris.t2v)
+    mat_id = torch.where(tri_idx >= 0, g(tris.mat_id), -1)
+    return Hit(P=orig + d * t, N=n, uv_u=uu, uv_v=vv, t=t, i=tri_idx,
+               area_light_hit=torch.zeros_like(tri_idx), mat_id=mat_id)
 
 
 def shading_from_attrs(row, col, tex_meta: bool = False) -> ShadingParams:
@@ -126,26 +190,31 @@ def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
     (or bool tensor) gating the light (sampleImpl && useAreaLight).
     Returns Hit, or (Hit, ShadingParams) when want_shading. Tables that
     can resolve nothing take the reference's third branch
-    (``closest_hit_mxu_full`` + ``reconstruct_hit`` over the triangle
-    arrays, trace.py:178-181), which is not ported, and raise."""
-    if not has_resolve_tables(scene):
-        raise NotImplementedError(
-            "trace_extension without attrs or B16 tables: "
-            "closest_hit_mxu_full + reconstruct_hit over TrianglesDevice "
-            "is not ported")
-    t, col = raw if raw is not None else trace_extension_raw(orig, d, scene)
-    row = mt.resolve_hits_mxu(orig, d, t, col, scene.mxu)
-    t = torch.where(col >= 0, row[mt.ATTR_HITT], t)
-    nrm = Vec3(row[mt.ATTR_N], row[mt.ATTR_N + 1], row[mt.ATTR_N + 2])
-    mat_id = torch.where(col >= 0,
-                         (row[mt.ATTR_MAT] + 0.5).to(torch.int32), -1)
-    tri = torch.where(col >= 0, (row[mt.ATTR_TRI] + 0.5).to(torch.int32), -1)
-    hit = Hit(P=orig + d * t, N=normalize(nrm),
-              uv_u=row[mt.ATTR_UV], uv_v=row[mt.ATTR_UV + 1],
-              t=t, i=tri, area_light_hit=torch.zeros_like(tri),
-              mat_id=mat_id)
-    sp = (shading_from_attrs(row, col, scene.mxu.has_tex_meta)
-          if want_shading else None)
+    (trace.py:177-181): ``closest_hit_mxu_full`` (which traces again and
+    ignores ``raw``) + ``reconstruct_hit`` over ``scene.tris``, and the
+    ShadingParams are None (the caller resolves them with
+    ``resolve_material``). There, slim tables without ``txy_t`` give the
+    trace's packed t and u = v = 0, as in the reference."""
+    sp = None
+    if has_resolve_tables(scene):
+        t, col = raw if raw is not None else trace_extension_raw(orig, d,
+                                                                 scene)
+        row = mt.resolve_hits_mxu(orig, d, t, col, scene.mxu)
+        t = torch.where(col >= 0, row[mt.ATTR_HITT], t)
+        nrm = Vec3(row[mt.ATTR_N], row[mt.ATTR_N + 1], row[mt.ATTR_N + 2])
+        mat_id = torch.where(col >= 0,
+                             (row[mt.ATTR_MAT] + 0.5).to(torch.int32), -1)
+        tri = torch.where(col >= 0,
+                          (row[mt.ATTR_TRI] + 0.5).to(torch.int32), -1)
+        hit = Hit(P=orig + d * t, N=normalize(nrm),
+                  uv_u=row[mt.ATTR_UV], uv_v=row[mt.ATTR_UV + 1],
+                  t=t, i=tri, area_light_hit=torch.zeros_like(tri),
+                  mat_id=mat_id)
+        if want_shading:
+            sp = shading_from_attrs(row, col, scene.mxu.has_tex_meta)
+    else:
+        t, tri, u, v, _ = mt.closest_hit_mxu_full(orig, d, scene.mxu)
+        hit = reconstruct_hit(orig, d, t, tri, u, v, scene.tris)
     if area_light is None:
         return (hit, sp) if want_shading else hit
     l_hit, l_t = intersect_area_light(orig, d, area_light, hit.t)

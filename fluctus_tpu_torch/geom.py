@@ -152,3 +152,13 @@ class MaterialsSoA(NamedTuple):
     map_Ks: torch.Tensor
     map_N: torch.Tensor
     type: torch.Tensor    # int32 BXDF bits
+
+    def gather(self, mat_id) -> "MaterialsSoA":
+        """Each lane's row (material 0 for mat_id < 0)."""
+        idx = torch.clamp_min(mat_id, 0).long()
+        v = lambda a: Vec3(a.x[idx], a.y[idx], a.z[idx])
+        return MaterialsSoA(
+            Kd=v(self.Kd), Ks=v(self.Ks), Ke=v(self.Ke), Kt=v(self.Kt),
+            Ns=self.Ns[idx], Ni=self.Ni[idx], d=self.d[idx],
+            map_Kd=self.map_Kd[idx], map_Ks=self.map_Ks[idx],
+            map_N=self.map_N[idx], type=self.type[idx])

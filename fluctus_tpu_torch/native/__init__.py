@@ -1,4 +1,4 @@
-"""The native (C++) SAH BVH builder, bound with ctypes.
+"""The native (C++) BVH builders, SAH and SBVH, bound with ctypes.
 
 ``bvh_builder.cpp`` is compiled with ``g++ -O3`` at first use into the
 package's git-ignored ``_build/`` directory, under a name keyed by a hash
@@ -49,13 +49,35 @@ def get_lib():
                                    f"{_SRC}:\n{res.stdout}{res.stderr}")
             os.replace(tmp, out)
         lib = ctypes.CDLL(out)
+        for pre in ("flbvh", "flsbvh"):
+            getattr(lib, f"{pre}_num_indices").restype = ctypes.c_int64
+            getattr(lib, f"{pre}_num_indices").argtypes = []
+            getattr(lib, f"{pre}_read").argtypes = [ctypes.c_void_p] * 6
+            getattr(lib, f"{pre}_read").restype = None
         lib.flbvh_build.restype = ctypes.c_int64
         lib.flbvh_build.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-        lib.flbvh_num_indices.restype = ctypes.c_int64
-        lib.flbvh_read.argtypes = [ctypes.c_void_p] * 6
-        lib.flbvh_read.restype = None
+        lib.flsbvh_build.restype = ctypes.c_int64
+        lib.flsbvh_build.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                     ctypes.c_int32]
+        lib.flsbvh_stats.restype = None
+        lib.flsbvh_stats.argtypes = [ctypes.POINTER(ctypes.c_int64)] * 2
         _lib = lib
         return _lib
+
+
+def _read(lib, pre: str, n_nodes: int) -> BVHArrays:
+    """The finished tree of builder ``pre`` (which the read frees)."""
+    n_idx = getattr(lib, f"{pre}_num_indices")()
+    box_min = np.empty((n_nodes, 3), np.float32)
+    box_max = np.empty((n_nodes, 3), np.float32)
+    right = np.empty(n_nodes, np.uint32)
+    parent = np.empty(n_nodes, np.int32)
+    nprims = np.empty(n_nodes, np.uint8)
+    indices = np.empty(n_idx, np.uint32)
+    getattr(lib, f"{pre}_read")(box_min.ctypes.data, box_max.ctypes.data,
+                                right.ctypes.data, parent.ctypes.data,
+                                nprims.ctypes.data, indices.ctypes.data)
+    return BVHArrays(box_min, box_max, right, parent, nprims, indices)
 
 
 def build_bvh_native(positions: np.ndarray) -> BVHArrays:
@@ -63,16 +85,25 @@ def build_bvh_native(positions: np.ndarray) -> BVHArrays:
     full-sweep SAH result."""
     lib = get_lib()
     tris = np.ascontiguousarray(positions.reshape(-1, 9), np.float32)
-    with _lock:     # the library keeps one builder at a time
+    with _lock:     # the library keeps one builder of each kind at a time
         n_nodes = lib.flbvh_build(tris.ctypes.data, tris.shape[0])
-        n_idx = lib.flbvh_num_indices()
-        box_min = np.empty((n_nodes, 3), np.float32)
-        box_max = np.empty((n_nodes, 3), np.float32)
-        right = np.empty(n_nodes, np.uint32)
-        parent = np.empty(n_nodes, np.int32)
-        nprims = np.empty(n_nodes, np.uint8)
-        indices = np.empty(n_idx, np.uint32)
-        lib.flbvh_read(box_min.ctypes.data, box_max.ctypes.data,
-                       right.ctypes.data, parent.ctypes.data,
-                       nprims.ctypes.data, indices.ctypes.data)
-    return BVHArrays(box_min, box_max, right, parent, nprims, indices)
+        return _read(lib, "flbvh", n_nodes)
+
+
+def build_sbvh_native(positions: np.ndarray, max_leaf: int = 8,
+                      verbose: bool = True) -> BVHArrays:
+    """The spatial-split BVH of positions [M, 3, 3], node for node the
+    reference package's native SBVH; ``verbose`` prints its
+    "SBVH(native): ..." line (nodes, spatial splits, duplicates)."""
+    lib = get_lib()
+    tris = np.ascontiguousarray(positions.reshape(-1, 9), np.float32)
+    m = tris.shape[0]
+    with _lock:
+        n_nodes = lib.flsbvh_build(tris.ctypes.data, m, max_leaf)
+        if verbose:
+            n_spatial, n_dup = ctypes.c_int64(), ctypes.c_int64()
+            lib.flsbvh_stats(ctypes.byref(n_spatial), ctypes.byref(n_dup))
+            print(f"SBVH(native): {n_nodes} nodes ({n_spatial.value} "
+                  f"spatial splits), {n_dup.value} duplicates "
+                  f"({n_dup.value * 100.0 / max(m, 1):.1f}%)")
+        return _read(lib, "flsbvh", n_nodes)

@@ -33,7 +33,7 @@ import torch
 from . import flags, state_io
 from .accel import build_bvh, export_bvh, import_bvh
 from .accel import mxu_trace as mt
-from .native import build_bvh_native
+from .native import build_bvh_native, build_sbvh_native
 from .core.camera import generate_camera_rays
 from .core.denoise import atrous_denoise
 from .core.integrator_mk import FeatureFilm, Film, RenderStats, render_sample
@@ -41,7 +41,8 @@ from .core.integrator_wf import (pad_pixels, padded_to_true_pid,
                                  salt_seeds, unpad_pixels, wf_reset,
                                  wf_segment, wf_shade_phase, wf_trace_phase)
 from .core.tonemap import postprocess
-from .core.trace import DeviceScene, make_tri_frames, trace_extension
+from .core.trace import (DeviceScene, TrianglesDevice, make_tri_frames,
+                         trace_extension)
 from .geom import AreaLight, Camera, PostProcessParams, RenderConfig, RenderParams
 from .image_io import save_hdr, save_png
 from .progress import ProgressView
@@ -117,10 +118,12 @@ class Renderer:
     # -- scene lifecycle (Tracer::init) -------------------------------------
     def load_scene(self, scene_file: str, env_map: Optional[str] = None,
                    use_saved_state: bool = True):
-        """Load an OBJ or ``.sc.json`` scene; the env map ``env_map`` (else
-        ``settings.env_map_name``), which switches the env map on when the
-        file exists and prints a WARNING when it does not (the reference's
-        renderer.py:58-70); with ``use_saved_state`` the scene's saved
+        """Load an OBJ, PLY, PBRT or ``.sc.json`` scene; the env map
+        ``env_map`` (else ``settings.env_map_name``), which switches the env
+        map on when the file exists and prints a WARNING when it does not
+        (the reference's renderer.py:58-70); the camera a PBRT file
+        carries, into ``settings.camera`` (renderer.py:72-80); then, with
+        ``use_saved_state``, the scene's saved
         render state, ``data_dir/states/state_<hash>.dat``, when it exists:
         camera, area light, depth, light and sampling switches, env map
         strength and exposure, its ``use_env_map`` deciding the env map
@@ -141,6 +144,12 @@ class Renderer:
         elif env_name:
             print(f"WARNING: env map not found: {env_name}")
         self.scene = scene
+        co = scene.camera_override
+        if co is not None:      # a PBRT camera, before the saved state
+            c = s.camera
+            c.pos, c.dir, c.up, c.right, c.fov = (co.pos, co.dir, co.up,
+                                                  co.right, co.fov)
+            s._calc_camera_rotation()
         spath = state_io.state_path(self.data_dir, scene.hash)
         if use_saved_state and scene.hash and os.path.exists(spath):
             self.env_map_strength, self.exposure = state_io.load_state(spath,
@@ -166,7 +175,9 @@ class Renderer:
         texture sizes is rebuilt), uploaded with the atlas and, when a
         material has a normal map, the triangles' tangent frames
         (``make_tri_frames``); the tables' content picks the resolve kernel
-        (``resolve_hits_mxu``). Then ``_derive_config``. Also the material
+        (``resolve_hits_mxu``), and tables with neither ``attrs`` nor B16
+        upload the triangle arrays and materials for the trace's third
+        branch instead. Then ``_derive_config``. Also the material
         re-upload path (``reload_materials``). Returns whether the tables
         came from the cache."""
         scene = self.scene
@@ -186,14 +197,23 @@ class Renderer:
             print(f"MXU tables: {statics['n_clusters']} clusters, "
                   f"{statics['n_superclusters']} supers ({t1 - t0:.2f}s)")
         normal_maps = atlas.count > 0 and atlas.has_n
+        mxu = mt.tables_from_numpy(host, statics, self.device)
+        # tables with neither attrs nor B16 (a table cache that stores B16
+        # absent, on slim tables) take the trace's third branch, which
+        # reads the triangle arrays and the materials
+        bare = mxu.attrs is None and mxu.b16r is None
         self.device_scene = DeviceScene(
-            mxu=mt.tables_from_numpy(host, statics, self.device),
-            material_types=scene.material_types,
+            mxu=mxu, material_types=scene.material_types,
             env=(scene.envmap.device_tables(self.device) if scene.envmap
                  else None),
             atlas=atlas,
             tri_frames=(make_tri_frames(p, uv, device=self.device)
-                        if normal_maps else None))
+                        if normal_maps else None),
+            tris=(TrianglesDevice.from_arrays(p, nrm, uv, mid,
+                                              device=self.device)
+                  if bare else None),
+            mats=(scene.device_materials(device=self.device) if bare
+                  else None))
         self._upload_seconds = dict(tables=t1 - t0,
                                     upload=time.perf_counter() - t1)
         self._derive_config(use_env)
@@ -203,10 +223,11 @@ class Renderer:
         """BVH behind the binary hierarchy cache (Tracer::initHierarchy,
         tracer.cpp:934-952; the reference's renderer.py:234-274): a hit on
         ``data_dir/hierarchies/hierarchy_<hash>[_sbvh].bin`` builds
-        nothing; a miss builds (the native SAH builder past 20,000
-        triangles, the numpy one below, with a progress line on a
-        terminal; the SBVH builder is not ported and raises) and writes
-        the cache, unless the scene has no hash. Prints the reference's
+        nothing; a miss builds and writes the cache, unless the scene has
+        no hash. ``split_mode == "sbvh"`` builds the spatial-split BVH
+        natively at every size (``build_sbvh_native``); "sah" builds with
+        the native SAH builder past 20,000 triangles and the numpy one
+        below. A progress line shows on a terminal. Prints the reference's
         "BVH cache hit" / "BVH built" line. Returns (bvh, hit)."""
         cache_dir = os.path.join(self.data_dir, "hierarchies")
         sbvh = self.settings.split_mode == "sbvh"
@@ -217,13 +238,13 @@ class Renderer:
             bvh = import_bvh(cache)
             print(f"BVH cache hit: {cache} ({time.time()-t0:.2f}s)")
             return bvh, True
-        if sbvh:
-            raise NotImplementedError(
-                "split_mode 'sbvh': the SBVH builder is not ported")
         p = scene.triangle_arrays()[0]
         pv = ProgressView(enabled=sys.stderr.isatty())
         m = max(p.shape[0], 1)
-        if p.shape[0] > 20000:
+        if sbvh:
+            pv.show("Building SBVH")
+            bvh = build_sbvh_native(p)
+        elif p.shape[0] > 20000:
             pv.show("Building BVH")
             bvh = build_bvh_native(p)
         else:

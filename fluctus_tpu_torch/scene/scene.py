@@ -1,12 +1,12 @@
-"""Scene container: triangles and materials (the port's copy of the OBJ and
-``.sc.json`` paths of the reference package's scene/scene.py,
+"""Scene container: triangles and materials (the port's copy of the
+reference package's scene/scene.py: OBJ, PLY, PBRT and ``.sc.json``,
 src/scene.cpp:59-120 and 864-897), and the content hash that keys the BVH
 and table caches.
 
 Material slot 0 is the default material; ``textures`` holds the scene's
 textures (``HostTexture``), deduplicated by name; ``envmap`` holds its
-environment map (``envmap.EnvironmentMap``) or None. The PLY and PBRT
-loaders are not ported yet and raise.
+environment map (``envmap.EnvironmentMap``) or None; ``camera_override``
+the camera a PBRT file carries (``pbrt_loader.PbrtCamera``) or None.
 """
 
 from __future__ import annotations
@@ -43,6 +43,8 @@ class Scene:
         self.hash: str = ""    # content hash keying the caches; "" = none
         self._tri_chunks = []  # (p [M,3,3], n [M,3,3], t [M,3,2], matId [M])
         self.envmap = None
+        self.camera_override = None     # set by formats that carry a camera
+        self.pbrt_textures = {}         # PBRT texture name -> index or -1
 
     # -- geometry -----------------------------------------------------------
     def append_triangles(self, p, n, t, mat_id):
@@ -105,12 +107,15 @@ class Scene:
     # -- loading ------------------------------------------------------------
     def load_model(self, filename: str,
                    transform: Optional[ModelTransform] = None):
-        """Extension dispatch (scene.cpp:59-120): OBJ, PLY and ``.sc.json``
-        (PBRT is not ported and raises). A whole-scene load (no transform)
-        sets ``hash``: an OBJ's or PLY's is its file hash; a ``.sc.json``'s
-        chains the hashes of the scene file and of every file it
-        references, so editing a referenced model misses the caches (the
-        reference's scene.py:109-145)."""
+        """Extension dispatch (scene.cpp:59-120): OBJ, PLY, PBRT and
+        ``.sc.json``. A whole-scene load (no transform) sets ``hash``: an
+        OBJ's, PLY's or PBRT's is its file hash (not the hash of the files
+        a PBRT includes, as the reference); a ``.sc.json``'s chains the
+        hashes of the scene file and of every file it references, so
+        editing a referenced model misses the caches (the reference's
+        scene.py:109-145). A PBRT parse goes behind the ``.flc.npz`` parse
+        cache (``pbrt_cache``) only for a whole-scene load into a fresh
+        Scene (the reference's scene.py:112-123)."""
         if filename.endswith(".obj"):
             from .obj_loader import load_obj
             load_obj(filename, self, transform)
@@ -118,8 +123,15 @@ class Scene:
             from .ply_loader import load_ply
             load_ply(filename, self, transform)
         elif filename.endswith(".pbrt"):
-            raise NotImplementedError(
-                f"{filename}: the .pbrt loader is not ported yet")
+            from . import pbrt_cache
+            from .pbrt_loader import load_pbrt
+            fresh = (transform is None and self.num_triangles == 0
+                     and len(self.materials) == 1)
+            h = file_hash(filename) if fresh else ""
+            if not (fresh and pbrt_cache.load_cache(filename, h, self)):
+                load_pbrt(filename, self, transform)
+                if fresh:
+                    pbrt_cache.save_cache(filename, h, self)
         elif filename.endswith(".sc.json"):
             self.load_scene_file(filename)
             if transform is None:

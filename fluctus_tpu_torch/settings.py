@@ -8,8 +8,8 @@ Fields fall in two kinds:
 - read by the port: ``wf_buffer_size``, ``max_path_depth``, ``max_spp``,
   ``tonemap``, ``render_scale`` (the Renderer scales its film by it),
   ``use_denoiser`` and ``denoiser_blend``, the light and sampling
-  switches, ``env_map_name``, ``split_mode`` ("sbvh" raises on a
-  hierarchy-cache miss: the SBVH builder is not ported), ``camera`` and
+  switches, ``env_map_name``, ``split_mode`` ("sah", or "sbvh" for the
+  spatial-split BVH, built natively), ``camera`` and
   ``area_light`` (a saved render state, ``state_io``, holds and restores
   them with ``camera_rotation`` and ``camera_speed``),
   ``wf_block_ring`` (False, or ``FLT_BLOCK_RING=0``, renders on the flat

@@ -196,7 +196,8 @@ def test_cache_file_names_follow_the_reference(lux, tmp_path):
 def test_hierarchy_cache_rules(lux, tmp_path, monkeypatch):
     """_init_hierarchy: a hit imports and builds nothing; a scene without a
     hash builds and writes nothing (as the reference); the SBVH split mode
-    keys its own file and raises on a miss, naming the builder."""
+    keys its own file: a miss builds the SBVH natively and writes
+    ``hierarchy_<hash>_sbvh.bin``, which the SAH tree's file is not."""
     r = Renderer(16, 8, data_dir=str(tmp_path), device="cpu")
     scene = lux["ts"]
     bvh, hit = r._init_hierarchy(scene)
@@ -215,9 +216,12 @@ def test_hierarchy_cache_rules(lux, tmp_path, monkeypatch):
     assert not hit and not os.path.exists(tmp_path / "fresh")
     s = Settings()
     s.split_mode = "sbvh"
-    with pytest.raises(NotImplementedError, match="SBVH builder"):
-        Renderer(16, 8, settings=s, data_dir=str(tmp_path),
-                 device="cpu")._init_hierarchy(scene)
+    sbvh, hit = Renderer(16, 8, settings=s, data_dir=str(tmp_path),
+                         device="cpu")._init_hierarchy(scene)
+    assert not hit
+    assert os.path.exists(tmp_path / "hierarchies"
+                          / f"hierarchy_{scene.hash}_sbvh.bin")
+    assert len(sbvh.indices) >= scene.num_triangles
 
 
 def test_no_b16_cache_loads_and_resolves_through_k10(tmp_path):

@@ -121,8 +121,8 @@ def test_ply_transform_matches_reference(tmp_path):
 
 
 def test_ply_refuses_other_polygons(tmp_path):
-    """A pentagon raises ValueError in both packages; a .pbrt file is not
-    ported (NotImplementedError) and another extension is unknown
+    """A pentagon raises ValueError in both packages; an empty .pbrt world
+    loads with no triangles in both, and another extension is unknown
     (ValueError, the reference's error)."""
     verts = np.array([[0, 0, 0], [1, 0, 0], [1.3, 1, 0], [0.5, 1.6, 0],
                       [-0.3, 1, 0]], np.float32)
@@ -132,8 +132,9 @@ def test_ply_refuses_other_polygons(tmp_path):
             scene.load_model(path)
     pbrt = tmp_path / "s.pbrt"
     pbrt.write_text("WorldBegin\nWorldEnd\n")
-    with pytest.raises(NotImplementedError, match=r"\.pbrt"):
-        Scene().load_model(str(pbrt))
+    for scene in (Scene(), JScene()):
+        scene.load_model(str(pbrt))
+        assert scene.num_triangles == 0 and len(scene.materials) == 1
     other = tmp_path / "s.stl"
     other.write_text("solid\n")
     for scene in (Scene(), JScene()):

@@ -73,6 +73,8 @@ from fluctus_tpu_torch.geom import (AreaLight as TAreaLight,
                                     RenderParams as TParams)
 from fluctus_tpu_torch.renderer import Renderer, table_cache_path
 from fluctus_tpu_torch.scene import Scene as TScene
+from fluctus_tpu_torch.scene.material import (
+    materials_to_soa as tmaterials_to_soa)
 from fluctus_tpu_torch.scene.texture import (HostTexture, atlas_from_numpy,
                                              pack_atlas)
 from fluctus_tpu_torch.vec import Vec3 as TVec3
@@ -123,20 +125,24 @@ def port_atlas(jatlas):
             has_kd=jatlas.has_kd, has_ks=jatlas.has_ks, has_n=jatlas.has_n)
 
 
-def scene_setup(path, w, h, depth, groups=16):
+def scene_setup(path, w, h, depth, groups=16, build=jbuild_bvh, strip=()):
     """(reference scene, params, config), (port scene, params, config) and
-    the world radius of a scene file: the reference's host tables and
-    atlas carried across, camera and light of test_torch_wavefront.py;
-    the config with the block ring (wavefront) and unrolled bounces
-    (megastep)."""
+    the world radius of a scene file: the reference's host tables (cut
+    from the tree ``build`` makes; the host tables named in ``strip`` left
+    out, as a table cache can store them absent) and atlas carried
+    across, camera and light of test_torch_wavefront.py; the config with
+    the block ring (wavefront) and unrolled bounces (megastep). Tables
+    that can resolve nothing give the port's scene the triangle arrays
+    and materials, as the Renderer uploads them."""
     js = JScene()
     js.load_model(path)
     p, n, uv, mid = js.triangle_arrays()
-    bvh = jbuild_bvh(p)
+    bvh = build(p)
     jatlas = js.device_textures()
     host, st = jmt.MXUScene.build(p, bvh, normals=n, uvs=uv, mat_ids=mid,
                                   materials=js.materials, atlas=jatlas,
                                   return_host=True)
+    host = dict(host, **{k: None for k in strip})
     types = js.material_types
     wr = js.world_radius()
     jscene = JDeviceScene(
@@ -150,6 +156,11 @@ def scene_setup(path, w, h, depth, groups=16):
         atlas=tatlas,
         tri_frames=(ttrace.make_tri_frames(p, uv, device="cpu")
                     if tatlas.count and tatlas.has_n else None))
+    if not ttrace.has_resolve_tables(tscene):
+        tscene = tscene._replace(
+            tris=ttrace.TrianglesDevice.from_arrays(p, n, uv, mid,
+                                                   device="cpu"),
+            mats=tmaterials_to_soa(js.materials, device="cpu"))
     jparams = JParams(camera=JCamera.make(**CAM),
                       area_light=JAreaLight.make(**LIGHT),
                       env_map_strength=jnp.float32(1.0),
