@@ -209,9 +209,39 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    python -m fluctus_tpu_torch on 14b's file with -s PBRT_CLI_SPP and a
    settings file holding "splitMode": "sbvh": exit 0, the image, the
    SBVH's hierarchy file.
-10. the kernels line (launches including phases 11, 12, 13 and 14's
-   timed runs; K4's entry with its 8-channel launches, as counted in
-   12a), the card line, then the final result line.
+15. a user's interactive session and harness (interactive.py, viewer.py,
+   bench/, profiling.py), each through its entry point. 15a:
+   run_interactive on luxball at 1080p with 1M paths, depth 10, phase 9's
+   env map and phase 3's view, settings.shortcuts[2] the 2x2 grid, over
+   REPL_SCRIPT (camera moves, the fast preview, more, tonemap, exposure,
+   a material edit, roulette, the spp cap on and off, the denoiser and
+   its blend, the exact-spp integrator, the light and sampling cycles,
+   pick, scale, scene 2, save, load, png): per command the wall ms, its
+   render part (segments, synchronised) and its frame-write part
+   (tonemap, copy to the host, PNG encode) and the frame's mean; it
+   fails on an error, unknown-command or parse-error line, on a command
+   that should write the frame and did not, and on a returned count
+   other than the script's length. The kernel calls of segments 2 and 4
+   of five commands' renders (w: the block ring at 4 channels; maxspp
+   16: K7 and K8; denoise 1: K4 at 8 channels; integrator mk: the exact
+   spp; scene 2: the grid's K5) are held bit for bit to their plain
+   versions (K1, K2, K3, K4 at 4 and 8 channels, K5, K7, K8). 15b:
+   viewer.serve at 1080p in a thread on a free port: the page's widgets,
+   /state.json against _widget_state, spp 8, w, depth 5 and exposure 1.7
+   POSTed and shown, the frame decoded at 1920x1080, the ms from w's POST
+   to the frame, q ending the thread with a count of 5. 15c: a .bm.json
+   of luxball on the wavefront (HARNESS_SECONDS) and the production
+   luxball by exact-spp steps (HARNESS_SPP) at 1080p: the reference's
+   CSV header, rows per scene, the images, the exact scene's spp, its
+   Mrays/s beside phase 3's; run_benchmark on luxball at the fixed
+   protocol's 1024x1024 for FIXED_SECONDS; profiling.profile_device_ops
+   over 2 segments, its rows naming K1-K4, beside phase 3's profile. 15d:
+   python -m fluctus_tpu_torch with --interactive (a piped script),
+   --serve (w and q POSTed), a shortened .bm.json and --benchmark (its
+   scenes absent: the three skip lines), started together, each exit 0.
+10. the kernels line (launches including phases 11, 12, 13, 14 and 15's
+   runs; K4's entry with its 8-channel launches, as counted in 12a and
+   15a), the card line, then the final result line.
 
 Every renderer loads with a fresh temporary ``data_dir`` (removed at the
 end), so phases 2-6 load cold as before (now writing the caches) and
@@ -221,6 +251,7 @@ Prints nothing of the result and exits non-zero without CUDA or without
 the package beside it.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -1792,9 +1823,10 @@ def kernels_line(kres, launches):
     where K4, K7 and K8 launch 0 times, 14a on the SBVH grid and 14c on
     its tables without B16), K7 and K8 in the timed exact
     renders (5b, 11c, 12a), K9 in the rays-on-sublanes render (6b), K10 in
-    the free-running run on tables without B16 (8b). K4's entry also
-    carries its 8-channel calls (12a: the denoiser's features), with their
-    launches in 12a's runs."""
+    the free-running run on tables without B16 (8b); K1-K5, K7 and K8
+    also over 15a's interactive session. K4's entry also carries its
+    8-channel calls (12a and 15a: the denoiser's features), with their
+    launches in those runs."""
     out = []
     for name in SOURCES:
         k = kres[name]
@@ -3389,6 +3421,617 @@ def phase_pbrt_cli(card, path):
         raise AssertionError("14d: the CLI run failed")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the interactive session, the viewer, the harness, the CLI
+# ---------------------------------------------------------------------------
+
+GRID2 = "fluctus_tpu_torch/scenes/luxball_grid_2x2.sc.json"
+SESSION_SIZE = (1920, 1080)
+SESSION_PATHS = 1 << 20
+FIXED_SIZE = (1024, 1024)   # the fixed protocol's (tracer.cpp:391)
+# 15a's script; the commands on which a route's kernel calls are recorded
+# (segments 2 and 4 of the command's render) and held to the plain versions
+REPL_SCRIPT = ["spp 8", "w", "look 10 0", "preview 1", "d", "preview 0",
+               "more 8", "tonemap 2", "exposure 1.5", "mats",
+               "mat 0 kd 0.8 0.2 0.2", "rr 1", "maxspp 16", "maxspp 0",
+               "denoise 1", "blend 0.5", "denoise 0", "integrator mk",
+               "more 4", "integrator wf", "light", "sampling",
+               "pick 0.35 0.45", "scale 0.5", "scale 1", "scene 2", "save",
+               "load", "png {png}", "q"]
+REPL_ROUTES = {"w": "block ring, 4 channels", "maxspp 16": "spp cap",
+               "denoise 1": "8 channels", "integrator mk": "exact spp",
+               "scene 2": "2x2 grid"}
+# the commands that write the frame (a restart, a refinement or a repost)
+FRAME_OPS = {"w", "look", "d", "more", "tonemap", "exposure", "mat", "rr",
+             "maxspp", "denoise", "blend", "integrator", "light",
+             "sampling", "pick", "scale", "scene", "load"}
+REPL_FAULTS = ("  error:", "  ?", "  parse error")
+WIDGET_IDS = ("integrator", "depth", "rr", "maxspp", "scale", "fov",
+              "speed", "aperture", "tonemap", "exposure", "denoise",
+              "blend", "envstrength", "al_size", "al_int", "al_color")
+# the reference's CSV schema (tracer.cpp:428), byte for byte
+CSV_HEADER = "scene;time;primary;extension;shadow;total;samples"
+HARNESS_SECONDS = 6
+HARNESS_SPP = 4
+FIXED_SECONDS = 5
+CONTROL_SECONDS = 3
+# the kernels phase 15 must launch: K4 at 4 and 8 channels, K7, K8, K5
+PHASE15_KERNELS = ("tile_order", "trace_rol", "resolve_v5", "block_splat",
+                   "trace_rol_sc", "block_splat_capped", "fetch")
+
+
+class SessionRecorder(Recorder):
+    """The kernel wrappers' arguments in segments 2 and 4 of the commands
+    that ``command(i, route)`` names a route for, keyed ((route, segment),
+    kernel); segments are counted by the renderer's calls of
+    wf_trace_phase (free-running) and wf_segment (exact spp)."""
+
+    def __init__(self):
+        super().__init__()
+        from fluctus_tpu_torch.core import block_splat as bs
+        self.targets.append((bs, "fetch"))
+        self.route, self.seg = None, 0
+
+    def command(self, route):
+        self.route, self.seg, self.active = route, 0, None
+
+    def __enter__(self):
+        super().__enter__()
+        import fluctus_tpu_torch.renderer as rmod
+        self.rmod = rmod
+        self.rorig = (rmod.wf_trace_phase, rmod.wf_segment)
+
+        def counted(fn):
+            def run(*a, **k):
+                self.seg += 1
+                self.active = ((self.route, self.seg) if self.route
+                               and self.seg in (2, 4) else None)
+                return fn(*a, **k)
+            return run
+        rmod.wf_trace_phase, rmod.wf_segment = map(counted, self.rorig)
+        return self
+
+    def __exit__(self, *exc):
+        self.rmod.wf_trace_phase, self.rmod.wf_segment = self.rorig
+        super().__exit__(*exc)
+
+
+def frame_sig(path):
+    """(mtime_ns, inode, size) of a file, or None: os.replace of a new
+    frame changes it even when the image is the same."""
+    try:
+        st = os.stat(path)
+    except FileNotFoundError:
+        return None
+    return (st.st_mtime_ns, st.st_ino, st.st_size)
+
+
+def png_mean(path):
+    """The mean 8-bit value of a PNG file and its (width, height)."""
+    import numpy as np
+    from PIL import Image
+    with Image.open(path) as im:
+        return float(np.asarray(im.convert("RGB")).mean()), im.size
+
+
+class TimedScript:
+    """run_interactive's input: yields the script's lines and records, per
+    command, the wall ms from its line to the REPL asking for the next,
+    the render part (the render calls, each ended by a synchronize), the
+    frame-write part (save_image / save_denoised: tonemap, copy to the
+    host, PNG encode) and whether the frame file was rewritten."""
+
+    def __init__(self, r, lines, frame, rec):
+        import torch
+        self.lines, self.frame, self.rec, self.rows = lines, frame, rec, []
+        self.parts = {}
+        for name, part in (("render_wavefront", "render"),
+                           ("render_single", "render"),
+                           ("wavefront_preview_film", "render"),
+                           ("save_image", "write"),
+                           ("save_denoised", "write")):
+            setattr(r, name, self._timed(getattr(r, name), part, torch))
+
+    def _timed(self, fn, part, torch):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.parts[part] = self.parts.get(part, 0.0) \
+                + time.perf_counter() - t0
+            return out
+        return run
+
+    def __iter__(self):
+        for line in self.lines:
+            self.rec.command(REPL_ROUTES.get(line))
+            before = frame_sig(self.frame)
+            self.parts = {}
+            t0 = time.perf_counter()
+            yield line + "\n"
+            wall = time.perf_counter() - t0
+            after = frame_sig(self.frame)
+            render = self.parts.get("render", 0.0)
+            write = self.parts.get("write", 0.0)
+            row = dict(cmd=line, wall_ms=wall * 1e3, render_ms=render * 1e3,
+                       write_ms=write * 1e3,
+                       other_ms=(wall - render - write) * 1e3,
+                       frame_written=after is not None and after != before)
+            if row["frame_written"]:
+                row["frame_mean"], row["frame_size"] = png_mean(self.frame)
+            self.rows.append(row)
+
+
+def hold_recorded(calls):
+    """Every recorded call against its kernel's plain version, bit for
+    bit: K1 order and skey, the trace kernels' t (bits), columns and
+    visits, the resolve rows (max |difference| 0), K4 at each channel
+    count, K7 and K8. Returns {kernel: {calls, max_abs_err, routes}}."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    from fluctus_tpu_torch.core import block_splat as bs
+    held = {}
+
+    def note(key, route, err=0.0):
+        h = held.setdefault(key, dict(calls=0, max_abs_err=0.0, routes=[]))
+        h["calls"] += 1
+        h["max_abs_err"] = max(h["max_abs_err"], err)
+        if route not in h["routes"]:
+            h["routes"].append(route)
+
+    def splat_args(local, data, film, groups, remaining=None):
+        return local, data, film, groups, remaining
+
+    def fetch_args(local, table, groups):
+        return local, table, groups
+    for ((route, seg), name), lst in calls.items():
+        for args, kw in lst:
+            where = f"{route}, segment {seg}"
+            if name == "tile_order":
+                diff = tile_order_diffs(mt.tile_order(*args),
+                                        tile_order_chain_plain(*args))
+                if any(diff.values()):
+                    raise AssertionError(f"15a: K1 differs ({where}): {diff}")
+                note(name, route)
+            elif name in ("trace_rol", "trace_rol_sc"):
+                plain = getattr(mt, f"{name}_plain")
+                diff = trace_diffs(getattr(mt, name)(*args),
+                                   trace_plain_chunked(
+                                       plain, *args,
+                                       chunk=256 if name == "trace_rol"
+                                       else 512))
+                if any(diff.values()):
+                    raise AssertionError(f"15a: {name} differs ({where}): "
+                                         f"{diff}")
+                note(name, route)
+            elif name.startswith("resolve_"):
+                got = getattr(mt, name)(*args)
+                ref = getattr(mt, f"{name}_plain")(*args)
+                err = float((got - ref).abs().max())
+                if err != 0.0:
+                    raise AssertionError(f"15a: {name} differs ({where}): "
+                                         f"max |diff| {err}")
+                note(name, route, err)
+            elif name == "splat":
+                local, data, film, g, rem = splat_args(*args, **kw)
+                if rem is None:
+                    key = "block_splat" if data.shape[0] == 4 \
+                        else f"block_splat_{data.shape[0]}"
+                    got = bs.splat(local, data, film, groups=g)
+                    ref = bs.splat_plain(local, data, film, g)
+                else:
+                    key = "block_splat_capped"
+                    got = bs.splat(local, data, film, groups=g,
+                                   remaining=rem)
+                    ref = bs.splat_capped_plain(local, data, film, g, rem)
+                if not torch.equal(got.view(torch.int32),
+                                   ref.view(torch.int32)):
+                    raise AssertionError(f"15a: {key} differs ({where})")
+                note(key, route)
+            elif name == "fetch":
+                local, table, g = fetch_args(*args, **kw)
+                if not torch.equal(bs.fetch(local, table, groups=g),
+                                   bs.fetch_plain(local, table, g)):
+                    raise AssertionError(f"15a: K8 differs ({where})")
+                note("fetch", route)
+    want = {"tile_order", "trace_rol", "trace_rol_sc", "resolve_v5",
+            "block_splat", "block_splat_8", "block_splat_capped", "fetch"}
+    if not want <= set(held):
+        raise AssertionError(f"15a: no recorded call of "
+                             f"{sorted(want - set(held))}")
+    return held
+
+
+def phase_repl(card):
+    """Phase 15a: run_interactive at 1080p with 1M paths (see the module
+    docstring). Returns (launches by kernel, K4's 8-channel launches)."""
+    import contextlib
+    import io
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.interactive import run_interactive
+    out_dir = fresh_dir()
+    frame = os.path.join(out_dir, "frame.png")
+    png = os.path.join(out_dir, "shot.png")
+    script = [c.format(png=png) for c in REPL_SCRIPT]
+    r = make_renderer(*SESSION_SIZE, "cuda", env_map=ENV_FILE,
+                      switches={"shortcuts": {2: GRID2}})
+    r.num_tasks = SESSION_PATHS
+    echo = io.StringIO()
+    with SessionRecorder() as rec:
+        timed = TimedScript(r, script, frame, rec)
+        torch.cuda.synchronize()
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(echo):
+            count = run_interactive(r, out_path=frame, input_stream=timed)
+        seconds = time.perf_counter() - t0
+        launches, plain = counts()
+        k4_by = dict(kb.KERNELS["block_splat"].launches_by)
+    lines = echo.getvalue().splitlines()
+    faults = [ln for ln in lines if ln.startswith(REPL_FAULTS)]
+    stale = [row["cmd"] for row in timed.rows
+             if row["cmd"].split()[0] in FRAME_OPS
+             and not row["frame_written"]]
+    rows = timed.rows
+    out = dict(phase="repl_session", card=card, scene=LUXBALL,
+               size=list(SESSION_SIZE), paths=SESSION_PATHS, depth=10,
+               env_map=ENV_FILE, commands=len(script), returned=count,
+               seconds=seconds, launches=launches, plain_runs=plain,
+               k4_launches_by_channels=k4_by, faults=faults,
+               stale_frames=stale, png_written=os.path.exists(png),
+               final=dict(triangles=r.scene.num_triangles, width=r.width,
+                          height=r.height, clusters=r.device_scene.mxu
+                          .n_clusters, exposure=r.exposure),
+               commands_timed=rows,
+               echo=[ln for ln in lines if ln.startswith("  ")][:60])
+    emit(out)
+    if faults or stale or count != len(script) or not out["png_written"]:
+        raise AssertionError(f"15a: faults {faults}, frames not written by "
+                             f"{stale}, returned {count} of {len(script)}")
+    if any(plain.values()):
+        raise AssertionError(f"15a: a plain version ran: {plain}")
+    missing = [k for k in PHASE15_KERNELS if not launches.get(k)]
+    if missing or not k4_by.get(8):
+        raise AssertionError(f"15a: never launched: {missing}, K4 by "
+                             f"channels {k4_by}")
+    held = hold_recorded(rec.calls)
+    del rec, timed
+    emit(dict(phase="repl_kernels_vs_plain", card=card, held=held))
+    def split(cmds):
+        return {key: [row[f"{key}_ms"] for row in rows if row["cmd"] in cmds]
+                for key in ("wall", "render", "write")}
+    emit(dict(phase="repl_latency", card=card,
+              refresh_8_segments=split(("w", "look 10 0")),
+              preview_2_segments=split(("d",)),
+              frame_write_ms_median=statistics.median(
+                  row["write_ms"] for row in rows if row["write_ms"])))
+    del r
+    torch.cuda.empty_cache()
+    return launches, k4_by.get(8, 0)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(url, cmd=None, timeout=60):
+    """GET ``url``, or POST the command ``cmd`` to it as the page's form
+    does. Returns the body."""
+    import urllib.parse
+    import urllib.request
+    data = None if cmd is None else \
+        urllib.parse.urlencode({"c": cmd}).encode()
+    with urllib.request.urlopen(url, data=data, timeout=timeout) as f:
+        return f.read()
+
+
+def post_quit(base):
+    """POST q; its 303's follow-up GET races the server's shutdown."""
+    try:
+        http(base + "/cmd", "q")
+    except OSError:
+        pass
+
+
+def phase_viewer(card):
+    """Phase 15b: viewer.serve at 1080p in a thread (see the module
+    docstring)."""
+    import contextlib
+    import io
+    import threading
+    import torch
+    from fluctus_tpu_torch import viewer
+    r = make_renderer(*SESSION_SIZE, "cuda")
+    frame = os.path.join(fresh_dir(), "frame.png")
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    ready = threading.Event()
+    result = {}
+
+    def run():
+        result["n"] = viewer.serve(r, port=port, out_path=frame,
+                                   ready_event=ready)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        if not ready.wait(60):
+            raise AssertionError("15b: the viewer did not start")
+        page = http(base + "/").decode()
+        state0 = json.loads(http(base + "/state.json"))
+        http(base + "/cmd", "spp 8")
+        t_w = time.perf_counter()
+        http(base + "/cmd", "w")
+        while not os.path.exists(frame):
+            if time.perf_counter() - t_w > 60:
+                raise AssertionError("15b: no frame after w")
+            time.sleep(0.002)
+        w_to_frame = time.perf_counter() - t_w
+        http(base + "/cmd", "depth 5")
+        http(base + "/cmd", "exposure 1.7")
+        deadline = time.perf_counter() + 60
+        while True:
+            state = json.loads(http(base + "/state.json"))
+            if state["depth"] == 5 and state["exposure"] == 1.7:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"15b: edits not shown: {state}")
+            time.sleep(0.01)
+        png = http(base + "/frame.png")
+        size = png_mean(io.BytesIO(png))[1]
+        post_quit(base)
+        t.join(60)
+    missing = [w for w in WIDGET_IDS if f'id="{w}"' not in page]
+    out = dict(phase="viewer", card=card, size=list(SESSION_SIZE),
+               w_post_to_frame_ms=w_to_frame * 1e3, frame_size=list(size),
+               frame_bytes=len(png), widgets_missing=missing,
+               state_keys_equal=set(state0) == set(viewer._widget_state(r)),
+               state=state, returned=result.get("n"), ended=not t.is_alive(),
+               log=[ln for ln in log.getvalue().splitlines()
+                    if ln.startswith("viewer:")])
+    emit(out)
+    if missing or not out["state_keys_equal"] or \
+            state != viewer._widget_state(r) or size != SESSION_SIZE or \
+            t.is_alive() or result.get("n") != 5:
+        raise AssertionError(f"15b: the viewer check failed: {out}")
+    del r
+    torch.cuda.empty_cache()
+
+
+def harness_spec(prod_scene):
+    """15c's .bm.json: phase 3's view, luxball on the wavefront for
+    HARNESS_SECONDS, the production luxball by exact-spp steps to
+    HARNESS_SPP."""
+    pos, dir_, lpos, lsize = VIEWS[LUXBALL]
+    return {"settings": {"windowWidth": SESSION_SIZE[0],
+                         "windowHeight": SESSION_SIZE[1],
+                         "wfBufferSize": SESSION_PATHS,
+                         "camera": {"pos": list(pos), "dir": list(dir_)},
+                         "areaLight": {"pos": list(lpos), "N": [0, -1, 0],
+                                       "E": [50.0], "size": list(lsize)}},
+            "scenes": [{"file": os.path.abspath(LUXBALL),
+                        "settings": {"useWavefront": True,
+                                     "maxRenderTime": HARNESS_SECONDS}},
+                       {"file": prod_scene,
+                        "settings": {"useWavefront": False,
+                                     "maxSpp": HARNESS_SPP}}],
+            "outputFolder": "results"}
+
+
+@contextlib.contextmanager
+def working_dir(path):
+    """Run the block in ``path`` (the harness keeps its caches under
+    ./data, as the CLI)."""
+    here = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(here)
+
+
+def phase_harness(card, main_line, prof_line):
+    """Phase 15c: the .bm.json harness, the fixed protocol at its size, and
+    profiling.profile_device_ops (see the module docstring). Returns the
+    .bm.json spec for 15d."""
+    import torch
+    from fluctus_tpu_torch import profiling
+    from fluctus_tpu_torch.bench import harness
+    from fluctus_tpu_torch.settings import Settings
+    cwd = fresh_dir()
+    prod = write_production_scene(os.path.join(cwd, "production"))
+    spec = harness_spec(prod)
+    path = os.path.join(cwd, "x.bm.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    with working_dir(cwd):
+        res = harness.run_benchmark_file(path)
+    bm_s = time.perf_counter() - t0
+    folder = os.path.join(cwd, "results")
+    with open(os.path.join(folder, "results.csv")) as f:
+        csv = f.read().splitlines()
+    names = [x.scene for x in res]
+    rows = {n: sum(ln.startswith(n + ";") for ln in csv[1:]) for n in names}
+    files = sorted(os.listdir(folder))
+    lux = res[0].averages if res else {}
+    exact = res[1].averages if len(res) > 1 else {}
+    out = dict(phase="harness_bm_json", card=card, seconds=bm_s,
+               scenes=names, csv_header_equal=bool(csv) and
+               csv[0] == CSV_HEADER, csv_rows=rows, files=files,
+               wavefront=lux, exact=exact,
+               mrays_per_s=lux.get("total"),
+               phase3_mrays_per_s=main_line["mrays_per_s"])
+    emit(out)
+    stems = [os.path.splitext(os.path.basename(e["file"]))[0]
+             for e in spec["scenes"]]
+    want = {f"{n}.{e}" for n in stems for e in ("png", "hdr")} | \
+        {"results.csv", "results.txt"}
+    if names != stems or not out["csv_header_equal"] \
+            or min(rows.values()) < 1 or set(files) != want or \
+            exact.get("spp") != HARNESS_SPP:
+        raise AssertionError(f"15c: the .bm.json run failed: {out}")
+
+    # the fixed protocol's size (1024x1024) and time, phase 3's view,
+    # the wavefront route
+    s = Settings()
+    s.import_json(spec["settings"])
+    s.use_wavefront = True
+    scene = os.path.abspath(LUXBALL)
+    with working_dir(fresh_dir()):
+        fixed = harness.run_benchmark(scenes=[scene],
+                                      width=FIXED_SIZE[0],
+                                      height=FIXED_SIZE[1],
+                                      seconds=FIXED_SECONDS, settings=s)
+    av = fixed[0].averages
+
+    # profile_device_ops over 2 segments of phase 3's path
+    r = make_renderer(*SESSION_SIZE, "cuda")
+    r.init_wavefront(SESSION_PATHS)
+    r.render_wavefront(2)
+    rows_p = profiling.profile_device_ops(lambda: r.render_wavefront(2),
+                                          top=1000)
+    named = {m.group(1) for name, _, _ in rows_p
+             for m in [re.search(r"(?:^|\s)(\w+)_kernel[<(]", name)] if m}
+    emit(dict(phase="harness_fixed_and_profile", card=card,
+              fixed=dict(size=list(FIXED_SIZE), seconds=FIXED_SECONDS,
+                         mrays_per_s=av["total"], spp=av["spp"],
+                         elapsed=av["elapsed"]),
+              phase3_mrays_per_s=main_line["mrays_per_s"],
+              profile_rows=len(rows_p),
+              device_ms_per_segment=sum(ms for _, ms, _ in rows_p) / 2,
+              profile_top=[dict(name=n[:90], ms_per_segment=ms / 2,
+                                count=c) for n, ms, c in rows_p[:10]],
+              phase3_profile_top=prof_line["top"][:6],
+              kernels_named=sorted(named)))
+    need = {"tile_order", "trace_rol", "resolve_v5", "block_splat"}
+    if not need <= named or av["total"] <= 0:
+        raise AssertionError(f"15c: profile rows name {sorted(named)}, "
+                             f"fixed protocol {av}")
+
+    # the harness's wavefront loop (a synchronize every 8 segments, the
+    # counters read every 0.5 s) against one timed run of 2 x SEGMENTS
+    # segments, on this renderer, in turns
+    def direct():
+        r.init_wavefront(SESSION_PATHS)
+        r.render_wavefront(2)
+        r.init_wavefront(SESSION_PATHS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r.render_wavefront(2 * SEGMENTS)
+        dt = time.perf_counter() - t
+        st = r.wavefront_stats()
+        return (st.primary_rays + st.extension_rays + st.shadow_rays) \
+            / dt / 1e6
+
+    def loop():
+        r.init_wavefront(SESSION_PATHS)
+        r.render_wavefront(2)
+        av, _ = harness._render_timed_wavefront(r, CONTROL_SECONDS, 0,
+                                                "control")
+        t = time.perf_counter()
+        r.wavefront_stats()
+        return av["total"], len(r._wf_counters), time.perf_counter() - t
+    runs = [direct(), loop(), direct(), loop()]
+    emit(dict(phase="harness_loop_control", card=card,
+              direct_mrays_per_s=runs[0::2],
+              harness_loop_mrays_per_s=[x[0] for x in runs[1::2]],
+              harness_loop_segments=[x[1] for x in runs[1::2]],
+              counters_read_ms=[x[2] * 1e3 for x in runs[1::2]],
+              seconds=CONTROL_SECONDS))
+    del r
+    torch.cuda.empty_cache()
+    return spec
+
+
+def phase_cli_session(card, spec):
+    """Phase 15d: the CLI's --interactive, --serve, .bm.json and
+    --benchmark as subprocesses (see the module docstring), started
+    together; each must exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    env.pop("FLT_FORCE_CPU", None)
+    scene = os.path.abspath(LUXBALL)
+    size = ["-x", str(SESSION_SIZE[0]), "-y", str(SESSION_SIZE[1]),
+            "--tasks", str(SESSION_PATHS)]
+    dirs = {k: fresh_dir() for k in ("interactive", "serve", "bm", "fixed")}
+    short = json.loads(json.dumps(spec))
+    short["scenes"][0]["settings"]["maxRenderTime"] = 2
+    short["scenes"][1]["settings"]["maxSpp"] = 1
+    short["scenes"][1]["file"] = os.path.abspath(LUXBALL)
+    with open(os.path.join(dirs["bm"], "short.bm.json"), "w") as f:
+        json.dump(short, f)
+    port = free_port()
+    cmds = {"interactive": [scene, *size, "--interactive", "-o",
+                            "frame.png"],
+            "serve": [scene, *size, "--serve", str(port), "-o", "frame.png"],
+            "bm": ["short.bm.json"],
+            "fixed": ["--benchmark"]}
+    script = os.path.join(dirs["interactive"], "script.txt")
+    with open(script, "w") as f:
+        f.write("spp 4\nw\npng shot.png\nq\n")
+    t0 = time.perf_counter()
+    with open(script) as stdin:
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "fluctus_tpu_torch", *a], cwd=dirs[k],
+            env=env, stdin=stdin if k == "interactive" else
+            subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for k, a in cmds.items()}
+    results = {}
+    try:
+        base = f"http://127.0.0.1:{port}"
+        frame = os.path.join(dirs["serve"], "frame.png")
+        deadline = time.perf_counter() + 300
+        while True:          # the scene loads before the server starts
+            try:
+                http(base + "/state.json", timeout=5)
+                break
+            except OSError:
+                if procs["serve"].poll() is not None or \
+                        time.perf_counter() > deadline:
+                    raise AssertionError("15d: the --serve viewer did not "
+                                         "start")
+                time.sleep(0.1)
+        http(base + "/cmd", "w")
+        while not os.path.exists(frame):
+            if time.perf_counter() > deadline:
+                raise AssertionError("15d: no frame from --serve")
+            time.sleep(0.01)
+        post_quit(base)
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=300)
+            results[k] = dict(exit=p.returncode,
+                              seconds=time.perf_counter() - t0,
+                              stdout=out.strip().splitlines()[-5:],
+                              stderr=err.strip().splitlines()[-3:],
+                              files=sorted(os.listdir(dirs[k])))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bm_files = os.listdir(os.path.join(dirs["bm"], "results")) \
+        if os.path.isdir(os.path.join(dirs["bm"], "results")) else []
+    skips = [f"skipping missing scene ./{f}" for f in
+             ("assets/egyptcat/egyptcat.obj",
+              "assets/conference/conference.obj",
+              "assets/country_kitchen/Country-Kitchen.obj")]
+    emit(dict(phase="cli_session", card=card, port=port, bm_results=sorted(
+        bm_files), **results))
+    bad = [k for k, v in results.items() if v["exit"] != 0]
+    if bad or len(results) != 4 or \
+            not {"frame.png", "shot.png"} <= set(results["interactive"]
+                                                  ["files"]) or \
+            "  error" in "\n".join(results["interactive"]["stdout"]) or \
+            "frame.png" not in results["serve"]["files"] or \
+            "results.csv" not in bm_files or \
+            results["fixed"]["stdout"] != skips:
+        raise AssertionError(f"15d: the CLI runs failed: {bad or results}")
+
+
 def sweep_build_info(kb):
     """Per instantiation of K2, K5 and K9 (closest-hit, any-hit): registers,
     spill bytes and shared memory from ptxas (-Xptxas -v), and for a
@@ -3451,7 +4094,7 @@ def main():
 
 
 def run(kb):
-    """Phases 1-14 (see the module docstring)."""
+    """Phases 1-15 (see the module docstring)."""
     import torch
 
     # phase 1: device and build
@@ -3480,7 +4123,7 @@ def run(kb):
     from fluctus_tpu_torch.accel import mxu_trace as mt
     with LastCalls(mt, "trace_rol") as late:
         launches, main = phase_main(r, card, LUXBALL, SEGMENTS, PER_SEGMENT)
-    profile_segments(r, card, main["ms_per_segment"])
+    prof_main = profile_segments(r, card, main["ms_per_segment"])
     late_res, _ = check_trace(
         "trace_rol", mt.trace_rol, mt.trace_rol_plain,
         {(SEGMENTS, "trace_rol"): [(a, {}) for a in late.calls]}, 256,
@@ -3570,19 +4213,32 @@ def run(kb):
     launches_t = phase_third_branch(card, grid_dir, grid)
     phase_pbrt_cli(card, lux_pbrt)
 
+    # phase 15: the REPL (15a), the viewer (15b), the harness and
+    # profiling (15c), the CLI's session and benchmark options (15d)
+    t0 = time.perf_counter()
+    launches_r, k4_8_r = phase_repl(card)
+    phase_viewer(card)
+    spec = phase_harness(card, main, prof_main)
+    phase_cli_session(card, spec)
+    emit(dict(phase="phase_15", card=card,
+              seconds=time.perf_counter() - t0))
+
     # phase 10: result lines
     main_launches = {k: launches[k] + launches_l[k] + launches_p.get(k, 0)
                      + launches_d.get(k, 0) + launches_f.get(k, 0)
                      + launches_s.get(k, 0) + launches_t.get(k, 0)
+                     + launches_r.get(k, 0)
                      for k in SOURCES}
     main_launches.update(
         block_splat_capped=(launches_x["block_splat_capped"]
                             + launches_p["block_splat_capped"]
-                            + launches_d["block_splat_capped"]),
-        fetch=launches_x["fetch"] + launches_p["fetch"] + launches_d["fetch"],
+                            + launches_d["block_splat_capped"]
+                            + launches_r["block_splat_capped"]),
+        fetch=(launches_x["fetch"] + launches_p["fetch"]
+               + launches_d["fetch"] + launches_r["fetch"]),
         trace_ros=launches_ros["trace_ros"],
         resolve_v1=launches_k10["resolve_v1"])
-    kres["block_splat"]["channels_8"]["launches"] = k4_8
+    kres["block_splat"]["channels_8"]["launches"] = k4_8 + k4_8_r
     emit(kernels_line(kres, main_launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

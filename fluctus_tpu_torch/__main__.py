@@ -13,8 +13,10 @@ free-running wavefront with --preview-every numbered preview frames and
 the max_render_time / max_spp stops, --checkpoint (resumed before a
 wavefront run when the file exists, written after every render) and
 --save-state. Each render writes the image as .png and .hdr.
---benchmark, .bm.json inputs, --serve and --interactive are not ported:
-they exit with status 2 and a message.
+--interactive runs the REPL on stdin (interactive.py) and --serve PORT
+the browser viewer on 127.0.0.1:PORT (viewer.py), each writing its frame
+to -o (default output_<scene>.png); --benchmark runs the fixed protocol
+and a .bm.json input the benchmark it describes (bench/harness.py).
 """
 
 from __future__ import annotations
@@ -49,32 +51,22 @@ def _parser():
                     help="batch mode (main.cpp -b; already the default on "
                     "a headless host — accepted for parity)")
     ap.add_argument("--serve", type=int, default=0, metavar="PORT",
-                    help="browser-based live viewer (not ported)")
+                    help="browser-based live viewer (the GL-window "
+                         "stand-in): serves the progressive frame over "
+                         "HTTP and accepts all REPL commands")
     ap.add_argument("--interactive", action="store_true",
-                    help="headless interactive REPL (not ported)")
+                    help="headless interactive REPL (WASD camera, state "
+                    "save/load, progressive preview — the Tracer-UI "
+                    "stand-in)")
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="film checkpoint: resumed before rendering if it "
                     "exists, written after (long-render preemption "
                     "recovery)")
     ap.add_argument("--settings", default="settings.json")
     ap.add_argument("--benchmark", action="store_true",
-                    help="run the fixed benchmark protocol (not ported)")
+                    help="run the fixed benchmark protocol")
     ap.add_argument("-o", "--output", default=None, help="output image path")
     return ap
-
-
-def _unported(args):
-    """The first option of this invocation the port does not implement."""
-    if args.benchmark:
-        return "--benchmark"
-    if args.serve:
-        return "--serve"
-    if args.interactive:
-        return "--interactive"
-    for scene in args.scenes:
-        if scene.endswith(".bm.json"):
-            return f"benchmark file {scene}"
-    return None
 
 
 def _render_wavefront(r, args, settings, scene_file, out):
@@ -124,16 +116,18 @@ def _render_wavefront(r, args, settings, scene_file, out):
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    missing = _unported(args)
-    if missing:
-        print(f"fluctus_tpu_torch: {missing} is not ported", file=sys.stderr)
-        return 2
 
     from . import flags
     from .renderer import Renderer
     from .settings import Settings
     device = "cpu" if flags.env_bool("FORCE_CPU", False) else None
     settings = Settings.load(args.settings)
+
+    if args.benchmark:
+        from .bench import run_benchmark
+        run_benchmark(settings=settings, device=device)
+        return 0
+
     scenes = args.scenes or ([settings.shortcuts[min(settings.shortcuts)]]
                              if settings.shortcuts else [])
     if not scenes:
@@ -141,11 +135,25 @@ def main(argv=None):
         return 1
 
     for scene_file in scenes:
+        if scene_file.endswith(".bm.json"):
+            from .bench import run_benchmark_file
+            run_benchmark_file(scene_file, device=device)
+            continue
         r = Renderer(args.width, args.height, settings=settings,
                      device=device)
         r.load_scene(scene_file, env_map=args.env)
         base = os.path.splitext(os.path.basename(scene_file))[0]
         out = args.output or f"output_{base}.png"
+        if args.serve:
+            from .viewer import serve
+            r.num_tasks = args.tasks
+            serve(r, port=args.serve, out_path=out)
+            continue
+        if args.interactive:
+            from .interactive import run_interactive
+            r.num_tasks = args.tasks
+            run_interactive(r, out_path=out)
+            continue
         if args.wavefront > 0:
             _render_wavefront(r, args, settings, scene_file, out)
         else:

@@ -658,10 +658,11 @@ class Renderer:
             return self.wavefront_film()
         return self.film
 
-    def ldr_image(self) -> np.ndarray:
-        """Postprocessed [H, W, 3] float in [0, 1]; row 0 of the film is the
-        bottom scanline, images store top-first."""
-        film = self.current_film()
+    def ldr_image(self, film: Optional[Film] = None) -> np.ndarray:
+        """Postprocessed [H, W, 3] float in [0, 1] of ``film`` (default the
+        current film); row 0 of the film is the bottom scanline, images
+        store top-first."""
+        film = self.current_film() if film is None else film
         return self._ldr(film.color, film.weight)
 
     def _ldr(self, color: Vec3, weight) -> np.ndarray:
@@ -680,18 +681,19 @@ class Renderer:
         arr = torch.stack([v3.x / wc, v3.y / wc, v3.z / wc], dim=-1)
         return torch.flip(arr.reshape(self.height, self.width, 3), (0,))
 
-    def hdr_image(self) -> np.ndarray:
-        """The mean radiance per pixel, [H, W, 3] top-first."""
-        film = self.current_film()
+    def hdr_image(self, film: Optional[Film] = None) -> np.ndarray:
+        """The mean radiance per pixel of ``film`` (default the current
+        film), [H, W, 3] top-first."""
+        film = self.current_film() if film is None else film
         return self._vec_image(film.color, film.weight).cpu().numpy()
 
-    def save_image(self, path: str):
-        """Write the current film: Radiance .hdr for a ``.hdr`` path, else
-        an 8-bit PNG."""
+    def save_image(self, path: str, film: Optional[Film] = None):
+        """Write ``film`` (default the current film): Radiance .hdr for a
+        ``.hdr`` path, else an 8-bit PNG."""
         if path.endswith(".hdr"):
-            save_hdr(path, self.hdr_image())
+            save_hdr(path, self.hdr_image(film))
         else:
-            save_png(path, self.ldr_image())
+            save_png(path, self.ldr_image(film))
 
     # -- denoiser (OptixDenoiser stand-in; tracer.cpp:339-356 gating) ---------
     def _feature_tensors(self):

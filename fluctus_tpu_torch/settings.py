@@ -3,7 +3,7 @@ the same fields and defaults (settings.cpp:17-58), the same
 ``settings.json`` schema with ``release`` / ``debug`` overlay sections
 (settings.cpp:61-87) and the same key set (settings.cpp:89-247).
 
-Fields fall in two kinds:
+Fields fall in three kinds:
 
 - read by the port: ``wf_buffer_size``, ``max_path_depth``, ``max_spp``,
   ``tonemap``, ``render_scale`` (the Renderer scales its film by it),
@@ -15,14 +15,17 @@ Fields fall in two kinds:
   ``wf_block_ring`` (False, or ``FLT_BLOCK_RING=0``, renders on the flat
   pixel ring); the CLI (``python -m fluctus_tpu_torch``) also reads ``shortcuts`` (the
   scene when none is given) and ``max_render_time`` (its wavefront loop's
-  stop);
+  stop), and the REPL's ``scene <n>`` command (``interactive.py``) reads
+  ``shortcuts``;
+- read by the benchmark harness (``bench/harness.py``), as the reference's
+  reads them: ``use_wavefront`` (the wavefront loop, or exact-spp steps),
+  ``window_width`` and ``window_height`` (a ``.bm.json`` scene's film) and
+  ``max_render_time`` (with ``max_spp``, its stop);
 - accepted and ignored, as the reference ignores them for its results:
   ``platform_name`` and ``device_name`` (the Renderer's ``device``
-  chooses), ``window_width`` and ``window_height`` (the Renderer is given
-  its width and height), ``default_scene``, ``use_wavefront`` (the caller
-  picks render_wavefront or render_single),
-  ``use_bitstack``, ``use_soa`` and ``use_separate_queues`` (OpenCL kernel
-  variants of the original renderer; the reference reads none of them),
+  chooses), ``default_scene``, ``use_bitstack``, ``use_soa`` and
+  ``use_separate_queues`` (OpenCL kernel variants of the original
+  renderer; the reference reads none of them),
   ``wf_phases`` and ``wf_fused_shade`` (how the reference cuts a segment
   into programs; every cut renders the same film), and ``wf_splat_every``
   and its ``FLT_SPLAT_EVERY`` (the reference batches the flat ring's film

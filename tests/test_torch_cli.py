@@ -10,14 +10,25 @@ pool and depth, in a temporary working directory:
                      frames every --preview-every segments and the image;
                      the maxSpp stop
   options            the reference CLI's option names and defaults
-  not ported         --benchmark, .bm.json inputs, --serve and
-                     --interactive exit with status 2 and a message,
-                     writing nothing
+  --interactive      the REPL on a patched stdin: the frame at -o and a
+                     png command's file
+  --serve PORT       the viewer on a port found free at test time, in a
+                     thread: spp, w and q POSTed, the frame written
+  x.bm.json          the benchmark file's results.csv/.txt and images
+  --benchmark        the fixed protocol with its scenes absent: the three
+                     "skipping missing scene" lines, status 0
 """
 
+import io
 import json
 import os
 import re
+import socket
+import sys
+import threading
+import time
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import pytest
@@ -128,12 +139,70 @@ def test_options_match_reference(capsys):
         (1024, 768, 0, 0, 1 << 20, "settings.json")
 
 
-@pytest.mark.parametrize("args", [["--benchmark"], ["x.bm.json"],
-                                  ["--serve", "8080", LUXBALL],
-                                  ["--interactive", LUXBALL]])
-def test_unported_options_exit_nonzero(job, capsys, args):
+def test_interactive_option(job, capsys, monkeypatch):
     d, _ = job
-    assert cli.main(args) == 2
-    err = capsys.readouterr().err
-    assert "is not ported" in err
+    monkeypatch.setattr(sys, "stdin",
+                        io.StringIO("spp 2\nw\npng shot.png\nq\n"))
+    assert cli.main([LUXBALL, "-x", "32", "-y", "16", "--interactive",
+                     "--tasks", "2048", "-o", "frame.png"]) == 0
+    out = capsys.readouterr().out
+    assert "interactive mode" in out and "-> frame.png (avg " in out
+    assert "error" not in out
+    for f in ("frame.png", "shot.png"):
+        assert (d / f).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_serve_option(job, capsys):
+    d, _ = job
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    result = {}
+    t = threading.Thread(target=lambda: result.setdefault("rc", cli.main(
+        [LUXBALL, "-x", "32", "-y", "16", "--serve", str(port), "--tasks",
+         "2048", "-o", "frame.png"])), daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.time() + 120
+    while True:          # the scene loads before the server starts
+        try:
+            urllib.request.urlopen(base + "/state.json", timeout=5)
+            break
+        except OSError:
+            assert time.time() < deadline and t.is_alive()
+            time.sleep(0.2)
+    for cmd in ("spp 1", "w", "q"):
+        try:
+            urllib.request.urlopen(base + "/cmd", data=urllib.parse.urlencode(
+                {"c": cmd}).encode(), timeout=120)
+        except OSError:      # q's redirect races the server's shutdown
+            assert cmd == "q"
+    t.join(180)
+    assert not t.is_alive() and result["rc"] == 0
+    assert f"viewer: http://localhost:{port}/" in capsys.readouterr().out
+    assert (d / "frame.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_bm_json_input(job, capsys):
+    d, _ = job
+    spec = {"settings": {**RELEASE, "windowWidth": 32, "windowHeight": 16,
+                         "maxSpp": 1, "useWavefront": True},
+            "scenes": [LUXBALL], "outputFolder": "bm"}
+    (d / "x.bm.json").write_text(json.dumps(spec))
+    assert cli.main(["x.bm.json"]) == 0
+    assert "luxball: " in capsys.readouterr().out
+    assert sorted(os.listdir(d / "bm")) == ["luxball.hdr", "luxball.png",
+                                            "results.csv", "results.txt"]
+    assert (d / "bm" / "results.csv").read_text().startswith(
+        "scene;time;primary;extension;shadow;total;samples\n")
+
+
+def test_benchmark_option(job, capsys):
+    d, _ = job
+    assert cli.main(["--benchmark"]) == 0
+    assert capsys.readouterr().out.splitlines() == [
+        "skipping missing scene ./assets/egyptcat/egyptcat.obj",
+        "skipping missing scene ./assets/conference/conference.obj",
+        "skipping missing scene "
+        "./assets/country_kitchen/Country-Kitchen.obj"]
     assert sorted(os.listdir(d)) == ["settings.json"]

@@ -429,11 +429,15 @@ def test_init_wavefront_keeps_params(tmp_path):
 
 def test_job_modules_stand_alone():
     """The modules of a user's render job (the CLI, state_io, progress and
-    core/denoise.py) load, in a fresh interpreter, no jax, jaxlib,
-    ml_dtypes or fluctus_tpu module."""
+    core/denoise.py) and of its interactive session and harness
+    (interactive, viewer, bench, profiling) load, in a fresh interpreter,
+    no jax, jaxlib, ml_dtypes or fluctus_tpu module."""
     code = ("import sys; import fluctus_tpu_torch.__main__, "
             "fluctus_tpu_torch.state_io, fluctus_tpu_torch.progress, "
-            "fluctus_tpu_torch.core.denoise; print(sorted(m for m in "
+            "fluctus_tpu_torch.core.denoise, fluctus_tpu_torch.interactive, "
+            "fluctus_tpu_torch.viewer, fluctus_tpu_torch.bench, "
+            "fluctus_tpu_torch.bench.harness, fluctus_tpu_torch.profiling; "
+            "print(sorted(m for m in "
             "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'ml_dtypes', 'fluctus_tpu')))")
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
