@@ -239,9 +239,36 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    python -m fluctus_tpu_torch with --interactive (a piped script),
    --serve (w and q POSTed), a shortened .bm.json and --benchmark (its
    scenes absent: the three skip lines), started together, each exit 0.
-10. the kernels line (launches including phases 11, 12, 13, 14 and 15's
-   runs; K4's entry with its 8-channel launches, as counted in 12a and
-   15a), the card line, then the final result line.
+16. sharding (parallel/) on luxball at 1080p with 1M paths, depth 10,
+   phase 3's view and light. SHARD_RANKS gloo ranks, spawned processes
+   that share the card (the parent builds the kernels first; they load
+   the parent's libraries and its scene caches), each through
+   parallel/'s entry points: 16a SEGMENTS segments of wf_segment_sharded
+   on the block ring from a fresh sharded reset (after 2 warm-up
+   segments), 16b MK_SPP samples of render_sharded, 16c
+   SHARD_CAPPED_SEGMENTS segments under the spp cap (K7, K8). The parent
+   holds the gathered film, spp and cursors of 16a and 16c bit for bit to
+   the same shards' segments run one after another through wf_segment
+   with pixel_base, every rank's reduced counters to the sums of the
+   local ones, and 16b's film, seeds and stats to the unsharded
+   render_sample's; per rank the launches (16a K1 2, K2 2, K3 1, K4 1 a
+   segment; 16b K1 2, K2 2, K3 1 a bounce; 16c K1 2, K2 2, K3 1, K7 1, K8
+   1) with no plain run; every rank's Scene.hash equal to the parent's;
+   16a's tonemapped mean within SHARD_MEAN_GATE of phase 3's. The local
+   simulation's last shard (pixel_base not 0: K8 and K4 on local pixel
+   ids, G/D groups) records its kernel calls in segment 2 and its last
+   segment on both rings, as does one render_sample over the last slice
+   of the film, and each call is held bit for bit to its plain version
+   (hold_recorded). A rank that
+   raises, exits non-zero or outlives RANK_TIMEOUT fails the phase.
+   Per-rank ms per segment and the Mrays/s of both ranks are not a
+   scaling figure: the ranks share one card. 16d: a 1-rank NCCL group in
+   this process: NCCL_SEGMENTS of wf_segment_sharded equal to
+   wf_segment's, both timed in turns, and the counters' all_reduce alone.
+10. the kernels line (launches including phases 11, 12, 13, 14, 15 and
+   16's runs, 16's summed over the ranks; K4's entry with its 8-channel
+   launches, as counted in 12a and 15a), the card line, then the final
+   result line.
 
 Every renderer loads with a fresh temporary ``data_dir`` (removed at the
 end), so phases 2-6 load cold as before (now writing the caches) and
@@ -1824,7 +1851,8 @@ def kernels_line(kres, launches):
     its tables without B16), K7 and K8 in the timed exact
     renders (5b, 11c, 12a), K9 in the rays-on-sublanes render (6b), K10 in
     the free-running run on tables without B16 (8b); K1-K5, K7 and K8
-    also over 15a's interactive session. K4's entry also carries its
+    also over 15a's interactive session; K1-K4, K7 and K8 also over phase
+    16's sharded runs (both ranks, and 16d's). K4's entry also carries its
     8-channel calls (12a and 15a: the denoiser's features), with their
     launches in those runs."""
     out = []
@@ -3562,11 +3590,18 @@ class TimedScript:
             self.rows.append(row)
 
 
-def hold_recorded(calls):
+PHASE15_HELD = {"tile_order", "trace_rol", "trace_rol_sc", "resolve_v5",
+                "block_splat", "block_splat_8", "block_splat_capped",
+                "fetch"}
+
+
+def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
     """Every recorded call against its kernel's plain version, bit for
     bit: K1 order and skey, the trace kernels' t (bits), columns and
     visits, the resolve rows (max |difference| 0), K4 at each channel
-    count, K7 and K8. Returns {kernel: {calls, max_abs_err, routes}}."""
+    count, K7 and K8; phase ``what`` fails on a difference or when a
+    kernel of ``want`` has no recorded call. Returns {kernel: {calls,
+    max_abs_err, routes}}."""
     import torch
     from fluctus_tpu_torch.accel import mxu_trace as mt
     from fluctus_tpu_torch.core import block_splat as bs
@@ -3591,7 +3626,8 @@ def hold_recorded(calls):
                 diff = tile_order_diffs(mt.tile_order(*args),
                                         tile_order_chain_plain(*args))
                 if any(diff.values()):
-                    raise AssertionError(f"15a: K1 differs ({where}): {diff}")
+                    raise AssertionError(f"{what}: K1 differs ({where}): "
+                                         f"{diff}")
                 note(name, route)
             elif name in ("trace_rol", "trace_rol_sc"):
                 plain = getattr(mt, f"{name}_plain")
@@ -3601,7 +3637,7 @@ def hold_recorded(calls):
                                        chunk=256 if name == "trace_rol"
                                        else 512))
                 if any(diff.values()):
-                    raise AssertionError(f"15a: {name} differs ({where}): "
+                    raise AssertionError(f"{what}: {name} differs ({where}): "
                                          f"{diff}")
                 note(name, route)
             elif name.startswith("resolve_"):
@@ -3609,7 +3645,7 @@ def hold_recorded(calls):
                 ref = getattr(mt, f"{name}_plain")(*args)
                 err = float((got - ref).abs().max())
                 if err != 0.0:
-                    raise AssertionError(f"15a: {name} differs ({where}): "
+                    raise AssertionError(f"{what}: {name} differs ({where}): "
                                          f"max |diff| {err}")
                 note(name, route, err)
             elif name == "splat":
@@ -3626,18 +3662,16 @@ def hold_recorded(calls):
                     ref = bs.splat_capped_plain(local, data, film, g, rem)
                 if not torch.equal(got.view(torch.int32),
                                    ref.view(torch.int32)):
-                    raise AssertionError(f"15a: {key} differs ({where})")
+                    raise AssertionError(f"{what}: {key} differs ({where})")
                 note(key, route)
             elif name == "fetch":
                 local, table, g = fetch_args(*args, **kw)
                 if not torch.equal(bs.fetch(local, table, groups=g),
                                    bs.fetch_plain(local, table, g)):
-                    raise AssertionError(f"15a: K8 differs ({where})")
+                    raise AssertionError(f"{what}: K8 differs ({where})")
                 note("fetch", route)
-    want = {"tile_order", "trace_rol", "trace_rol_sc", "resolve_v5",
-            "block_splat", "block_splat_8", "block_splat_capped", "fetch"}
     if not want <= set(held):
-        raise AssertionError(f"15a: no recorded call of "
+        raise AssertionError(f"{what}: no recorded call of "
                              f"{sorted(want - set(held))}")
     return held
 
@@ -4076,6 +4110,470 @@ def sweep_build_info(kb):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: sharding (parallel/) over ranks of torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2            # 16a-16c: gloo ranks, both on the one card
+SHARD_PATHS = 1 << 20
+SHARD_CAPPED_SEGMENTS = 8  # 16c
+SHARD_CAP_SPP = 2          # 16c's spp cap
+NCCL_SEGMENTS = 16         # 16d, per timed run
+ALL_REDUCE_REPS = 50       # 16a and 16d: the counters' all_reduce alone
+SHARD_MEAN_GATE = 0.05     # tests/test_wf_sharded.py:77-101
+RANK_TIMEOUT = 420         # seconds for the ranks of 16a-16c to finish
+
+
+def _cut(tree, k, d):
+    """Shard k of d of every tensor's leading dim in a NamedTuple tree: the
+    local simulation's slicing, written apart from shard_wf_state."""
+    import torch
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        m = tree.shape[0] // d
+        return tree[k * m:(k + 1) * m].contiguous()
+    return type(tree)(*(_cut(x, k, d) for x in tree))
+
+
+def _tree_to(tree, device):
+    """Every tensor of a NamedTuple tree on ``device``."""
+    import torch
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    parts = (_tree_to(x, device) for x in tree)
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+
+
+def all_reduce_ms(group, device):
+    """Host ms of one all_reduce of the 4 int64 counters on ``group``
+    through to the card (mean of ALL_REDUCE_REPS, synchronised)."""
+    import torch
+    import torch.distributed as dist
+    v = torch.zeros(4, dtype=torch.int64, device=device)
+    dist.all_reduce(v, group=group)
+    torch.cuda.synchronize()
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    for _ in range(ALL_REDUCE_REPS):
+        dist.all_reduce(v, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / ALL_REDUCE_REPS * 1e3
+
+
+def _sharded_segments(r, mesh, scene, config, params, segments):
+    """``segments`` of wf_segment_sharded from a fresh sharded reset, the
+    kernel counts set to 0 just before and read just after. Returns the
+    rank's seconds, the reduced counters of each segment, its launches
+    and plain runs, and the gathered state (None off shard 0)."""
+    import torch
+    import torch.distributed as dist
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.integrator_wf import wf_reset
+    from fluctus_tpu_torch.parallel.mesh import (gather_wf_state,
+                                                 shard_wf_state,
+                                                 wf_segment_sharded)
+    st = shard_wf_state(wf_reset(config, SHARD_PATHS,
+                                 world_radius=r.world_radius,
+                                 device=r.device), mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    cnts = []
+    for _ in range(segments):
+        st, c = wf_segment_sharded(scene, params, st, config, mesh)
+        cnts.append(torch.stack(list(c)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain = counts()
+    return dict(seconds=seconds, counters=torch.stack(cnts).tolist(),
+                launches=launches, plain_runs=plain,
+                state=_tree_to(gather_wf_state(st, mesh), "cpu"))
+
+
+def rank16(rank, world, init, out_dir, data_dir):
+    """One gloo rank of phase 16, in a spawned process on cuda:0: the
+    1080p luxball renderer loaded from the parent's caches, then 16a (the
+    block ring), 16b (the megastep) and 16c (the block ring under the spp
+    cap) through parallel/'s entry points; its results (the gathered
+    films on shard 0) go to out_dir/rank<k>.pt."""
+    import torch
+    import torch.distributed as dist
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.integrator_mk import Film
+    from fluctus_tpu_torch.parallel import (make_mesh, render_sharded,
+                                            replicate_scene)
+    from fluctus_tpu_torch.parallel.mesh import gather_film, shard_film
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(world, device="cuda:0")
+        r = make_renderer(1920, 1080, "cuda", data_dir=data_dir)
+        scene = replicate_scene(r.device_scene, mesh)
+        cfg = r.config
+        out = dict(rank=rank, shard=mesh.get_coordinate()[0],
+                   scene_hash=r.scene.hash, cache_hit=r.cache_hit)
+        _sharded_segments(r, mesh, scene, cfg, r.params, 2)   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        out["wf"] = _sharded_segments(r, mesh, scene, cfg, r.params,
+                                      SEGMENTS)
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+
+        cfg_mk = cfg.replace(use_roulette=False)
+        n = cfg_mk.num_pixels
+        film, seed = shard_film(
+            Film.zeros(n, r.device),
+            torch.arange(n, dtype=torch.int64, device=r.device), mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        kb.reset_counts()
+        t0 = time.perf_counter()
+        stats = []
+        for _ in range(MK_SPP):
+            film, seed, st = render_sharded(scene, r.params, film, seed,
+                                            cfg_mk, mesh)
+            stats.append(list(st))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = counts()
+        out["mk"] = dict(seconds=seconds, stats=stats, launches=launches,
+                         plain_runs=plain, film=_tree_to(
+                             gather_film(film, seed, mesh), "cpu"))
+
+        params_c = r.params._replace(max_spp=torch.tensor(
+            SHARD_CAP_SPP, dtype=torch.int32, device=r.device))
+        out["capped"] = _sharded_segments(
+            r, mesh, scene, cfg.replace(max_spp=1, use_roulette=False),
+            params_c, SHARD_CAPPED_SEGMENTS)
+        out["all_reduce_ms"] = all_reduce_ms(mesh.get_group("px"), r.device)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks16(data_dir):
+    """Start rank16 in SHARD_RANKS spawned processes (the kernels are built:
+    they load the parent's libraries) and wait for them; a rank that
+    raises or exits non-zero, or one still running after RANK_TIMEOUT
+    seconds, fails the phase (every rank is stopped first). Returns the
+    ranks' results and the wall seconds."""
+    import torch
+    import torch.multiprocessing as mp
+    init = os.path.join(fresh_dir(), "rendezvous")
+    out_dir = fresh_dir()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(rank16, args=(SHARD_RANKS, init, out_dir,
+                                           data_dir),
+                             nprocs=SHARD_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"phase 16: ranks still running after "
+                                     f"{RANK_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    codes = [p.exitcode for p in ctx.processes]
+    if any(codes):
+        raise AssertionError(f"phase 16: rank exit codes {codes}")
+    wall = time.perf_counter() - t0
+    return [torch.load(os.path.join(out_dir, f"rank{k}.pt"),
+                       weights_only=False)
+            for k in range(SHARD_RANKS)], wall
+
+
+def shard_recorder():
+    """A Recorder of the kernel wrappers phase 16 runs, K8 among them."""
+    from fluctus_tpu_torch.core import block_splat as bs
+    rec = Recorder()
+    rec.targets.append((bs, "fetch"))
+    return rec
+
+
+def _local_segments(r, config, params, segments, d, what, want):
+    """The sharded wavefront simulated in this process: shard k's slice of
+    the same reset runs ``segments`` of wf_segment with pixel_base k*L,
+    one shard after another. The last shard's calls of the kernels in
+    segment 2 and in its last segment are recorded and held to their
+    plain versions (the kernels of ``want`` each at least once). Returns
+    (the shards' states, the summed counters of each segment, what
+    hold_recorded held)."""
+    import torch
+    from fluctus_tpu_torch.core.integrator_wf import wf_reset, wf_segment
+    st0 = wf_reset(config, SHARD_PATHS, world_radius=r.world_radius,
+                   device=r.device)
+    local = st0.film.weight.shape[0] // d
+    states, total = [], 0
+    with shard_recorder() as rec:
+        for k in range(d):
+            curr = (_cut(st0.curr_pixel, k, d) if st0.curr_pixel.ndim else
+                    torch.zeros((), dtype=torch.int32, device=r.device))
+            st = st0._replace(pool=_cut(st0.pool, k, d),
+                              film=_cut(st0.film, k, d),
+                              spp=_cut(st0.spp, k, d), curr_pixel=curr)
+            cnts = []
+            for seg in range(1, segments + 1):
+                rec.active = ((f"{what} shard {k}", seg) if k == d - 1
+                              and seg in (2, segments) else None)
+                st, c = wf_segment(r.device_scene, params, st, config,
+                                   pixel_base=k * local)
+                cnts.append(torch.stack([x.to(torch.int64) for x in c]))
+            states.append(st._replace(pool=None))
+            total = total + torch.stack(cnts)
+    held = hold_recorded(rec.calls, want, what)
+    return states, total.tolist(), held
+
+
+def _check_gathered(what, got, states, device):
+    """A gathered sharded state (film, spp, cursors) bit-equal to the
+    concatenated local shards'."""
+    import torch
+    cat = lambda get: torch.cat([get(s) for s in states])
+    pairs = [(f"rgb.{c}", got.film.color[i].to(device),
+              cat(lambda s: s.film.color[i])) for i, c in enumerate("xyz")]
+    pairs += [("weight", got.film.weight.to(device),
+               cat(lambda s: s.film.weight)),
+              ("spp", got.spp.to(device), cat(lambda s: s.spp)),
+              ("cursors", got.curr_pixel.to(device),
+               cat(lambda s: s.curr_pixel))]
+    bad = [name for name, a, b in pairs if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"{what}: {bad} differ from the local "
+                             f"simulation")
+
+
+def phase_nccl(card, r):
+    """16d: a 1-rank NCCL group in this process. NCCL_SEGMENTS of
+    wf_segment_sharded equal the plain wf_segment's from the same reset
+    (film, spp, cursors and counters); both timed in turns (plain,
+    sharded, sharded, plain) after a warm-up run of each (the first
+    all_reduce sets NCCL's communicator up), and one all_reduce of the
+    counters alone."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.integrator_wf import wf_reset, wf_segment
+    from fluctus_tpu_torch.parallel import make_mesh
+    from fluctus_tpu_torch.parallel.mesh import (shard_wf_state,
+                                                 wf_segment_sharded)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, device="cuda:0")
+        cfg = r.config
+
+        def run(sharded):
+            st = wf_reset(cfg, SHARD_PATHS, world_radius=r.world_radius,
+                          device=r.device)
+            if sharded:
+                st = shard_wf_state(st, mesh)
+            torch.cuda.synchronize()
+            kb.reset_counts()
+            t0 = time.perf_counter()
+            cnts = []
+            for _ in range(NCCL_SEGMENTS):
+                if sharded:
+                    st, c = wf_segment_sharded(r.device_scene, r.params, st,
+                                               cfg, mesh)
+                else:
+                    st, c = wf_segment(r.device_scene, r.params, st, cfg)
+                cnts.append(torch.stack([x.to(torch.int64) for x in c]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / NCCL_SEGMENTS * 1e3
+            return ms, st, torch.stack(cnts).tolist(), counts()
+        warm = run(False), run(True)
+        p1, s1, s2, p2 = run(False), run(True), run(True), run(False)
+        _check_gathered("16d", s1[1], [p1[1]], r.device)
+        if s1[2] != p1[2]:
+            raise AssertionError(f"16d: counters {s1[2]} != {p1[2]}")
+        check_launches(*s1[3], PER_SEGMENT, NCCL_SEGMENTS, "16d sharded")
+        group = mesh.get_group("px")
+        out = dict(phase="sharded_nccl", card=card, ranks=1,
+                   backend=dist.get_backend(group), segments=NCCL_SEGMENTS,
+                   warm_up_ms_per_segment=dict(plain=warm[0][0],
+                                               sharded=warm[1][0]),
+                   plain_ms_per_segment=[p1[0], p2[0]],
+                   sharded_ms_per_segment=[s1[0], s2[0]],
+                   all_reduce_ms=all_reduce_ms(group, r.device),
+                   equal_to_plain=True)
+        emit(out)
+        return out, s1[3][0]
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(card, main):
+    """Phase 16 (see the module docstring). Returns the kernel launches of
+    the sharded runs (16a-16c summed over the ranks, and 16d's first
+    sharded run)."""
+    import torch
+    from fluctus_tpu_torch.core.integrator_mk import Film, render_sample
+    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    from fluctus_tpu_torch.vec import Vec3
+    t_phase = time.perf_counter()
+    data_dir = fresh_dir()
+    r = make_renderer(1920, 1080, "cuda", data_dir=data_dir)
+    cfg = r.config
+    d = SHARD_RANKS
+    res, ranks_wall = run_ranks16(data_dir)
+    if [x["shard"] for x in res] != list(range(d)):
+        raise AssertionError(f"16: shards {[x['shard'] for x in res]}")
+    hashes = {x["scene_hash"] for x in res} | {r.scene.hash}
+    if len(hashes) != 1:
+        raise AssertionError(f"16: scene hashes differ: {hashes}")
+    launches = {}
+
+    def add(l):
+        for k, v in l.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 16a: the block ring against its local simulation
+    states, sums, held_a = _local_segments(
+        r, cfg, r.params, SEGMENTS, d, "16a",
+        {"tile_order", "trace_rol", "resolve_v5", "block_splat"})
+    got = res[0]["wf"]["state"]
+    _check_gathered("16a", got, states, r.device)
+    for x in res:
+        if x["wf"]["counters"] != sums:
+            raise AssertionError(f"16a rank {x['rank']}: reduced counters "
+                                 f"differ from the local sums")
+        check_launches(x["wf"]["launches"], x["wf"]["plain_runs"],
+                       PER_SEGMENT, SEGMENTS, f"16a rank {x['rank']}")
+        add(x["wf"]["launches"])
+    film = Film(Vec3(*(unpad_pixels(c.to(r.device), cfg)
+                       for c in got.film.color)),
+                unpad_pixels(got.film.weight.to(r.device), cfg))
+    mean = float(r.ldr_image(film).mean())
+    mean_rel = abs(mean - main["image_mean"]) / max(main["image_mean"], 1e-9)
+    rays = sum(sums[s][0] + sums[s][1] + sums[s][2] for s in range(SEGMENTS))
+    slowest = max(x["wf"]["seconds"] for x in res)
+    wf_line = dict(
+        phase="sharded_wavefront", card=card, ranks=d, backend="gloo",
+        shared_card=True, note="both ranks share one card: not a scaling "
+        "figure", width=r.width, height=r.height, paths=SHARD_PATHS,
+        segments=SEGMENTS, depth=cfg.max_bounces,
+        ms_per_segment_by_rank=[x["wf"]["seconds"] / SEGMENTS * 1e3
+                                for x in res],
+        mrays_per_s_both_ranks=rays / slowest / 1e6,
+        main_path_mrays_per_s=main["mrays_per_s"],
+        main_path_ms_per_segment=main["ms_per_segment"],
+        peak_mem_bytes_by_rank=[x["peak_mem_bytes"] for x in res],
+        launches_by_rank=[x["wf"]["launches"] for x in res],
+        equal_to_local_simulation=True, held_to_plain=held_a,
+        image_mean=mean,
+        main_path_image_mean=main["image_mean"], mean_rel_diff=mean_rel,
+        all_reduce_ms_by_rank=[x["all_reduce_ms"] for x in res],
+        ranks_wall_seconds=ranks_wall, cache_hit_by_rank=[
+            x["cache_hit"] for x in res])
+    emit(wf_line)
+    if mean_rel > SHARD_MEAN_GATE:
+        raise AssertionError(f"16a: tonemapped mean differs from phase 3's "
+                             f"by {mean_rel}")
+
+    # 16b: the megastep against the unsharded render_sample
+    cfg_mk = cfg.replace(use_roulette=False)
+    n = cfg_mk.num_pixels
+    film_u = Film.zeros(n, r.device)
+    seed_u = torch.arange(n, dtype=torch.int64, device=r.device)
+    stats_u = []
+    for _ in range(MK_SPP):
+        film_u, seed_u, st = render_sample(r.device_scene, r.params, film_u,
+                                           seed_u, cfg_mk)
+        stats_u.append(list(st))
+    # the last shard's slice of the first sample, its kernels recorded
+    with shard_recorder() as rec:
+        rec.active = (f"16b shard {d - 1}", 1)
+        render_sample(r.device_scene, r.params,
+                      _cut(Film.zeros(n, r.device), d - 1, d),
+                      _cut(torch.arange(n, dtype=torch.int64,
+                                        device=r.device), d - 1, d),
+                      cfg_mk, pixel_base=(d - 1) * (n // d))
+    held_b = hold_recorded(rec.calls, {"tile_order", "trace_rol",
+                                       "resolve_v5"}, "16b")
+    del rec
+    (film_s, seed_s) = res[0]["mk"]["film"]
+    diffs = {name: int((a.to(r.device) != b).sum()) for name, a, b in (
+        ("rgb.x", film_s.color.x, film_u.color.x),
+        ("rgb.y", film_s.color.y, film_u.color.y),
+        ("rgb.z", film_s.color.z, film_u.color.z),
+        ("weight", film_s.weight, film_u.weight), ("seed", seed_s, seed_u))}
+    depth = cfg.max_bounces
+    for x in res:
+        check_launches(x["mk"]["launches"], x["mk"]["plain_runs"],
+                       PER_BOUNCE_MK, (depth + 1) * MK_SPP,
+                       f"16b rank {x['rank']}")
+        add(x["mk"]["launches"])
+    mk_rays = sum(s[0] + s[1] + s[2] for s in stats_u)
+    emit(dict(phase="sharded_megastep", card=card, ranks=d, backend="gloo",
+              shared_card=True, spp=MK_SPP, depth=depth,
+              seconds_per_sample_by_rank=[x["mk"]["seconds"] / MK_SPP
+                                          for x in res],
+              mrays_per_s_both_ranks=mk_rays / max(
+                  x["mk"]["seconds"] for x in res) / 1e6,
+              lanes_differing=diffs, held_to_plain=held_b, stats=stats_u,
+              stats_equal=all(x["mk"]["stats"] == stats_u for x in res)))
+    if any(diffs.values()) or not all(x["mk"]["stats"] == stats_u
+                                      for x in res):
+        raise AssertionError(f"16b: sharded megastep differs from the "
+                             f"unsharded one: {diffs}")
+
+    # 16c: the block ring under the spp cap
+    cfg_c = cfg.replace(max_spp=1, use_roulette=False)
+    params_c = r.params._replace(max_spp=torch.tensor(
+        SHARD_CAP_SPP, dtype=torch.int32, device=r.device))
+    states, sums, held_c = _local_segments(
+        r, cfg_c, params_c, SHARD_CAPPED_SEGMENTS, d, "16c",
+        {"tile_order", "trace_rol", "resolve_v5", "block_splat_capped",
+         "fetch"})
+    got = res[0]["capped"]["state"]
+    _check_gathered("16c", got, states, r.device)
+    live = got.spp < (1 << 29)
+    capped_ok = bool((got.spp[live] <= SHARD_CAP_SPP).all()
+                     and torch.equal(got.film.weight[live],
+                                     got.spp[live].float()))
+    for x in res:
+        if x["capped"]["counters"] != sums:
+            raise AssertionError(f"16c rank {x['rank']}: reduced counters "
+                                 f"differ from the local sums")
+        check_launches(x["capped"]["launches"], x["capped"]["plain_runs"],
+                       PER_SEGMENT_EXACT, SHARD_CAPPED_SEGMENTS,
+                       f"16c rank {x['rank']}")
+        add(x["capped"]["launches"])
+    emit(dict(phase="sharded_capped", card=card, ranks=d, backend="gloo",
+              segments=SHARD_CAPPED_SEGMENTS, cap_spp=SHARD_CAP_SPP,
+              ms_per_segment_by_rank=[
+                  x["capped"]["seconds"] / SHARD_CAPPED_SEGMENTS * 1e3
+                  for x in res],
+              pixels_at_cap=float((got.spp[live] == SHARD_CAP_SPP)
+                                  .float().mean()),
+              weight_equals_spp=capped_ok,
+              launches_by_rank=[x["capped"]["launches"] for x in res],
+              equal_to_local_simulation=True, held_to_plain=held_c))
+    if not capped_ok:
+        raise AssertionError("16c: spp over the cap or weight != spp")
+
+    # 16d: a 1-rank NCCL group
+    _, nccl_launches = phase_nccl(card, r)
+    add(nccl_launches)
+    emit(dict(phase="phase_16", card=card,
+              seconds=time.perf_counter() - t_phase))
+    del r
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     global TMP_ROOT
@@ -4094,7 +4592,7 @@ def main():
 
 
 def run(kb):
-    """Phases 1-15 (see the module docstring)."""
+    """Phases 1-16 (see the module docstring)."""
     import torch
 
     # phase 1: device and build
@@ -4223,19 +4721,25 @@ def run(kb):
     emit(dict(phase="phase_15", card=card,
               seconds=time.perf_counter() - t0))
 
+    # phase 16: sharding over 2 gloo ranks on the card (16a-16c) and a
+    # 1-rank NCCL group (16d)
+    launches_16 = phase_sharded(card, main)
+
     # phase 10: result lines
     main_launches = {k: launches[k] + launches_l[k] + launches_p.get(k, 0)
                      + launches_d.get(k, 0) + launches_f.get(k, 0)
                      + launches_s.get(k, 0) + launches_t.get(k, 0)
-                     + launches_r.get(k, 0)
+                     + launches_r.get(k, 0) + launches_16.get(k, 0)
                      for k in SOURCES}
     main_launches.update(
         block_splat_capped=(launches_x["block_splat_capped"]
                             + launches_p["block_splat_capped"]
                             + launches_d["block_splat_capped"]
-                            + launches_r["block_splat_capped"]),
+                            + launches_r["block_splat_capped"]
+                            + launches_16["block_splat_capped"]),
         fetch=(launches_x["fetch"] + launches_p["fetch"]
-               + launches_d["fetch"] + launches_r["fetch"]),
+               + launches_d["fetch"] + launches_r["fetch"]
+               + launches_16["fetch"]),
         trace_ros=launches_ros["trace_ros"],
         resolve_v1=launches_k10["resolve_v1"])
     kres["block_splat"]["channels_8"]["launches"] = k4_8 + k4_8_r

@@ -238,16 +238,20 @@ def _bounce(scene, params: RenderParams, cfg: RenderConfig, b: int, s: dict):
 
 
 def render_sample(scene, params: RenderParams, film: Film, seed,
-                  config: RenderConfig, features: FeatureFilm = None):
-    """One sample per pixel. seed: [num_pixels] int64 holding uint32.
+                  config: RenderConfig, features: FeatureFilm = None,
+                  pixel_base: int = 0):
+    """One sample per pixel of the slice ``[pixel_base, pixel_base +
+    len(film))`` of the image: the whole film by default, one rank's slice
+    under ``parallel.mesh.render_sharded``; the camera rays address the
+    image's pixel ids. seed: [len(film)] int64 holding uint32.
     Returns (film, seed, stats), and with ``config.denoiser`` also
     ``features`` (zeros when None) plus this sample's guide features.
     Extension rays count the lanes alive at each bounce, minus the
     primary rays, as the reference."""
     cfg = config
-    n = cfg.num_pixels
+    n = film.weight.shape[0]
     dev = seed.device
-    pixel_idx = torch.arange(n, dtype=torch.int32, device=dev)
+    pixel_idx = pixel_base + torch.arange(n, dtype=torch.int32, device=dev)
     orig, d, seed = generate_camera_rays(
         pixel_idx, params.camera, cfg.width, cfg.height,
         params.world_radius, seed)

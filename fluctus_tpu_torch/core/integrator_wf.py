@@ -300,11 +300,18 @@ def wf_state_to_numpy(state: WfState) -> dict:
 
 
 def wf_segment(scene: DeviceScene, params: RenderParams, state: WfState,
-               config: RenderConfig):
+               config: RenderConfig, pixel_base: int = 0):
     """Advance the wavefront one segment: the trace phase, then the shade
-    phase (integrator_wf.py:263-279). Returns (state, counters)."""
+    phase (integrator_wf.py:263-279). Returns (state, counters).
+
+    The pixel ring spans ``[pixel_base, pixel_base + len(film))``: the
+    whole film by default; under ``parallel.mesh.wf_segment_sharded`` each
+    rank owns one slice of the film and the pool, and its own ring
+    cursor(s). ``pixel_base`` counts padded pixels on the block ring (a
+    multiple of the padded group size) and true pixels on the flat one."""
     raw, occluded = wf_trace_phase(scene, state.pool, params, config)
-    return wf_shade_phase(scene, params, state, config, raw, occluded)
+    return wf_shade_phase(scene, params, state, config, raw, occluded,
+                          pixel_base)
 
 
 def wf_trace_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
@@ -337,16 +344,19 @@ def wf_resolve_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
 
 
 def wf_shade_phase(scene: DeviceScene, params: RenderParams, state: WfState,
-                   config: RenderConfig, raw, occluded):
+                   config: RenderConfig, raw, occluded, pixel_base: int = 0):
     """Resolve + logic, the second program of a segment."""
     hit, sp = wf_resolve_phase(scene, state.pool, params, config, raw)
-    return wf_logic_phase(scene, params, state, config, hit, sp, occluded)
+    return wf_logic_phase(scene, params, state, config, hit, sp, occluded,
+                          pixel_base)
 
 
 def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
-                   config: RenderConfig, hit, sp, occluded):
+                   config: RenderConfig, hit, sp, occluded,
+                   pixel_base: int = 0):
     """Logic + shading + NEE + material sampling + raygen + splat — the
-    post-trace half of the segment (wf_logic.cl onward). Returns
+    post-trace half of the segment (wf_logic.cl onward), on the pixel ring
+    ``[pixel_base, pixel_base + len(film))`` (see ``wf_segment``). Returns
     (state, counters)."""
     cfg = config
     pool = state.pool
@@ -354,13 +364,15 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     dev = pool.seed.device
     use_env = cfg.use_env_map and scene.env is not None
     light = params.area_light if cfg.use_area_light else None
+    # the ring's size is the film slice this segment owns
     num_pixels = state.film.weight.shape[0]
+    # local pixel id (unsharded: the pixel id, without a device op)
+    lpid = pool.pixel_index - pixel_base if pixel_base else pool.pixel_index
     block = cfg.block_ring
     if block:
         p_true, pk_ = _block_geom(cfg)
-        g_local = num_pixels // pk_
+        g_local = num_pixels // pk_             # groups this slice owns
         s_ = n // g_local
-        lpid = pool.pixel_index
         lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s_
 
     seed = pool.seed
@@ -395,7 +407,12 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
                                state.spp.to(torch.float32)[None, :],
                                groups=g_local).to(torch.int32)
         else:
-            pix_spp = state.spp[pool.pixel_index.long()]
+            # pre-birth lanes (pixel 0 from wf_reset) lie outside a slice
+            # that does not start at 0: clamped, they read a count they
+            # never use (they terminate without splatting)
+            idx = (torch.clamp(lpid, 0, num_pixels - 1) if pixel_base
+                   else lpid)
+            pix_spp = state.spp[idx.long()]
         max_samples_reached = pix_spp >= spp_cap
         terminate |= max_samples_reached
 
@@ -481,15 +498,13 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
             # exact admission (integrator_wf.py:453-471): rank each
             # pixel's splatting lanes in lane order and admit the pixel's
             # remaining budget
-            rank = run_ranks(torch.where(splat, pool.pixel_index,
-                                         0x7FFFFFFF))
+            rank = run_ranks(torch.where(splat, lpid, 0x7FFFFFFF))
             splat &= rank < (spp_cap - pix_spp)
         data = torch.stack([torch.where(splat, Ei.x, 0.0),
                             torch.where(splat, Ei.y, 0.0),
                             torch.where(splat, Ei.z, 0.0),
                             splat.to(torch.float32)], dim=1)
-        seg = torch.where(splat, pool.pixel_index, num_pixels).to(
-            torch.int32)
+        seg = torch.where(splat, lpid, num_pixels).to(torch.int32)
         n_splatted = splat.sum()
         spp_counts = state.spp
         acc = scatter_pixels(seg, data, num_pixels)
@@ -551,8 +566,7 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
                                   -1).to(torch.int32)
             f_new = bs.splat(f_local, fdata, f_old, groups=g_local)
         else:
-            fseg = torch.where(nm | am, pool.pixel_index, num_pixels).to(
-                torch.int32)
+            fseg = torch.where(nm | am, lpid, num_pixels).to(torch.int32)
             f_new = f_old + scatter_pixels(fseg, fdata, num_pixels).T
         features = FeatureFilm(albedo=Vec3(f_new[0], f_new[1], f_new[2]),
                                albedo_w=f_new[3],
@@ -636,17 +650,20 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         rank2 = (torch.cumsum(term_i, dim=1) - term_i).to(torch.int32)
         n_term_g = term_i.sum(dim=1).to(torch.int32)
         n_regen = n_term_g.sum()
-        g_row = torch.arange(g_local, dtype=torch.int32, device=dev)
+        # the slice's groups are g0.. of the whole film's
+        g_row = pixel_base // pk_ + torch.arange(g_local, dtype=torch.int32,
+                                                 device=dev)
         len_g = torch.clamp(cfg.num_pixels - g_row * p_true, 1, p_true)
         new_l = torch.remainder(state.curr_pixel[:, None] + rank2,
                                 len_g[:, None])
-        new_pixel = (lane_g * pk_ + new_l.reshape(n)).to(torch.int32)
+        new_pixel = (pixel_base + lane_g * pk_ + new_l.reshape(n)).to(
+            torch.int32)
         curr_out = torch.remainder(state.curr_pixel + n_term_g, len_g).to(
             torch.int32)
     else:
         rank, n_regen = exclusive_rank(terminate)
-        new_pixel = torch.remainder(state.curr_pixel + rank, num_pixels).to(
-            torch.int32)
+        new_pixel = (pixel_base + torch.remainder(state.curr_pixel + rank,
+                                                  num_pixels)).to(torch.int32)
         curr_out = torch.remainder(state.curr_pixel + n_regen,
                                    num_pixels).to(torch.int32)
     pixel_index = torch.where(terminate, new_pixel, pool.pixel_index)

@@ -13,14 +13,17 @@ package's helpers, and the knobs the port reads:
                    instead of the exact-spp wavefront.
   BLOCK_RING       over Settings.wf_block_ring when the renderer derives
                    its config: 0 renders on the flat pixel ring.
+  MULTIHOST (0)    parallel.distributed.init_distributed initializes the
+                   process group (torch.distributed, the reference's
+                   jax.distributed init); 0 keeps it a no-op.
 
 SPLAT_EVERY is accepted and ignored, as Settings.wf_splat_every is
 (settings.py).
 
-SORT_RAYS, ROL and FORCE_MK are read once, at import, into module
-constants, as the reference does for the first two (mxu_trace.py:1281-1282);
-code reads them through this module at call time, so a program may also
-set them (``flags.SORT_RAYS = False``)."""
+SORT_RAYS, ROL, FORCE_MK and MULTIHOST are read once, at import, into
+module constants, as the reference does for SORT_RAYS and ROL
+(mxu_trace.py:1281-1282); code reads them through this module at call
+time, so a program may also set them (``flags.SORT_RAYS = False``)."""
 
 from __future__ import annotations
 
@@ -45,3 +48,4 @@ def env_bool(name: str, default: bool = True) -> bool:
 SORT_RAYS = env_bool("SORT_RAYS", True)
 ROL = env_bool("ROL", True)
 FORCE_MK = env_bool("FORCE_MK", False)
+MULTIHOST = env_bool("MULTIHOST", False)
