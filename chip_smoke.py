@@ -265,8 +265,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    scaling figure: the ranks share one card. 16d: a 1-rank NCCL group in
    this process: NCCL_SEGMENTS of wf_segment_sharded equal to
    wf_segment's, both timed in turns, and the counters' all_reduce alone.
-10. the kernels line (launches including phases 11, 12, 13, 14, 15 and
-   16's runs, 16's summed over the ranks; K4's entry with its 8-channel
+17. the bitstack BVH route (scenes without tables, accel/traverse.py):
+   luxball at 1080p with 1M paths, depth 10, phase 9's env map and phase
+   3's light, its scene without tables built from the renderer's host data
+   (the triangle arrays, the materials, the renderer's BVH), as the
+   reference's Renderer uploads it off its TPU. 17a: the extension and
+   shadow rays of segments 2 and 4 (recorded on the table route), through
+   the kernel and the plain version (bit for bit: t, tri, u, v), timed,
+   with the box and triangle tests counted by the plain version for the
+   bound, beside the table route's K1 + K2 on the same segment's recorded
+   calls and its whole pair trace; edge-case rays from a numpy seed
+   (axis-parallel with +-0 components, origins on node boxes' planes and
+   inside boxes, t_max F32_MAX, +inf, 0 and random, any-hit to the hits);
+   the share of segment 2's first hits that differ from the table route's.
+   17b: BVH_SEGMENTS timed segments on each route from the same seeds
+   (bitstack 2 launches a segment, K4 1), ms/segment, Mrays/s, busy share,
+   peak memory, the tonemapped means within the 1% bias gate; BVH_SPP
+   exact samples on the bitstack route (K7, K8; spp = weight). 17c: one
+   megastep sample on each route (3 traces a bounce: the extension ray,
+   the env map's shadow ray, the area light's); the bitstack sample's
+   traces of bounces BVH_MK_HELD (2M rays each) held bit for bit to the
+   plain version, each with a hit. 17d: the 8x8 grid's segment-4 rays
+   (1M), the kernel's time beside K1 and K5's on the same recorded calls,
+   held to the plain version on a chunk (extension rays strided over the
+   pool, shadow rays strided over its pending lanes; each with hits).
+   17e: the reference's entry step (quad_scene, quad_setup(64, 64, 3),
+   4096 paths): BVH_ENTRY_SEGMENTS wf_segments, each segment's traces
+   held bit for bit. 17f: parallel/'s entry points on the bitstack
+   luxball over a 1-rank NCCL group: wf_segment_sharded equal to
+   wf_segment, render_sharded equal to render_sample, bit for bit.
+10. the kernels line (launches including phases 11, 12, 13, 14, 15, 16
+   and 17's runs, 16's summed over the ranks, 17's on the bitstack
+   route; K4's entry with its 8-channel
    launches, as counted in 12a and 15a), the card line, then the final
    result line.
 
@@ -372,7 +402,8 @@ SOURCES = {"tile_order": "fluctus_tpu_torch/csrc/tile_order.cu",
                "fluctus_tpu_torch/csrc/block_splat_capped.cu",
            "fetch": "fluctus_tpu_torch/csrc/fetch.cu",
            "trace_ros": "fluctus_tpu_torch/csrc/trace_ros.cu",
-           "resolve_v1": "fluctus_tpu_torch/csrc/resolve_v1.cu"}
+           "resolve_v1": "fluctus_tpu_torch/csrc/resolve_v1.cu",
+           "bvh_bitstack": "fluctus_tpu_torch/csrc/bvh_bitstack.cu"}
 REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "trace_rol": "fluctus_tpu/accel/mxu_trace.py:736",
             "resolve_v5": "fluctus_tpu/accel/mxu_trace.py:1745",
@@ -382,7 +413,9 @@ REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "block_splat_capped": "fluctus_tpu/core/block_splat.py:116",
             "fetch": "fluctus_tpu/core/block_splat.py:147",
             "trace_ros": "fluctus_tpu/accel/mxu_trace.py:630",
-            "resolve_v1": "fluctus_tpu/accel/mxu_trace.py:1669"}
+            "resolve_v1": "fluctus_tpu/accel/mxu_trace.py:1669",
+            "bvh_bitstack": "fluctus_tpu/accel/traverse.py:150 _traverse "
+                            "(not a Pallas kernel)"}
 
 
 def emit(obj):
@@ -1852,7 +1885,12 @@ def kernels_line(kres, launches):
     renders (5b, 11c, 12a), K9 in the rays-on-sublanes render (6b), K10 in
     the free-running run on tables without B16 (8b); K1-K5, K7 and K8
     also over 15a's interactive session; K1-K4, K7 and K8 also over phase
-    16's sharded runs (both ranks, and 16d's). K4's entry also carries its
+    16's sharded runs (both ranks, and 16d's); the bitstack traversal
+    (17a, luxball's segment-4 bounce rays) over phase 17's renders on its
+    route (17b's timed run and exact render, 17c's megastep sample, 17e's
+    entry step, 17f's sharded runs; K4, K7 and K8 also count 17b's and
+    17f's launches), with the table route's K1 + K2 time on the same rays and
+    its time and K5's on the 8x8 grid's (17d). K4's entry also carries its
     8-channel calls (12a and 15a: the denoiser's features), with their
     launches in those runs."""
     out = []
@@ -1867,6 +1905,9 @@ def kernels_line(kres, launches):
         any_ms = k.get("any_hit", {}).get("ms", k.get("any_hit_ms"))
         if any_ms is not None:          # the trace kernels' any-hit call
             entry["any_hit_ms"] = any_ms
+        for key in ("table_k1_k2_ms", "grid_ms", "grid_k5_closest_ms"):
+            if key in k:                # the bitstack kernel's yardsticks
+                entry[key] = k[key]
         if "channels_8" in k:           # K4 on the denoiser's features
             c8 = k["channels_8"]
             entry["channels_8"] = {key: c8[key] for key in (
@@ -3599,11 +3640,13 @@ def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
     """Every recorded call against its kernel's plain version, bit for
     bit: K1 order and skey, the trace kernels' t (bits), columns and
     visits, the resolve rows (max |difference| 0), K4 at each channel
-    count, K7 and K8; phase ``what`` fails on a difference or when a
-    kernel of ``want`` has no recorded call. Returns {kernel: {calls,
-    max_abs_err, routes}}."""
+    count, K7 and K8, the bitstack traversal's t, tri, u, v (bits; the
+    rays and hits of each call noted); phase ``what`` fails on a difference
+    or when a kernel of ``want`` has no recorded call. Returns {kernel:
+    {calls, max_abs_err, routes}}."""
     import torch
     from fluctus_tpu_torch.accel import mxu_trace as mt
+    from fluctus_tpu_torch.accel import traverse as tt
     from fluctus_tpu_torch.core import block_splat as bs
     held = {}
 
@@ -3619,6 +3662,9 @@ def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
 
     def fetch_args(local, table, groups):
         return local, table, groups
+
+    def traverse_args(orig, d, tris, bvh, t_max, any_hit):
+        return orig, d, tris, bvh, t_max, any_hit
     for ((route, seg), name), lst in calls.items():
         for args, kw in lst:
             where = f"{route}, segment {seg}"
@@ -3670,6 +3716,17 @@ def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
                                    bs.fetch_plain(local, table, g)):
                     raise AssertionError(f"{what}: K8 differs ({where})")
                 note("fetch", route)
+            elif name == "traverse":
+                args = traverse_args(*args, **kw)
+                got = tt.traverse(*args)
+                diff, err = bvh_compare(got, traverse_plain_chunked(*args))
+                if diff:
+                    raise AssertionError(f"{what}: bvh_bitstack differs "
+                                         f"({where}): {diff} rays")
+                note("bvh_bitstack", route, err)
+                h = held["bvh_bitstack"]
+                h.setdefault("rays", []).append(got[1].shape[0])
+                h.setdefault("hits", []).append(int((got[1] >= 0).sum()))
     if not want <= set(held):
         raise AssertionError(f"{what}: no recorded call of "
                              f"{sorted(want - set(held))}")
@@ -4350,6 +4407,24 @@ def _check_gathered(what, got, states, device):
                              f"simulation")
 
 
+@contextlib.contextmanager
+def nccl_mesh():
+    """A 1-rank NCCL group in this process (on a free localhost port) and
+    its 1-D mesh on cuda:0; the group is destroyed on exit."""
+    import socket
+    import torch.distributed as dist
+    from fluctus_tpu_torch.parallel import make_mesh
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(1, device="cuda:0")
+    finally:
+        dist.destroy_process_group()
+
+
 def phase_nccl(card, r):
     """16d: a 1-rank NCCL group in this process. NCCL_SEGMENTS of
     wf_segment_sharded equal the plain wf_segment's from the same reset
@@ -4357,21 +4432,13 @@ def phase_nccl(card, r):
     sharded, sharded, plain) after a warm-up run of each (the first
     all_reduce sets NCCL's communicator up), and one all_reduce of the
     counters alone."""
-    import socket
     import torch
     import torch.distributed as dist
     from fluctus_tpu_torch import kernel_build as kb
     from fluctus_tpu_torch.core.integrator_wf import wf_reset, wf_segment
-    from fluctus_tpu_torch.parallel import make_mesh
     from fluctus_tpu_torch.parallel.mesh import (shard_wf_state,
                                                  wf_segment_sharded)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            rank=0, world_size=1)
-    try:
-        mesh = make_mesh(1, device="cuda:0")
+    with nccl_mesh() as mesh:
         cfg = r.config
 
         def run(sharded):
@@ -4410,8 +4477,6 @@ def phase_nccl(card, r):
                    equal_to_plain=True)
         emit(out)
         return out, s1[3][0]
-    finally:
-        dist.destroy_process_group()
 
 
 def phase_sharded(card, main):
@@ -4574,6 +4639,640 @@ def phase_sharded(card, main):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the bitstack BVH route (scenes without cluster tables)
+# ---------------------------------------------------------------------------
+
+BVH_SEGMENTS = 8           # 17b: timed segments on each route
+BVH_SPP = 4                # 17b: the exact render on the bitstack route
+BVH_EDGE_RAYS = 4096       # 17a: rays of each edge-case kind
+BVH_GRID_CHUNK = 1 << 16   # 17d: rays held to the plain version
+BVH_MK_HELD = (0, 2)       # 17c: the bounces whose traces are held
+BVH_ENTRY_SEGMENTS = 4     # 17e
+BVH_SHARD_SEGMENTS = 4     # 17f
+BOX_OPS = 25               # FP32 operations of a box test (22 + 3 compares)
+TRI_OPS = 53               # of a triangle test (46 + 7 compares)
+PER_SEGMENT_BVH = {"bvh_bitstack": 2, "tile_order": 0, "trace_rol": 0,
+                   "resolve_v5": 0, "block_splat": 1, **_ZERO}
+PER_SEGMENT_BVH_EXACT = {**PER_SEGMENT_BVH, "block_splat": 0,
+                         "block_splat_capped": 1, "fetch": 1}
+# the megastep under the env map and the area light: the extension ray and
+# a shadow ray to each light, every bounce
+PER_BOUNCE_BVH = {"bvh_bitstack": 3, "tile_order": 0, "trace_rol": 0,
+                  "resolve_v5": 0, "block_splat": 0, **_ZERO}
+MK_TRACES = ("extension", "env shadow", "area shadow")   # a bounce's order
+
+
+def bvh_scene(r):
+    """r's scene without tables, as the reference's Renderer uploads it off
+    its TPU (renderer.py:140-147): the triangle arrays, the materials and
+    the renderer's host BVH on the card, beside its atlas, env map and
+    normal-map frames."""
+    from fluctus_tpu_torch.accel.traverse import BVHDevice
+    from fluctus_tpu_torch.core.trace import TrianglesDevice
+    return r.device_scene._replace(
+        mxu=None,
+        tris=TrianglesDevice.from_arrays(*r.scene.triangle_arrays(),
+                                         device=r.device),
+        mats=r.scene.device_materials(device=r.device),
+        bvh=BVHDevice.from_host(r._bvh_host, device=r.device))
+
+
+def bvh_compare(got, ref):
+    """(lanes where t, tri, u or v differ in any bit, max |difference| of
+    t, u, v where both are finite)."""
+    import torch
+    bad = torch.zeros_like(got[1], dtype=torch.bool)
+    err = 0.0
+    for a, b in zip(got, ref):
+        if a.dtype == torch.float32:
+            bad |= a.view(torch.int32) != b.view(torch.int32)
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if fin.any():
+                err = max(err, float((a - b).abs()[fin].max()))
+        else:
+            bad |= a != b
+    return int(bad.sum()), err
+
+
+def traverse_plain_chunked(orig, d, tris, bvh, t_max, any_hit,
+                           chunk=1 << 20):
+    """The traversal's plain version a chunk of rays at a time (the rays
+    are independent; this bounds the lockstep loop's temporaries)."""
+    import torch
+    from fluctus_tpu_torch.accel import traverse as tt
+    n = orig.x.shape[0]
+    cut = lambda v, k: type(v)(*(c[k:k + chunk] for c in v))
+    per_ray = torch.is_tensor(t_max) and t_max.ndim > 0
+    outs = [tt.traverse_plain(cut(orig, k), cut(d, k), tris, bvh,
+                              t_max[k:k + chunk] if per_ray else t_max,
+                              any_hit) for k in range(0, n, chunk)]
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(4))
+
+
+def once_ms(fn):
+    """fn() once between CUDA events: (its result, ms)."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def bvh_bound(n, boxes, tests, scene, any_hit):
+    """(ms, "bytes" or "operations") of a bitstack trace of n rays that
+    made ``boxes`` box tests and ``tests`` triangle tests: each ray read
+    once (28 B) and its result written once (16 B; any-hit 1 B), the tree
+    (36 B a node, 4 an index) and the triangles (36 B) read once."""
+    bvh = scene.bvh
+    nb = n * (28 + (1 if any_hit else 16)) + 36 * bvh.parent.shape[0] \
+        + 4 * bvh.indices.shape[0] + 36 * scene.tris.v0.x.shape[0]
+    return bound(boxes * BOX_OPS + tests * TRI_OPS, nb)
+
+
+def bvh_check(scene, o, d, tmax, any_hit, what, timed=True):
+    """The kernel against the plain version on one ray set: bit-equal or
+    AssertionError. With ``timed`` the kernel's device time, the plain
+    version's (one run), the tests the rays made and the bound."""
+    import torch
+    from fluctus_tpu_torch.accel import traverse as tt
+    got = tt.traverse(o, d, scene.tris, scene.bvh, tmax, any_hit)
+    ref, plain_ms = once_ms(lambda: tt.traverse_plain(
+        o, d, scene.tris, scene.bvh, tmax, any_hit, counts=True))
+    diff, err = bvh_compare(got, ref[:4])
+    n = o.x.shape[0]
+    out = dict(rays=n, differing_rays=diff, max_abs_err=err,
+               hits=int((got[1] >= 0).sum()))
+    if torch.is_tensor(tmax) and tmax.ndim:
+        out["t_max_positive"] = int((tmax > 0).sum())
+    if diff:
+        raise AssertionError(f"bvh_bitstack differs from its plain version "
+                             f"on {diff} rays ({what})")
+    if not timed:
+        return out
+    boxes, tests = int(ref[4].sum()), int(ref[5].sum())
+    b_ms, b_by = bvh_bound(n, boxes, tests, scene, any_hit)
+    del ref
+    torch.cuda.empty_cache()
+    return dict(out, **kernel_ms(lambda: tt.traverse(
+        o, d, scene.tris, scene.bvh, tmax, any_hit)), plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, box_tests=boxes,
+        triangle_tests=tests, box_tests_per_ray=boxes / n,
+        triangle_tests_per_ray=tests / n)
+
+
+def bvh_edge_rays(bvh, tris, n, seed):
+    """Edge-case rays on a host BVH, made from a numpy seed: axis-parallel
+    directions (the other components +0 or -0) from origins on a node
+    box's plane (the slab's 0 * inf = NaN: no hit) and from random
+    origins, random directions from origins inside node boxes, rays
+    toward the triangles' centroids from inside the scene's bounds.
+    Returns (origins, directions) as Vec3 on the card, 4n rays."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.vec import Vec3
+    rng = np.random.default_rng(seed)
+    axes = []
+    for a in range(3):
+        for sign, zero in ((1.0, 0.0), (-1.0, 0.0), (1.0, -0.0),
+                           (-1.0, -0.0)):
+            v = [zero] * 3
+            v[a] = sign
+            axes.append(v)
+    axes = np.array(axes)
+    pick = rng.integers(0, bvh.num_nodes, n)
+    lo, hi = bvh.box_min[pick], bvh.box_max[pick]
+    inside = lo + rng.random((n, 3)) * (hi - lo)
+    plane = inside.copy()
+    ax, side = rng.integers(0, 3, n), rng.integers(0, 2, n)
+    rows = np.arange(n)
+    plane[rows, ax] = np.where(side, hi[rows, ax], lo[rows, ax])
+    plane_d = axes[4 * ((ax + 1 + side) % 3) + rng.integers(0, 4, n)]
+    slo, shi = bvh.box_min[0], bvh.box_max[0]
+    rand_o = slo + rng.random((n, 3)) * (shi - slo)
+    v0 = tris.v0
+    k = rng.integers(0, v0.x.shape[0], n)
+    cen = np.stack([c.cpu().numpy()[k] for c in v0], 1)
+    dirs = rng.normal(size=(n, 3))
+    to_tri = cen - rand_o
+    o = np.concatenate([plane, rand_o, inside, rand_o])
+    d = np.concatenate([plane_d, axes[rng.integers(0, 12, n)],
+                        dirs / np.linalg.norm(dirs, axis=1, keepdims=True),
+                        to_tri / np.maximum(np.linalg.norm(
+                            to_tri, axis=1, keepdims=True), 1e-12)])
+    col = lambda a, j: torch.from_numpy(
+        np.ascontiguousarray(a[:, j], np.float32)).cuda()
+    return (Vec3(col(o, 0), col(o, 1), col(o, 2)),
+            Vec3(col(d, 0), col(d, 1), col(d, 2)))
+
+
+def bvh_edges(scene, host_bvh, seed):
+    """17a's edge cases: the edge rays in both modes, with t_max F32_MAX,
+    +inf, 0 and random (a quarter each), and any-hit to the closest hits
+    found."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.accel import traverse as tt
+    o, d = bvh_edge_rays(host_bvh, scene.tris, BVH_EDGE_RAYS, seed)
+    n = o.x.shape[0]
+    rng = np.random.default_rng(seed + 1)
+    kinds = rng.integers(0, 4, n)
+    vals = np.select([kinds == 0, kinds == 1, kinds == 2],
+                     [np.float32(tt.F32_MAX), np.inf, 0.0],
+                     rng.random(n) * float(np.linalg.norm(
+                         host_bvh.box_max[0] - host_bvh.box_min[0])))
+    tmax = torch.from_numpy(vals.astype(np.float32)).cuda()
+    out = {}
+    for name, tm in (("closest_f32max", tt.F32_MAX), ("closest_mixed", tmax),
+                     ("any_mixed", tmax)):
+        out[name] = bvh_check(scene, o, d, tm, name.startswith("any"),
+                              f"edge rays, {name}", timed=False)
+    t_hit = tt.traverse(o, d, scene.tris, scene.bvh, tt.F32_MAX, False)[0]
+    out["any_to_hit"] = bvh_check(scene, o, d, t_hit, True,
+                                  "edge rays, any-hit to the hit",
+                                  timed=False)
+    return out
+
+
+def bvh_recorder():
+    """A Recorder of the kernel wrappers with the bitstack traversal's
+    (accel.traverse.traverse) among them."""
+    from fluctus_tpu_torch.accel import traverse as tt
+    rec = Recorder()
+    rec.targets.append((tt, "traverse"))
+    return rec
+
+
+def record_bvh_rays(r, segs=(2, 4)):
+    """Segments 1-4 from a fresh 1M-path pool on r's (table) route: the
+    rays each of ``segs`` traces (its pool's extension rays, its shadow
+    rays with the non-pending lanes' tmax 0) and the kernel wrappers'
+    arguments in those segments."""
+    import torch
+    from fluctus_tpu_torch.vec import Vec3
+    rays = {}
+    with Recorder() as rec:
+        r.init_wavefront(1 << 20)
+        for seg in range(1, 5):
+            rec.active = seg if seg in segs else None
+            if seg in segs:
+                p = r._wf_state.pool
+                c = lambda v: Vec3(*(x.clone() for x in v))
+                rays[seg] = dict(
+                    orig=c(p.orig), dir=c(p.dir), sorig=c(p.shadow_orig),
+                    sdir=c(p.shadow_dir),
+                    smax=torch.where(p.shadow_pending, p.shadow_len, 0.0))
+            r.render_wavefront(1)
+        rec.active = None
+    return rays, rec.calls
+
+
+def table_trace_ms(rec_calls, seg, k1, trace):
+    """The table route's kernels on a segment's recorded calls: K1 (all
+    its calls), the trace kernel ``trace`` closest-hit and any-hit."""
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    fn = {"tile_order": mt.tile_order, "trace_rol": mt.trace_rol,
+          "trace_rol_sc": mt.trace_rol_sc}
+    out = {f"{k1}_ms": sum(kernel_ms(lambda a=a, kw=kw: fn[k1](*a, **kw))
+                           ["ms"] for a, kw in rec_calls[(seg, k1)])}
+    for a, kw in rec_calls[(seg, trace)]:
+        kind = "any_hit" if a[-1] else "closest"
+        out[f"{trace}_{kind}_ms"] = kernel_ms(
+            lambda a=a, kw=kw: fn[trace](*a, **kw))["ms"]
+    out["table_ms"] = sum(out.values())
+    return out
+
+
+def bvh_rays_vs_tables(r, scene, rays, rec_calls, segs, k1, trace, what):
+    """Per recorded segment: the kernel against the plain version on its
+    extension rays (closest) and shadow rays (any-hit), timed with their
+    bound, beside the table route's kernels and its whole pair trace
+    (trace_pair_mxu: sort, K1, the traces, unsort) on the same rays."""
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    from fluctus_tpu_torch.accel import traverse as tt
+    out = {}
+    for seg in segs:
+        x = rays[seg]
+        ext = bvh_check(scene, x["orig"], x["dir"], tt.F32_MAX, False,
+                        f"{what} segment {seg}, extension")
+        shd = bvh_check(scene, x["sorig"], x["sdir"], x["smax"], True,
+                        f"{what} segment {seg}, shadow")
+        pair = time_ms(lambda: mt.trace_pair_mxu(
+            x["orig"], x["dir"], x["sorig"], x["sdir"], x["smax"],
+            r.device_scene.mxu), reps=5)
+        out[seg] = dict(closest=ext, any_hit=shd,
+                        bitstack_ms=ext["ms"] + shd["ms"],
+                        **table_trace_ms(rec_calls, seg, k1, trace),
+                        table_pair_trace_ms=pair)
+    return out
+
+
+def bvh_first_hits(scene, table, x):
+    """The share of a segment's extension rays whose first hit (triangle,
+    -1 on a miss) differs between the bitstack and the table route."""
+    from fluctus_tpu_torch.accel import traverse as tt
+    from fluctus_tpu_torch.core.trace import trace_extension
+    tri = tt.closest_hit(x["orig"], x["dir"], scene.tris, scene.bvh)[1]
+    ref = trace_extension(x["orig"], x["dir"], table, None, False).i
+    return float((tri != ref).float().mean())
+
+
+def bvh_timed_run(r, card, scene, route):
+    """BVH_SEGMENTS timed segments of r on ``scene`` (2 warm-up segments,
+    then a fresh pool: the same seeds on either route). Returns (launches,
+    its line)."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    r.device_scene = scene
+    r.init_wavefront(1 << 20)
+    r.render_wavefront(2)
+    r.init_wavefront(1 << 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    r.render_wavefront(BVH_SEGMENTS)
+    elapsed = time.perf_counter() - t0
+    launches, plain = counts()
+    st = r.wavefront_stats()
+    rays = st.primary_rays + st.extension_rays + st.shadow_rays
+    film = r.wavefront_film()
+    line = dict(route=route, segments=BVH_SEGMENTS, seconds=elapsed,
+                ms_per_segment=elapsed / BVH_SEGMENTS * 1e3,
+                mrays_per_s=rays / elapsed / 1e6,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                image_mean=float(r.ldr_image().mean()),
+                film_finite=bool(torch.isfinite(film.color.x).all()),
+                pixels_covered=float((film.weight > 0).float().mean()),
+                launches=launches, plain_runs=plain, card=card)
+    check_launches(launches, plain, PER_SEGMENT_BVH if route == "bitstack"
+                   else PER_SEGMENT, BVH_SEGMENTS, f"17b {route}")
+    if not line["film_finite"]:
+        raise AssertionError(f"17b: a non-finite film on the {route} route")
+    prof = profile_segments(r, card, line["ms_per_segment"])
+    line.update(device_ms_per_segment=prof["device_ms_per_segment"],
+                device_busy_share=prof["device_busy_share"],
+                kernels_us_per_segment=prof["kernels_us_per_segment"])
+    return launches, line
+
+
+def bvh_exact(r, card, scene):
+    """BVH_SPP exact samples per pixel on the bitstack route (K7, K8):
+    spp = weight on every pixel. Returns (launches, its line)."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    r.device_scene = scene
+    r.reset()
+    torch.cuda.synchronize()
+    kb.reset_counts()
+    t0 = time.perf_counter()
+    film = r.render_single(BVH_SPP)
+    elapsed = time.perf_counter() - t0
+    launches, plain = counts()
+    segments = launches["block_splat_capped"]
+    spp = r._wf_exact_state.spp
+    line = dict(spp=BVH_SPP, seconds=elapsed, segments=segments,
+                weight_exact=bool((film.weight == BVH_SPP).all()),
+                spp_exact=bool((spp[spp < (1 << 29)] == BVH_SPP).all()),
+                mrays_per_s=r.perf_mrays(elapsed)["total"],
+                launches=launches, plain_runs=plain, card=card)
+    emit(dict(phase="bitstack_exact", **line))
+    check_launches(launches, plain, PER_SEGMENT_BVH_EXACT, segments,
+                   "17b exact")
+    if not (line["weight_exact"] and line["spp_exact"]):
+        raise AssertionError("17b exact: spp != weight on the bitstack route")
+    return launches
+
+
+def bvh_hold_mk(calls):
+    """17c's recorded traversal calls of bounces BVH_MK_HELD (a bounce's
+    calls in MK_TRACES order, 2M rays each) held bit for bit to the plain
+    version; each held call must have a hit. Returns what was held."""
+    def any_hit_of(orig, d, tris, bvh, t_max, any_hit):
+        return any_hit
+    pick = {}
+    for b in BVH_MK_HELD:
+        for j, kind in enumerate(MK_TRACES):
+            args, kw = calls[len(MK_TRACES) * b + j]
+            if any_hit_of(*args, **kw) != (j > 0):
+                raise AssertionError(f"17c: bounce {b}'s calls are not in "
+                                     f"the order {MK_TRACES}")
+            pick[((f"17c bounce {b} {kind}", 1), "traverse")] = [(args, kw)]
+    held = hold_recorded(pick, {"bvh_bitstack"}, "17c")["bvh_bitstack"]
+    if min(held["hits"]) == 0:
+        raise AssertionError(f"17c: a held call without a hit: {held}")
+    return held
+
+
+def bvh_mk(r, card, scene, route):
+    """One megastep sample (render_sample under FORCE_MK) on ``scene``; on
+    the bitstack route its traversal calls are recorded and some held to
+    the plain version (bvh_hold_mk). Returns (launches, its line)."""
+    import torch
+    from fluctus_tpu_torch import flags
+    from fluctus_tpu_torch import kernel_build as kb
+    r.device_scene = scene
+    saved = flags.FORCE_MK
+    flags.FORCE_MK = True
+    try:
+        r.reset()
+        r.render_single(1)               # warm-up
+        r.reset()
+        with bvh_recorder() as rec:
+            torch.cuda.synchronize()
+            kb.reset_counts()
+            rec.active = ("17c", 1) if route == "bitstack" else None
+            t0 = time.perf_counter()
+            film = r.render_single(1)
+            elapsed = time.perf_counter() - t0
+            rec.active = None
+    finally:
+        flags.FORCE_MK = saved
+    launches, plain = counts()
+    if not bool((film.weight == 1).all()):
+        raise AssertionError(f"17c: weight != 1 on the {route} route")
+    line = dict(seconds_per_sample=elapsed,
+                mrays_per_s=r.perf_mrays(elapsed)["total"],
+                image_mean=float(r.hdr_image().mean()))
+    if route == "bitstack":
+        check_launches(launches, plain, PER_BOUNCE_BVH,
+                       r.config.max_bounces + 1, "17c")
+        line["held_to_plain"] = bvh_hold_mk(rec.calls[(("17c", 1),
+                                                       "traverse")])
+    del rec
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def bvh_entry(card):
+    """17e: the reference's entry step (__graft_entry__.entry): the port's
+    quad_scene (no tables) and quad_setup(64, 64, 3), wf_reset(config,
+    4096), BVH_ENTRY_SEGMENTS wf_segments, every trace of each segment
+    held to the plain version. Returns the launches."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.integrator_wf import wf_reset, wf_segment
+    from fluctus_tpu_torch.testing import quad_scene, quad_setup
+    scene = quad_scene()
+    params, config = quad_setup(width=64, height=64, max_bounces=3)
+    state = wf_reset(config, 4096, device="cuda")
+    kb.reset_counts()
+    counters = []
+    with bvh_recorder() as rec:
+        for seg in range(1, BVH_ENTRY_SEGMENTS + 1):
+            rec.active = ("17e", seg)
+            state, cnt = wf_segment(scene, params, state, config)
+            rec.active = None
+            counters.append([int(c) for c in cnt])
+    launches = counts()[0]       # before the holds launch the kernel again
+    held = hold_recorded(rec.calls, {"bvh_bitstack"},
+                         "17e")["bvh_bitstack"]["calls"]
+    w = state.film.weight
+    emit(dict(phase="bitstack_entry", card=card, segments=len(counters),
+              counters=counters, held_calls=held,
+              launches=launches["bvh_bitstack"],
+              film_weight=float(w.sum()),
+              film_finite=bool(torch.isfinite(state.film.color.x).all())))
+    if launches["bvh_bitstack"] != 2 * BVH_ENTRY_SEGMENTS or held != \
+            2 * BVH_ENTRY_SEGMENTS or not float(w.sum()) > 0:
+        raise AssertionError("17e: launches, holds or film wrong")
+    return launches
+
+
+def bvh_sharded(card, r, scene):
+    """17f: parallel/'s entry points on the bitstack scene over a 1-rank
+    NCCL group: BVH_SHARD_SEGMENTS of wf_segment_sharded from a sharded
+    reset equal to wf_segment's from the same reset (film, spp, cursors,
+    counters), and one render_sharded sample equal to render_sample's
+    (film, seed, stats), the traversal launched for every trace. Returns
+    the sharded runs' launches."""
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch.core.integrator_mk import Film, render_sample
+    from fluctus_tpu_torch.core.integrator_wf import wf_reset, wf_segment
+    from fluctus_tpu_torch.parallel import render_sharded, replicate_scene
+    from fluctus_tpu_torch.parallel.mesh import (gather_film, shard_film,
+                                                 shard_wf_state,
+                                                 wf_segment_sharded)
+    cfg = r.config
+    cfg_mk = cfg.replace(use_roulette=False)
+    n = cfg_mk.num_pixels
+    fresh = lambda: (Film.zeros(n, r.device),
+                     torch.arange(n, dtype=torch.int64, device=r.device))
+    with nccl_mesh() as mesh:
+        sc = replicate_scene(scene, mesh)
+        runs = []
+        for sharded in (False, True):
+            st = wf_reset(cfg, SHARD_PATHS, world_radius=r.world_radius,
+                          device=r.device)
+            if sharded:
+                st = shard_wf_state(st, mesh)
+            torch.cuda.synchronize()
+            kb.reset_counts()
+            cnts = []
+            for _ in range(BVH_SHARD_SEGMENTS):
+                if sharded:
+                    st, c = wf_segment_sharded(sc, r.params, st, cfg, mesh)
+                else:
+                    st, c = wf_segment(scene, r.params, st, cfg)
+                cnts.append([int(x) for x in c])
+            runs.append((st, cnts, counts()))
+        (p_st, p_cnt, _), (s_st, s_cnt, (lw, pw)) = runs
+        _check_gathered("17f", s_st, [p_st], r.device)
+        if s_cnt != p_cnt:
+            raise AssertionError(f"17f: counters {s_cnt} != {p_cnt}")
+        check_launches(lw, pw, PER_SEGMENT_BVH, BVH_SHARD_SEGMENTS,
+                       "17f wf_segment_sharded")
+        del runs, p_st, s_st
+        film_u, seed_u, st_u = render_sample(scene, r.params, *fresh(),
+                                             cfg_mk)
+        film, seed = shard_film(*fresh(), mesh)
+        torch.cuda.synchronize()
+        kb.reset_counts()
+        film, seed, st_s = render_sharded(sc, r.params, film, seed, cfg_mk,
+                                          mesh)
+        lm, pm = counts()
+        film_s, seed_s = gather_film(film, seed, mesh)
+    check_launches(lm, pm, PER_BOUNCE_BVH, cfg.max_bounces + 1,
+                   "17f render_sharded")
+    diffs = {name: int((a != b).sum()) for name, a, b in (
+        ("rgb.x", film_s.color.x, film_u.color.x),
+        ("rgb.y", film_s.color.y, film_u.color.y),
+        ("rgb.z", film_s.color.z, film_u.color.z),
+        ("weight", film_s.weight, film_u.weight), ("seed", seed_s, seed_u))}
+    stats = [[int(x) for x in st] for st in (st_s, st_u)]
+    emit(dict(phase="bitstack_sharded", card=card, ranks=1, backend="nccl",
+              segments=BVH_SHARD_SEGMENTS, counters=s_cnt,
+              wf_launches=lw["bvh_bitstack"], mk_launches=lm["bvh_bitstack"],
+              mk_lanes_differing=diffs, mk_stats=stats))
+    if any(diffs.values()) or stats[0] != stats[1]:
+        raise AssertionError(f"17f: render_sharded differs from "
+                             f"render_sample: {diffs}, {stats}")
+    return {k: lw[k] + lm[k] for k in lw}
+
+
+def phase_bitstack(card):
+    """Phase 17 (see the module docstring). Returns (the kernel's entry for
+    the kernels line, its launches on the main paths of 17b, 17c, 17e,
+    17f)."""
+    import torch
+    t_phase = time.perf_counter()
+    r = make_renderer(1920, 1080, "cuda", env_map=ENV_FILE)
+    table = r.device_scene
+    scene = bvh_scene(r)
+    info = dict(triangles=r.scene.num_triangles,
+                nodes=int(scene.bvh.parent.shape[0]),
+                max_leaf=scene.bvh.max_leaf, depth=r._bvh_host.depth())
+
+    # 17a: the kernel against its plain version on luxball's recorded rays
+    rays, rec = record_bvh_rays(r)
+    seg = bvh_rays_vs_tables(r, scene, rays, rec, (2, 4), "tile_order",
+                             "trace_rol", "luxball")
+    if not any(seg[k]["any_hit"]["hits"] for k in (2, 4)):
+        raise AssertionError("17a: no recorded shadow ray was occluded")
+    edges = bvh_edges(scene, r._bvh_host, seed=17)
+    first = bvh_first_hits(scene, table, rays[2])
+    emit(dict(phase="bitstack_vs_plain", card=card, scene=LUXBALL,
+              env_map=ENV_FILE, **info, segments=seg, edge_cases=edges,
+              first_hit_differs_share=first))
+    del rec
+    torch.cuda.empty_cache()
+
+    # 17b: the wavefront on each route, the same seeds; the exact render
+    launches = {}
+
+    def add(more):
+        for k, v in more.items():
+            launches[k] = launches.get(k, 0) + v
+    _, tab_line = bvh_timed_run(r, card, table, "tables")
+    lb, bvh_line = bvh_timed_run(r, card, scene, "bitstack")
+    add(lb)
+    rel = abs(bvh_line["image_mean"] - tab_line["image_mean"]) / max(
+        tab_line["image_mean"], 1e-9)
+    emit(dict(phase="bitstack_path", card=card, scene=LUXBALL,
+              env_map=ENV_FILE, width=r.width, height=r.height,
+              paths=1 << 20, bitstack=bvh_line, tables=tab_line,
+              mean_rel_diff=rel, bias_gate=BIAS_GATE,
+              first_hit_differs_share=first))
+    if rel > BIAS_GATE:
+        raise AssertionError(f"17b: the bitstack film's mean differs by "
+                             f"{rel} from the table route's")
+    add(bvh_exact(r, card, scene))
+
+    # 17c: one megastep sample on each route
+    lm, mk_b = bvh_mk(r, card, scene, "bitstack")
+    add(lm)
+    _, mk_t = bvh_mk(r, card, table, "tables")
+    emit(dict(phase="bitstack_mk", card=card, depth=r.config.max_bounces,
+              bitstack=mk_b, tables=mk_t))
+
+    # 17f: parallel/'s entry points on the bitstack scene
+    add(bvh_sharded(card, r, scene))
+    r.device_scene = table
+    del r, scene, table, rays
+    torch.cuda.empty_cache()
+
+    # 17d: the 8x8 grid's recorded rays, beside K5
+    from fluctus_tpu_torch.accel import traverse as tt
+    g = make_renderer(1920, 1080, "cuda", LARGE)
+    gscene = bvh_scene(g)
+    grays, grec = record_bvh_rays(g, segs=(4,))
+    x = grays[4]
+    # the chunks: lanes strided over the pool, and for any-hit over its
+    # pending lanes
+    strided = lambda i: i[::max(1, i.shape[0] // BVH_GRID_CHUNK)][
+        :BVH_GRID_CHUNK]
+    lanes = strided(torch.arange(x["smax"].shape[0],
+                                 device=x["smax"].device))
+    pending = strided((x["smax"] > 0).nonzero()[:, 0])
+    cut = lambda v, k: type(v)(*(c[k] for c in v))
+    held = dict(
+        closest=bvh_check(gscene, cut(x["orig"], lanes),
+                          cut(x["dir"], lanes), tt.F32_MAX, False,
+                          "grid chunk", timed=False),
+        any_hit=bvh_check(gscene, cut(x["sorig"], pending),
+                          cut(x["sdir"], pending), x["smax"][pending], True,
+                          "grid chunk, shadow", timed=False),
+        shadow_pending=int((x["smax"] > 0).sum()))
+    grid = {}
+    for kind, (o, d, tm, anyh) in dict(
+            closest=(x["orig"], x["dir"], tt.F32_MAX, False),
+            any_hit=(x["sorig"], x["sdir"], x["smax"], True)).items():
+        grid[kind] = kernel_ms(lambda: tt.traverse(o, d, gscene.tris,
+                                                   gscene.bvh, tm, anyh))
+    grid.update(table_trace_ms(grec, 4, "tile_order", "trace_rol_sc"))
+    emit(dict(phase="bitstack_grid", card=card, scene=LARGE,
+              triangles=g.scene.num_triangles,
+              nodes=int(gscene.bvh.parent.shape[0]),
+              depth=g._bvh_host.depth(), rays=x["orig"].x.shape[0],
+              held_on_chunk=held, **grid))
+    if not (held["closest"]["hits"] and held["any_hit"]["hits"]):
+        raise AssertionError(f"17d: a held chunk without a hit: {held}")
+    del g, gscene, grays, grec
+    torch.cuda.empty_cache()
+
+    # 17e: the reference's entry step on the port's quad_scene
+    add(bvh_entry(card))
+
+    s4 = seg[4]["closest"]
+    entry = dict(max_abs_err=max(seg[k][m]["max_abs_err"] for k in (2, 4)
+                                 for m in ("closest", "any_hit")),
+                 ms=s4["ms"], plain_ms=s4["plain_ms"],
+                 bound_ms=s4["bound_ms"], bound_by=s4["bound_by"],
+                 library_ms=None, any_hit_ms=seg[4]["any_hit"]["ms"],
+                 table_k1_k2_ms=seg[4]["table_ms"],
+                 grid_ms=grid["closest"]["ms"],
+                 grid_k5_closest_ms=grid["trace_rol_sc_closest_ms"])
+    emit(dict(phase="phase_17", card=card,
+              seconds=time.perf_counter() - t_phase,
+              launches=launches["bvh_bitstack"]))
+    return entry, launches
+
+
 def main():
     import torch
     global TMP_ROOT
@@ -4592,7 +5291,7 @@ def main():
 
 
 def run(kb):
-    """Phases 1-16 (see the module docstring)."""
+    """Phases 1-17 (see the module docstring)."""
     import torch
 
     # phase 1: device and build
@@ -4725,21 +5424,25 @@ def run(kb):
     # 1-rank NCCL group (16d)
     launches_16 = phase_sharded(card, main)
 
+    # phase 17: the bitstack BVH route (17a-17e)
+    kres["bvh_bitstack"], launches_17 = phase_bitstack(card)
+
     # phase 10: result lines
     main_launches = {k: launches[k] + launches_l[k] + launches_p.get(k, 0)
                      + launches_d.get(k, 0) + launches_f.get(k, 0)
                      + launches_s.get(k, 0) + launches_t.get(k, 0)
                      + launches_r.get(k, 0) + launches_16.get(k, 0)
-                     for k in SOURCES}
+                     + launches_17.get(k, 0) for k in SOURCES}
     main_launches.update(
         block_splat_capped=(launches_x["block_splat_capped"]
                             + launches_p["block_splat_capped"]
                             + launches_d["block_splat_capped"]
                             + launches_r["block_splat_capped"]
-                            + launches_16["block_splat_capped"]),
+                            + launches_16["block_splat_capped"]
+                            + launches_17["block_splat_capped"]),
         fetch=(launches_x["fetch"] + launches_p["fetch"]
                + launches_d["fetch"] + launches_r["fetch"]
-               + launches_16["fetch"]),
+               + launches_16["fetch"] + launches_17["fetch"]),
         trace_ros=launches_ros["trace_ros"],
         resolve_v1=launches_k10["resolve_v1"])
     kres["block_splat"]["channels_8"]["launches"] = k4_8 + k4_8_r

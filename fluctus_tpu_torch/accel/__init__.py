@@ -1,3 +1,3 @@
-from .bvh import BVHArrays, build_bvh, export_bvh, import_bvh
+from .bvh import BVHArrays, SplitMode, build_bvh, export_bvh, import_bvh
 
-__all__ = ["BVHArrays", "build_bvh", "export_bvh", "import_bvh"]
+__all__ = ["BVHArrays", "SplitMode", "build_bvh", "export_bvh", "import_bvh"]

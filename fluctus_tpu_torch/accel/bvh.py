@@ -1,6 +1,5 @@
-"""SAH BVH builder and binary cache (the port's numpy copy of the SAH path
-and the cache of the reference package's accel/bvh.py; its median split
-modes are not ported).
+"""BVH builder and binary cache (the port's numpy copy of the reference
+package's accel/bvh.py: the SAH split and the two median splits).
 
 Re-implements the reference's top-down full-sweep SAH builder
 (src/bvh.cpp:237-440) with numpy-vectorized per-node sweeps: sort refs by
@@ -29,6 +28,12 @@ COST_BOX = 1.0
 COST_TRI = 1.0
 
 
+class SplitMode:
+    SPATIAL_MEDIAN = 0
+    OBJECT_MEDIAN = 1
+    SAH = 2
+
+
 class BVHArrays(NamedTuple):
     """Flat BVH (host, numpy). Interior: right_or_start = right child index.
     Leaf (n_prims > 0): right_or_start = start into `indices`."""
@@ -42,6 +47,12 @@ class BVHArrays(NamedTuple):
     @property
     def num_nodes(self):
         return len(self.n_prims)
+
+    def scene_bounds(self):
+        return self.box_min[0], self.box_max[0]
+
+    def max_leaf_size(self) -> int:
+        return int(self.n_prims.max()) if len(self.n_prims) else 0
 
     def depth(self) -> int:
         """Edges from the root to the deepest node, by pointer jumping:
@@ -65,10 +76,16 @@ def _aabb_area(bmin, bmax):
                   + d[..., 1] * d[..., 2])
 
 
-def build_bvh(positions: np.ndarray, progress=None) -> BVHArrays:
+def build_bvh(positions: np.ndarray, mode: int = SplitMode.SAH,
+              max_leaf: int = MAX_LEAF_ELEMS, progress=None) -> BVHArrays:
     """positions: [M, 3, 3] triangle vertices. Returns flat BVH arrays.
-    ``progress``, when given, is called with the number of leaves emitted
-    so far before each interior node's children are built."""
+    ``mode``: the SAH sweep, the object median (the centroid order along
+    the widest axis of the node's box, cut in half) or the spatial median
+    (cut at the middle of the centroids' widest extent; the object median
+    when that leaves a side empty; bvh.cpp:330-351). Nodes of at most
+    ``max_leaf`` triangles are leaves. ``progress``, when given, is called
+    with the number of leaves emitted so far before each interior node's
+    children are built."""
     m = positions.shape[0]
     if m == 0:
         raise ValueError("empty scene")
@@ -102,14 +119,28 @@ def build_bvh(positions: np.ndarray, progress=None) -> BVHArrays:
         node = emit_node(bmin, bmax, parent)
         k = len(sub)
 
-        if k <= MAX_LEAF_ELEMS or depth >= MAX_DEPTH:
+        if k <= max_leaf or depth >= MAX_DEPTH:
             nodes_nprims[node] = k
             nodes_right[node] = len(out_indices)
             out_indices.append(sub)
             return node
 
-        order, i_split = _sah_split(sub, tri_min, tri_max, centroid2,
-                                    bmin, bmax)
+        if mode == SplitMode.SAH:
+            order, i_split = _sah_split(sub, tri_min, tri_max, centroid2,
+                                        bmin, bmax)
+        elif mode == SplitMode.OBJECT_MEDIAN:
+            order, i_split = _median(sub, centroid2[sub],
+                                     int(np.argmax(bmax - bmin)))
+        else:
+            c = centroid2[sub]
+            cmin, cmax = c.min(axis=0), c.max(axis=0)
+            dim = int(np.argmax(cmax - cmin))
+            left_mask = c[:, dim] < 0.5 * (cmin[dim] + cmax[dim])
+            if left_mask.all() or not left_mask.any():
+                order, i_split = _median(sub, c, dim)
+            else:
+                order = np.argsort(~left_mask, kind="stable")
+                i_split = int(left_mask.sum()) - 1
         sub = sub[order]
         left, right = sub[:i_split + 1], sub[i_split + 1:]
         if progress is not None:
@@ -118,6 +149,13 @@ def build_bvh(positions: np.ndarray, progress=None) -> BVHArrays:
         nodes_right[node] = len(nodes_bmin)
         build(right, node, depth + 1)
         return node
+
+    def _median(sub, c, dim):
+        """The centroid order along ``dim`` (index tiebreak), cut after
+        its first half."""
+        k = len(sub)
+        return np.lexsort((sub, c[:, dim])), (k // 2 - 1 if k // 2 >= 1
+                                              else 0)
 
     def _sah_split(sub, tri_min, tri_max, centroid2, bmin, bmax):
         k = len(sub)

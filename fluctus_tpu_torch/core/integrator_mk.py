@@ -17,7 +17,9 @@ when ``config.use_roulette`` (``Renderer.render_single`` turns it off, as
 the reference's), textures and normal maps, and with ``config.denoiser``
 the denoiser's guide features (``FeatureFilm``). MIS weights,
 offsets (1e-3 shadow origin, 1e-4 continuation origin) and the
-lightPickProb = 1 convention are the reference's.
+lightPickProb = 1 convention are the reference's. A scene without cluster
+tables traces every ray through its BVH (accel/traverse.py), as the
+reference's does off its TPU.
 """
 
 from __future__ import annotations

@@ -34,6 +34,10 @@ into ``num_pixels + 1`` buckets, the last one the overflow bucket of
 lanes that do not splat (``scatter_pixels``). Under the spp cap each
 segment reads the spp by a gather and admits exactly each pixel's
 remaining budget, ranking a pixel's splatting lanes by a stable sort.
+
+Both rings render a scene without cluster tables too: its extension and
+shadow rays are traced through its BVH (accel/traverse.py), and the
+materials are resolved from the hits, as on tables that resolve nothing.
 """
 
 from __future__ import annotations
@@ -320,8 +324,10 @@ def wf_trace_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
     (wf_extrays.cl / wf_shadowrays.cl): under one shared sort, or, with
     ``flags.SORT_RAYS`` off, one by one in lane order. Non-pending shadow
     lanes get tmax = 0. Returns (raw=(t, col), occluded); raw is None when
-    the tables can resolve nothing (the reference's has_raw test,
-    integrator_wf.py:294-296)."""
+    the tables can resolve nothing or the scene has none (the reference's
+    has_raw test, integrator_wf.py:294-296): the extension ray is then
+    traced in the resolve phase, and a scene without tables traces its
+    shadow rays through the BVH's any_hit."""
     light = params.area_light if config.use_area_light else None
     shadow_tmax = torch.where(pool.shadow_pending, pool.shadow_len, 0.0)
     has_raw = has_resolve_tables(scene)

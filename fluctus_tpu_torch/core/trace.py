@@ -6,7 +6,8 @@ wf_shadowrays.cl:27-33): the wavefront's shared-order pair trace
 (``trace_pair``) and the single-set entry points (``trace_extension_raw``,
 ``trace_extension``, ``trace_shadow``) of the microkernel integrator, the
 pick and the wavefront with ``flags.SORT_RAYS`` off; the hit records of
-tables that can resolve nothing (``TrianglesDevice``,
+tables that can resolve nothing and of scenes without tables, which trace
+through the bitstack BVH (``accel/traverse.py``; ``TrianglesDevice``,
 ``reconstruct_hit``); and the normal mapping of the hits
 (``tangent_space_normal``, trace.py:237-270)."""
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..accel import mxu_trace as mt
+from ..accel.traverse import BVHDevice, any_hit, closest_hit
 from ..bsdf import ShadingParams
 from ..envmap import EnvMapTables
 from ..geom import AreaLight, Hit, MaterialsSoA
@@ -69,18 +71,24 @@ class DeviceScene(NamedTuple):
     the BXDF type bits present, the env map's tables (None without one),
     the texture atlas (None or count 0 without textures), when a material
     has a normal map ``tri_frames`` (``make_tri_frames``): the part of the
-    reference's TrianglesDevice that normal mapping reads; and, only for
-    tables that can resolve nothing (``has_resolve_tables`` False), the
+    reference's TrianglesDevice that normal mapping reads; and the
     triangle arrays ``tris`` and the materials ``mats`` that the trace's
-    third branch and ``resolve_material`` read. The other routes upload
-    neither."""
-    mxu: mt.MXUSceneT
-    material_types: int
+    third branch and ``resolve_material`` read, only for tables that can
+    resolve nothing (``has_resolve_tables`` False).
+
+    Without tables (``mxu`` None) the scene traces through the bitstack
+    BVH ``bvh`` (the reference's fourth route, trace.py:182-184 and
+    229-230): ``tris``, ``mats`` and ``bvh`` are uploaded for it. The
+    other routes upload none of the three. The route follows from the
+    scene's content alone."""
+    mxu: Optional[mt.MXUSceneT] = None
+    material_types: int = 0
     env: Optional[EnvMapTables] = None
     atlas: Optional[TextureAtlas] = None
     tri_frames: Optional[torch.Tensor] = None
     tris: Optional[TrianglesDevice] = None
     mats: Optional[MaterialsSoA] = None
+    bvh: Optional[BVHDevice] = None
 
 
 def make_tri_frames(p, uv, *, device) -> torch.Tensor:
@@ -177,8 +185,9 @@ def trace_extension_raw(orig: Vec3, d: Vec3, scene: DeviceScene):
 def has_resolve_tables(scene: DeviceScene) -> bool:
     """Whether the tables can resolve a winner column (the f32 ``attrs`` or
     the B16 table), the reference's test before its raw-hit path
-    (trace.py:155-156, integrator_wf.py:294-296)."""
-    return scene.mxu.attrs is not None or scene.mxu.b16r is not None
+    (trace.py:155-156, integrator_wf.py:294-296). False without tables."""
+    return scene.mxu is not None and (scene.mxu.attrs is not None
+                                      or scene.mxu.b16r is not None)
 
 
 def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
@@ -194,9 +203,14 @@ def trace_extension(orig: Vec3, d: Vec3, scene: DeviceScene,
     ignores ``raw``) + ``reconstruct_hit`` over ``scene.tris``, and the
     ShadingParams are None (the caller resolves them with
     ``resolve_material``). There, slim tables without ``txy_t`` give the
-    trace's packed t and u = v = 0, as in the reference."""
+    trace's packed t and u = v = 0, as in the reference. A scene without
+    tables traces through its BVH (``closest_hit``, trace.py:182-184) +
+    ``reconstruct_hit``, with ShadingParams None as well."""
     sp = None
-    if has_resolve_tables(scene):
+    if scene.mxu is None:
+        t, tri, u, v = closest_hit(orig, d, scene.tris, scene.bvh)
+        hit = reconstruct_hit(orig, d, t, tri, u, v, scene.tris)
+    elif has_resolve_tables(scene):
         t, col = raw if raw is not None else trace_extension_raw(orig, d,
                                                                  scene)
         row = mt.resolve_hits_mxu(orig, d, t, col, scene.mxu)
@@ -248,9 +262,13 @@ def trace_pair(orig: Vec3, d: Vec3, sorig: Vec3, sdir: Vec3, max_len,
 
 def trace_shadow(orig: Vec3, d: Vec3, max_len, scene: DeviceScene,
                  area_light: Optional[AreaLight], check_area_light):
-    """Occlusion query (any_hit_mxu), including the area-light body when a
-    light is given (wf_shadowrays.cl:27-33)."""
-    occ = mt.any_hit_mxu(orig, d, max_len, scene.mxu)
+    """Occlusion query (any_hit_mxu, or the BVH's any_hit on a scene
+    without tables), including the area-light body when a light is given
+    (wf_shadowrays.cl:27-33)."""
+    if scene.mxu is None:
+        occ = any_hit(orig, d, max_len, scene.tris, scene.bvh)
+    else:
+        occ = mt.any_hit_mxu(orig, d, max_len, scene.mxu)
     if area_light is not None:
         l_hit, _ = intersect_area_light(orig, d, area_light, max_len)
         occ = occ | (l_hit & check_area_light)

@@ -76,7 +76,9 @@ def replicate_scene(scene, mesh: DeviceMesh):
     """The scene's tensors on this rank's device: every rank holds the whole
     scene, which it built itself (the reference's design: each host loads
     its scene locally, parallel/distributed.py:6-9): on CUDA this
-    process's current card."""
+    process's current card. A scene without tables carries its BVH and
+    triangle arrays (``BVHDevice``, ``TrianglesDevice``); their int
+    ``max_leaf`` stays as it is."""
     dev = (torch.device("cuda", torch.cuda.current_device())
            if mesh.device_type == "cuda" else torch.device("cpu"))
     return _map(lambda a: a.to(dev), scene)
@@ -116,8 +118,10 @@ def render_sharded(scene, params, film: Film, seed, config,
     the shard index times the slice length, and the RenderStats are summed
     over the mesh by one all_reduce of 4 scalars. Nothing of the film's
     size crosses ranks (the pixel axis is embarrassingly parallel;
-    test_mk_sharded.py:115-146 holds the reference to the same). Returns
-    (film, seed, stats)."""
+    test_mk_sharded.py:115-146 holds the reference to the same). Through
+    a scene's BVH (no tables) each ray's trace is independent of every
+    other ray, so the film is bit-equal to the unsharded render_sample's
+    (test_mk_sharded.py:32-84). Returns (film, seed, stats)."""
     if config.denoiser:
         raise ValueError("the sharded megastep renders no guide features "
                          "(as the reference's)")

@@ -1,8 +1,10 @@
 """Small built-in scenes for smoke tests and the sharded checks (the
 reference package's testing.py), on the port's own builders: the BVH
 (``accel.build_bvh``), the cluster tables (``MXUScene.build`` uploaded by
-``tables_from_numpy``) and ``EnvironmentMap``. Each returns tensors on
-``device``: CUDA unless the caller passes the CPU."""
+``tables_from_numpy``) and ``EnvironmentMap``. ``quad_scene`` and
+``egyptcat_scene`` trace through the bitstack BVH (no tables, as the
+reference's), ``mxu_block_scene`` through the cluster tables. Each
+returns tensors on ``device``: CUDA unless the caller passes the CPU."""
 
 from __future__ import annotations
 
@@ -14,12 +16,14 @@ import torch
 from . import bxdf_types as bx
 from .accel import build_bvh
 from .accel import mxu_trace as mt
-from .core.trace import DeviceScene, make_tri_frames
+from .accel.traverse import BVHDevice
+from .core.trace import DeviceScene, TrianglesDevice, make_tri_frames
 from .envmap import EnvironmentMap
 from .geom import (AreaLight, Camera, PostProcessParams, RenderConfig,
                    RenderParams)
 from .renderer import resolve_device
 from .scene import Scene, default_material, pack_atlas
+from .scene.material import materials_to_soa
 
 
 def _f32(v, device):
@@ -39,10 +43,9 @@ def _uniform_env(device):
         np.ones((16, 32, 3), np.float32)).device_tables(device)
 
 
-def quad_scene(kd: float = 0.5, size: float = 50.0, with_env: bool = True,
-               device=None) -> DeviceScene:
-    """A large diffuse quad at z=0 facing +z under a uniform env map."""
-    dev = resolve_device(device)
+def quad_arrays(kd: float = 0.5, size: float = 50.0):
+    """quad_scene's host arrays: (positions, normals, uvs, material ids,
+    materials)."""
     p = np.array([
         [[-size, -size, 0.0], [size, -size, 0.0], [size, size, 0.0]],
         [[-size, -size, 0.0], [size, size, 0.0], [-size, size, 0.0]],
@@ -52,11 +55,29 @@ def quad_scene(kd: float = 0.5, size: float = 50.0, with_env: bool = True,
     t = np.zeros((2, 3, 2), np.float32)
     mat = default_material()
     mat.Kd = (kd, kd, kd)
+    return p, n, t, np.zeros(2, np.int32), [mat]
+
+
+def bitstack_scene(p, n, uv, mid, materials, material_types, device, *,
+                   env=None, atlas=None, tri_frames=None) -> DeviceScene:
+    """A DeviceScene without tables: the triangle arrays, the SAH BVH of
+    ``p`` and the materials, traced through the bitstack BVH."""
     return DeviceScene(
-        mxu=_tables(p, n, t, np.zeros(2, np.int32), [mat], dev),
-        material_types=bx.BXDF_DIFFUSE,
-        env=_uniform_env(dev) if with_env else None,
-        atlas=pack_atlas([], device=dev))
+        material_types=material_types, env=env,
+        atlas=atlas if atlas is not None else pack_atlas([], device=device),
+        tri_frames=tri_frames,
+        tris=TrianglesDevice.from_arrays(p, n, uv, mid, device=device),
+        mats=materials_to_soa(materials, device=device),
+        bvh=BVHDevice.from_host(build_bvh(p), device=device))
+
+
+def quad_scene(kd: float = 0.5, size: float = 50.0, with_env: bool = True,
+               device=None) -> DeviceScene:
+    """A large diffuse quad at z=0 facing +z under a uniform env map,
+    traced through its BVH (no tables, as the reference's)."""
+    dev = resolve_device(device)
+    return bitstack_scene(*quad_arrays(kd, size), bx.BXDF_DIFFUSE, dev,
+                          env=_uniform_env(dev) if with_env else None)
 
 
 def quad_setup(width: int = 32, height: int = 32, max_bounces: int = 3,
@@ -152,7 +173,8 @@ def egyptcat_scene(assets: str, width: int = 64, height: int = 32,
     """The flagship scene at test size: ``egyptcat/egyptcat.obj`` (GGX and
     textures) under ``env_maps/night.hdr``, both read from the asset
     directory ``assets`` (a missing file raises, as the reference's), with
-    the texture atlas and the env map's tables on the device.
+    the texture atlas, the env map's tables and the BVH on the device
+    (traced through the BVH, as the reference's).
 
     Returns (scene, params, config)."""
     dev = resolve_device(device)
@@ -162,9 +184,8 @@ def egyptcat_scene(assets: str, width: int = 64, height: int = 32,
     p, n, uv, mid = sc.triangle_arrays()
     atlas = sc.device_textures(device=dev)
     normal_maps = atlas.count > 0 and atlas.has_n
-    scene = DeviceScene(
-        mxu=_tables(p, n, uv, mid, sc.materials, dev, atlas=atlas),
-        material_types=sc.material_types,
+    scene = bitstack_scene(
+        p, n, uv, mid, sc.materials, sc.material_types, dev,
         env=sc.envmap.device_tables(dev), atlas=atlas,
         tri_frames=(make_tri_frames(p, uv, device=dev) if normal_maps
                     else None))

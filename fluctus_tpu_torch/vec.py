@@ -72,6 +72,12 @@ def dot(a: Vec3, b: Vec3) -> torch.Tensor:
     return a.x * b.x + a.y * b.y + a.z * b.z
 
 
+def cross(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(a.y * b.z - a.z * b.y,
+                a.z * b.x - a.x * b.z,
+                a.x * b.y - a.y * b.x)
+
+
 def length(a: Vec3) -> torch.Tensor:
     return torch.sqrt(dot(a, a))
 

@@ -4,12 +4,17 @@ package and against its own local simulation, on the CPU.
 - One shard's wavefront segments (``wf_segment(pixel_base=k*L)`` on shard
   k's slice of one reset) against the JAX package's, run as
   tests/test_wf_sharded.py runs them, on both packages' mxu_block_scene
-  (block ring) and quad_scene (flat ring), free-running and under the spp
-  cap, for every shard k; tolerances of test_torch_wavefront.py.
+  (block ring) and quad_scene (flat ring; the port's on its tables, the
+  reference's through its BVH), free-running and under the spp cap, and
+  quad_scene through the BVH in both packages on both rings (the
+  ``_bvh`` rings), for every shard k; tolerances of
+  test_torch_wavefront.py.
 - 2 and 4 gloo processes (tests/torch_parallel_ranks.py): the sharded
   wavefront is bit-equal to the local simulation and its reduced counters
   equal the sums; the sharded megastep is bit-equal to the unsharded
-  render_sample; every step issues exactly one all_reduce, of 4 scalars.
+  render_sample, on the tables and through the BVH (the counterpart of
+  tests/test_mk_sharded.py:32-84); every step issues exactly one
+  all_reduce, of 4 scalars.
 - The sliced render_sample, host_mesh_layout, init_distributed,
   shard_wf_state's errors and the test scenes' tables.
 
@@ -50,8 +55,15 @@ _jax_segment = jax.jit(jwf.wf_segment,
 
 
 def _jax_setup(ring):
-    """The JAX package's counterpart of ranks.wf_setup(ring)."""
-    if ring.startswith("block"):
+    """The JAX package's counterpart of ranks.wf_setup(ring): its
+    quad_scene traces through its BVH on every flat ring."""
+    if ring.endswith("bvh"):
+        scene = jtesting.quad_scene()
+        params, config = jtesting.quad_setup(
+            *ranks.FLAT_SIZE, max_bounces=2, use_area_light=True,
+            block_ring=ring.startswith("block"), groups=ranks.BVH_GROUPS)
+        tasks = ranks.FLAT_TASKS
+    elif ring.startswith("block"):
         scene, params, config = jtesting.mxu_block_scene(
             num_tasks=ranks.BLOCK_TASKS)
         tasks = ranks.BLOCK_TASKS
@@ -176,10 +188,10 @@ def test_wf_sharded_equals_local_simulation(sharded, ring):
         np.testing.assert_array_equal(r[ring]["counters"], sums)
 
 
-def _unsharded_mk():
-    """ranks.MK_STEPS samples of the unsharded render_sample: (film, seeds,
-    the stats of each step)."""
-    scene, params, config = ranks.mk_setup()
+def _unsharded_mk(route="tables"):
+    """ranks.MK_STEPS samples of the unsharded render_sample of
+    ranks.mk_setup(route): (film, seeds, the stats of each step)."""
+    scene, params, config = ranks.mk_setup(route)
     n = config.num_pixels
     film, seed = tmk.Film.zeros(n, "cpu"), torch.arange(n, dtype=torch.int64)
     stats = []
@@ -209,6 +221,19 @@ def test_mk_sharded_equals_unsharded(sharded):
         assert r["mk"]["stats"] == stats
 
 
+def test_mk_sharded_bitstack_equals_unsharded(sharded):
+    """The sharded megastep on quad_scene through its BVH (each ray's trace
+    independent of every other ray's): the gathered film and seeds
+    bit-equal the unsharded render_sample's, every rank's reduced stats
+    the unsharded stats of each step."""
+    world, res = sharded
+    film, seed, stats = _unsharded_mk("bvh")
+    assert film.weight.sum() > 0
+    _assert_unsharded(res[0]["mk_bvh"]["film"], film, seed)
+    for r in res:
+        assert r["mk_bvh"]["stats"] == stats
+
+
 def test_permuted_mesh(sharded):
     """On a mesh whose order is not rank order (ranks.permuted_mesh: [1, 0],
     or make_global_mesh's [0, 2, 1, 3] over alternating hosts), shard k
@@ -235,9 +260,9 @@ def test_one_scalar_all_reduce_per_step(sharded):
     world, res = sharded
     for r in res:
         steps = [c for ring in ranks.RINGS for c in r[ring]["calls"]]
-        steps += r["mk"]["calls"]
+        steps += r["mk"]["calls"] + r["mk_bvh"]["calls"]
         assert len(steps) == len(ranks.RINGS) * ranks.SEGMENTS \
-            + ranks.MK_STEPS
+            + 2 * ranks.MK_STEPS
         assert all(calls == [("all_reduce", 4)] for calls in steps), steps
 
 
@@ -262,12 +287,10 @@ def test_global_mesh_on_one_host(sharded):
         assert r["global_mesh"] == list(range(world))
 
 
-@pytest.mark.parametrize("d", WORLDS)
-def test_sliced_render_sample_concatenates(d):
-    """render_sample over d slices [k*L, (k+1)*L) of the film, each with its
-    seeds, concatenated: bit-equal to one unsharded call; the slices'
-    stats sum to its stats."""
-    scene, params, config = ranks.mk_setup()
+def _check_sliced(d, route):
+    """render_sample over d slices of ranks.mk_setup(route)'s film against
+    one unsharded call (test_sliced_render_sample_concatenates)."""
+    scene, params, config = ranks.mk_setup(route)
     n = config.num_pixels
     film0 = tmk.Film.zeros(n, "cpu")
     seed0 = torch.arange(n, dtype=torch.int64)
@@ -283,6 +306,21 @@ def test_sliced_render_sample_concatenates(d):
                        whole.weight)
     assert torch.equal(torch.cat([s for _, s, _ in parts]), seed)
     assert [sum(x) for x in zip(*(st for _, _, st in parts))] == list(stats)
+
+
+@pytest.mark.parametrize("d", WORLDS)
+def test_sliced_render_sample_concatenates(d):
+    """render_sample over d slices [k*L, (k+1)*L) of the film, each with its
+    seeds, concatenated: bit-equal to one unsharded call; the slices'
+    stats sum to its stats."""
+    _check_sliced(d, "tables")
+
+
+@pytest.mark.parametrize("d", WORLDS)
+def test_sliced_render_sample_bitstack(d):
+    """test_sliced_render_sample_concatenates on quad_scene through its
+    BVH."""
+    _check_sliced(d, "bvh")
 
 
 @pytest.mark.parametrize("ids", [[1, 0, 1, 0, 1, 0, 1, 0], [0, 0, 1, 1],

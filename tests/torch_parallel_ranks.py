@@ -91,24 +91,43 @@ def _np(tree):
     return [_np(x) for x in tree]
 
 
-RINGS = ("block", "flat", "block_capped", "flat_capped")
+RINGS = ("block", "flat", "block_capped", "flat_capped", "flat_bvh",
+         "block_bvh")
 CAP_SPP = 2
 FLAT_SIZE, FLAT_TASKS = (32, 8), 384      # 1.5 paths a pixel: uneven spp
 BLOCK_TASKS = 2048
+BVH_GROUPS = 4                            # block_bvh: 96 lanes a group
+
+
+def quad_tables_scene():
+    """quad_scene on the cluster-table route: its tables built explicitly
+    (the scene traces through its BVH otherwise)."""
+    from fluctus_tpu_torch import testing
+    return testing.quad_scene(device="cpu")._replace(
+        mxu=testing._tables(*testing.quad_arrays(), "cpu"), tris=None,
+        mats=None, bvh=None)
 
 
 def wf_setup(ring: str):
     """The scene, params, config and pool size of a sharded wavefront run:
     mxu_block_scene on the block ring, quad_scene under its area light
-    (so that pixels differ) on the flat one; a ``_capped`` ring renders
-    under the spp cap (CAP_SPP)."""
+    (so that pixels differ) on the flat one, on its tables; a ``_capped``
+    ring renders under the spp cap (CAP_SPP). The ``_bvh`` rings render
+    quad_scene through its BVH (no tables): ``flat_bvh`` as ``flat``,
+    ``block_bvh`` on the block ring of BVH_GROUPS groups."""
     from fluctus_tpu_torch import testing
-    if ring.startswith("block"):
+    if ring.endswith("bvh"):
+        scene = testing.quad_scene(device="cpu")
+        params, config = testing.quad_setup(
+            *FLAT_SIZE, max_bounces=2, use_area_light=True, device="cpu",
+            block_ring=ring.startswith("block"), groups=BVH_GROUPS)
+        tasks = FLAT_TASKS
+    elif ring.startswith("block"):
         scene, params, config = testing.mxu_block_scene(
             num_tasks=BLOCK_TASKS, device="cpu")
         tasks = BLOCK_TASKS
     else:
-        scene = testing.quad_scene(device="cpu")
+        scene = quad_tables_scene()
         params, config = testing.quad_setup(*FLAT_SIZE, max_bounces=2,
                                             use_area_light=True,
                                             device="cpu")
@@ -120,24 +139,50 @@ def wf_setup(ring: str):
     return scene, params, config, tasks
 
 
-def mk_setup():
-    """The scene, params and config of the sharded megastep: mxu_block_scene
-    (multi-cluster, GGX, the env map) with the area light on."""
+def mk_setup(route: str = "tables"):
+    """The scene, params and config of the sharded megastep: on "tables"
+    mxu_block_scene (multi-cluster, GGX, the env map) with the area light
+    on; on "bvh" quad_scene through its BVH under its area light, at the
+    flat rings' size."""
     from fluctus_tpu_torch import testing
+    if route == "bvh":
+        params, config = testing.quad_setup(*FLAT_SIZE, max_bounces=2,
+                                            use_area_light=True,
+                                            device="cpu")
+        return testing.quad_scene(device="cpu"), params, config
     scene, params, config = testing.mxu_block_scene(device="cpu")
     return scene, params, config.replace(use_area_light=True)
 
 
+def _mk_sharded(mesh, route):
+    """MK_STEPS sharded megastep samples of mk_setup(route): the stats and
+    collectives of each step, and the film and seeds gathered on shard 0."""
+    from fluctus_tpu_torch.core.integrator_mk import Film
+    from fluctus_tpu_torch.parallel import render_sharded
+    from fluctus_tpu_torch.parallel.mesh import gather_film, shard_film
+    scene, params, config = mk_setup(route)
+    n = config.num_pixels
+    film, seed = shard_film(Film.zeros(n, "cpu"),
+                            torch.arange(n, dtype=torch.int64), mesh)
+    stats, calls = [], []
+    for _ in range(MK_STEPS):
+        with CollectiveLog() as log:
+            film, seed, st = render_sharded(scene, params, film, seed,
+                                            config, mesh)
+        stats.append(list(st))
+        calls.append(log.calls)
+    return dict(stats=stats, calls=calls,
+                film=_np(gather_film(film, seed, mesh)))
+
+
 def rank_body(rank, world):
     """One rank's part: SEGMENTS sharded wavefront segments on each ring
-    and MK_STEPS sharded megastep samples, the collectives of each step,
-    the gathered results on rank 0, and shard_wf_state's errors."""
-    from fluctus_tpu_torch.core.integrator_mk import Film
+    and MK_STEPS sharded megastep samples on each route (mk_setup), the
+    collectives of each step, the gathered results on rank 0, and
+    shard_wf_state's errors."""
     from fluctus_tpu_torch.core.integrator_wf import wf_reset
-    from fluctus_tpu_torch.parallel import make_mesh, render_sharded
-    from fluctus_tpu_torch.parallel import replicate_scene
-    from fluctus_tpu_torch.parallel.mesh import (gather_film,
-                                                 gather_wf_state, shard_film,
+    from fluctus_tpu_torch.parallel import make_mesh, replicate_scene
+    from fluctus_tpu_torch.parallel.mesh import (gather_wf_state,
                                                  shard_wf_state,
                                                  wf_segment_sharded)
     from fluctus_tpu_torch.parallel.distributed import make_global_mesh
@@ -159,19 +204,8 @@ def rank_body(rank, world):
         out[ring] = dict(counters=counters, calls=calls,
                          state=_np(gather_wf_state(st, mesh)))
 
-    scene, params, config = mk_setup()
-    n = config.num_pixels
-    film, seed = shard_film(Film.zeros(n, "cpu"),
-                            torch.arange(n, dtype=torch.int64), mesh)
-    stats, calls = [], []
-    for _ in range(MK_STEPS):
-        with CollectiveLog() as log:
-            film, seed, st = render_sharded(scene, params, film, seed,
-                                            config, mesh)
-        stats.append(list(st))
-        calls.append(log.calls)
-    out["mk"] = dict(stats=stats, calls=calls,
-                     film=_np(gather_film(film, seed, mesh)))
+    out["mk"] = _mk_sharded(mesh, "tables")
+    out["mk_bvh"] = _mk_sharded(mesh, "bvh")
 
     # the divisibility checks: a pool, then a group count, that the mesh
     # size does not divide
