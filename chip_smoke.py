@@ -1271,6 +1271,7 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
     import torch
     from torch.profiler import ProfilerActivity, profile
     from fluctus_tpu_torch import kernel_build as kb
+    from fluctus_tpu_torch import profiling
     torch.cuda.synchronize()
     kb.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1287,7 +1288,7 @@ def profile_segments(r, card, ms_per_segment, n=2, run=None,
     rows = []
     for e in prof.key_averages():
         dt = getattr(e, "self_device_time_total", 0) or 0
-        if dt > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        if profiling.is_device_op(e):
             rows.append((dt, e.key, e.count))
     rows.sort(reverse=True)
     dev_ms = sum(dt for dt, _, _ in rows) / n / 1e3
@@ -1610,7 +1611,7 @@ def phase_exact(r, card):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches, plain = counts()
-    segments = len(r._wf_counters)
+    segments = r._wf_segments
     st = r.stats
     mrays = r.perf_mrays(elapsed)
     state = r._wf_state
@@ -1648,11 +1649,11 @@ def phase_exact(r, card):
 
     def accumulate():
         r.render_single(EXACT_SPP)
-        return len(r._wf_counters)
+        return r._wf_segments
     # the second render runs under the profiler
     profile_segments(r, card, elapsed / segments * 1e3, run=accumulate)
     film = r.film
-    again = len(r._wf_counters)
+    again = r._wf_segments
     spp = unpad_pixels(r._wf_state.spp, r.config)
     acc = bool((spp == 2 * EXACT_SPP).all()
                and (film.weight == 2 * EXACT_SPP).all())
@@ -1660,7 +1661,7 @@ def phase_exact(r, card):
     reinit = (r._wf_cfg.max_spp == 0 and not r._wf_exact_mode
               and float(r.current_film().weight.sum()) > 0)
     emit(dict(phase="exact_accumulate", segments=again,
-              wavefront_segments=len(r._wf_counters), accumulated_exact=acc,
+              wavefront_segments=r._wf_segments, accumulated_exact=acc,
               wavefront_reinit=reinit, card=card))
     if not (acc and reinit):
         raise AssertionError(f"exact path: accumulate {acc}, re-init "
@@ -2063,7 +2064,7 @@ def phase_k10(card, b16_main):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     x_launches, plain = counts()
-    segments = len(r._wf_counters)
+    segments = r._wf_segments
     spp = unpad_pixels(r._wf_state.spp, r.config)
     exact = bool((spp == K10_SPP).all() and (film.weight == K10_SPP).all())
     emit(dict(phase="k10_route", card=card, image_mean=main["image_mean"],
@@ -2197,6 +2198,7 @@ def device_ms_of(fn, reps=4):
     launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from fluctus_tpu_torch import profiling
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2207,7 +2209,7 @@ def device_ms_of(fn, reps=4):
     dev_us, ops = 0.0, 0
     for e in prof.key_averages():
         dt = getattr(e, "self_device_time_total", 0) or 0
-        if dt > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        if profiling.is_device_op(e):
             dev_us += dt
             ops += e.count
     return dev_us / reps / 1e3, ops / reps
@@ -2280,7 +2282,7 @@ def phase_env(card, plain_main):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches, plain = counts()
-    segments = len(r._wf_counters)
+    segments = r._wf_segments
     spp = unpad_pixels(r._wf_state.spp, r.config)
     exact = bool((spp == ENV_SPP).all() and (film.weight == ENV_SPP).all())
     finite = bool(all(torch.isfinite(c).all() for c in film.color))
@@ -2657,7 +2659,7 @@ def phase_production(card, lux_kres):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     lc, plain = counts()
-    segments = len(r._wf_counters)
+    segments = r._wf_segments
     spp = unpad_pixels(r._wf_state.spp, r.config)
     exact = bool((spp == PROD_SPP).all() and (film.weight == PROD_SPP).all())
     check_launches(lc, plain, PER_SEGMENT_EXACT, segments,
@@ -2771,7 +2773,7 @@ def phase_denoiser(card, prod):
     elapsed = time.perf_counter() - t0
     lx, plain = counts()
     exact_k4 = dict(kb.KERNELS["block_splat"].launches_by)
-    segments = len(r._wf_counters)
+    segments = r._wf_segments
     check_launches(lx, plain, PER_SEGMENT_EXACT_DENOISE, segments,
                    "denoiser exact path")
     exact_widths = check_free_splats(xrec.free, "denoiser exact path")
@@ -3139,7 +3141,7 @@ def phase_flat(card, exact_line, plain_main):
     out = dict(phase="flat_exact", card=card, paths=FLAT_POOL,
                groups=r.config.groups, config_block_ring=r.config.block_ring,
                block_ring=r._wf_cfg.block_ring, spp=FLAT_SPP,
-               seconds=elapsed, segments=len(r._wf_counters),
+               seconds=elapsed, segments=r._wf_segments,
                mrays_per_s=r.perf_mrays(elapsed)["total"],
                spp_and_weight_exact=exact, tonemapped_mean=mean,
                block_ring_run=dict(
@@ -3149,7 +3151,7 @@ def phase_flat(card, exact_line, plain_main):
                    tonemapped_mean=exact_line["tonemapped_mean"]),
                relative_bias=bias, gate=BIAS_GATE, launches=lx)
     emit(out)
-    check_launches(lx, plain, PER_SEGMENT_FLAT, len(r._wf_counters),
+    check_launches(lx, plain, PER_SEGMENT_FLAT, r._wf_segments,
                    "13b flat exact path")
     if not (r.config.block_ring and not r._wf_cfg.block_ring and exact
             and bias < BIAS_GATE):
@@ -4026,7 +4028,7 @@ def phase_harness(card, main_line, prof_line):
                                                 "control")
         t = time.perf_counter()
         r.wavefront_stats()
-        return av["total"], len(r._wf_counters), time.perf_counter() - t
+        return av["total"], r._wf_segments, time.perf_counter() - t
     runs = [direct(), loop(), direct(), loop()]
     emit(dict(phase="harness_loop_control", card=card,
               direct_mrays_per_s=runs[0::2],

@@ -48,6 +48,7 @@ import torch
 
 from .. import flags
 from .. import kernel_build as kb
+from ..profiling import span
 from ..vec import Vec3
 from .bvh import BVHArrays
 
@@ -1329,35 +1330,39 @@ def _sorted_trace_pair(eo4, ed4, so4, sd4, sh_tmax_col, scene: MXUSceneT):
     b = eo4.shape[0]
     dev = eo4.device
     lo, hi = scene.lo, scene.hi
-    fmax = torch.full((b, 1), float(F32_MAX), dtype=torch.float32,
-                      device=dev)
-    sh_tm = _exit_clamp(so4, sd4, sh_tmax_col, lo, hi)
-    kmaj, kmin = _sort_key(eo4, ed4, lo, hi)
-    skey = (kmaj << 12) | (kmin >> 9)
-    etm = _exit_clamp(eo4, ed4, fmax, lo, hi)
-    skey = torch.where(etm[:, 0] <= 0.0, 0x7FFFFFFF, skey)
-    _, sidx = torch.sort(skey, stable=True)
-    srt = _perm_apply(sidx, [
-        eo4[:, 0], eo4[:, 1], eo4[:, 2],
-        ed4[:, 0], ed4[:, 1], ed4[:, 2],
-        so4[:, 0], so4[:, 1], so4[:, 2],
-        sd4[:, 0], sd4[:, 1], sd4[:, 2], sh_tm[:, 0]])
-    ones = torch.ones(b, dtype=torch.float32, device=dev)
-    zeros = torch.zeros(b, dtype=torch.float32, device=dev)
-    eo4s = torch.stack([srt[0], srt[1], srt[2], ones], dim=1)
-    ed4s = torch.stack([srt[3], srt[4], srt[5], zeros], dim=1)
-    so4s = torch.stack([srt[6], srt[7], srt[8], ones], dim=1)
-    sd4s = torch.stack([srt[9], srt[10], srt[11], zeros], dim=1)
-    stm = srt[12]
-    etm_s = _exit_clamp(eo4s, ed4s, fmax, lo, hi)
-    t_e, i_e = _dispatch_trace(eo4s, ed4s, etm_s, scene, False)
-    _, i_s = _dispatch_trace(so4s, sd4s, stm.reshape(b, 1), scene, True)
-    packed = (i_e[:, 0] + 1) | torch.where(i_s[:, 0] >= 0, 1 << 30, 0).to(
-        torch.int32)
-    t_out, p_out = _perm_unsort2(sidx, t_e[:, 0], packed)
-    occ = (p_out >> 30) > 0
-    col = (p_out & ((1 << 30) - 1)) - 1
-    t_out = torch.where(col >= 0, t_out, float(F32_MAX))
+    with span("flt::trace.sort"):
+        fmax = torch.full((b, 1), float(F32_MAX), dtype=torch.float32,
+                          device=dev)
+        sh_tm = _exit_clamp(so4, sd4, sh_tmax_col, lo, hi)
+        kmaj, kmin = _sort_key(eo4, ed4, lo, hi)
+        skey = (kmaj << 12) | (kmin >> 9)
+        etm = _exit_clamp(eo4, ed4, fmax, lo, hi)
+        skey = torch.where(etm[:, 0] <= 0.0, 0x7FFFFFFF, skey)
+        _, sidx = torch.sort(skey, stable=True)
+        srt = _perm_apply(sidx, [
+            eo4[:, 0], eo4[:, 1], eo4[:, 2],
+            ed4[:, 0], ed4[:, 1], ed4[:, 2],
+            so4[:, 0], so4[:, 1], so4[:, 2],
+            sd4[:, 0], sd4[:, 1], sd4[:, 2], sh_tm[:, 0]])
+        ones = torch.ones(b, dtype=torch.float32, device=dev)
+        zeros = torch.zeros(b, dtype=torch.float32, device=dev)
+        eo4s = torch.stack([srt[0], srt[1], srt[2], ones], dim=1)
+        ed4s = torch.stack([srt[3], srt[4], srt[5], zeros], dim=1)
+        so4s = torch.stack([srt[6], srt[7], srt[8], ones], dim=1)
+        sd4s = torch.stack([srt[9], srt[10], srt[11], zeros], dim=1)
+        stm = srt[12]
+        etm_s = _exit_clamp(eo4s, ed4s, fmax, lo, hi)
+    with span("flt::trace.closest"):
+        t_e, i_e = _dispatch_trace(eo4s, ed4s, etm_s, scene, False)
+    with span("flt::trace.anyhit"):
+        _, i_s = _dispatch_trace(so4s, sd4s, stm.reshape(b, 1), scene, True)
+    with span("flt::trace.unsort"):
+        packed = (i_e[:, 0] + 1) | torch.where(i_s[:, 0] >= 0, 1 << 30,
+                                               0).to(torch.int32)
+        t_out, p_out = _perm_unsort2(sidx, t_e[:, 0], packed)
+        occ = (p_out >> 30) > 0
+        col = (p_out & ((1 << 30) - 1)) - 1
+        t_out = torch.where(col >= 0, t_out, float(F32_MAX))
     return t_out.reshape(b, 1), col.reshape(b, 1), occ
 
 

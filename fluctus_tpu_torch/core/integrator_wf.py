@@ -53,6 +53,7 @@ from ..bsdf import (apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample,
                     resolve_material)
 from ..envmap import env_radiance_and_pdf, env_sample
 from ..geom import MIN_PATH_LENGTH, RenderConfig, RenderParams
+from ..profiling import span
 from ..rng import burtle_hash, rand
 from ..sampling import pdf_area_to_solid_angle, sample_area_light
 from ..vec import Vec3, dot, is_zero, length, luminance, where as vwhere
@@ -313,9 +314,10 @@ def wf_segment(scene: DeviceScene, params: RenderParams, state: WfState,
     rank owns one slice of the film and the pool, and its own ring
     cursor(s). ``pixel_base`` counts padded pixels on the block ring (a
     multiple of the padded group size) and true pixels on the flat one."""
-    raw, occluded = wf_trace_phase(scene, state.pool, params, config)
-    return wf_shade_phase(scene, params, state, config, raw, occluded,
-                          pixel_base)
+    with span("flt::segment"):
+        raw, occluded = wf_trace_phase(scene, state.pool, params, config)
+        return wf_shade_phase(scene, params, state, config, raw, occluded,
+                              pixel_base)
 
 
 def wf_trace_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
@@ -328,17 +330,18 @@ def wf_trace_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
     has_raw test, integrator_wf.py:294-296): the extension ray is then
     traced in the resolve phase, and a scene without tables traces its
     shadow rays through the BVH's any_hit."""
-    light = params.area_light if config.use_area_light else None
-    shadow_tmax = torch.where(pool.shadow_pending, pool.shadow_len, 0.0)
-    has_raw = has_resolve_tables(scene)
-    if has_raw and flags.SORT_RAYS:
-        return trace_pair(pool.orig, pool.dir, pool.shadow_orig,
-                          pool.shadow_dir, shadow_tmax, scene, light)
-    raw = trace_extension_raw(pool.orig, pool.dir, scene) if has_raw \
-        else None
-    occluded = trace_shadow(pool.shadow_orig, pool.shadow_dir, shadow_tmax,
-                            scene, light, True)
-    return raw, occluded
+    with span("flt::trace"):
+        light = params.area_light if config.use_area_light else None
+        shadow_tmax = torch.where(pool.shadow_pending, pool.shadow_len, 0.0)
+        has_raw = has_resolve_tables(scene)
+        if has_raw and flags.SORT_RAYS:
+            return trace_pair(pool.orig, pool.dir, pool.shadow_orig,
+                              pool.shadow_dir, shadow_tmax, scene, light)
+        raw = trace_extension_raw(pool.orig, pool.dir, scene) if has_raw \
+            else None
+        occluded = trace_shadow(pool.shadow_orig, pool.shadow_dir,
+                                shadow_tmax, scene, light, True)
+        return raw, occluded
 
 
 def wf_resolve_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
@@ -352,9 +355,12 @@ def wf_resolve_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
 def wf_shade_phase(scene: DeviceScene, params: RenderParams, state: WfState,
                    config: RenderConfig, raw, occluded, pixel_base: int = 0):
     """Resolve + logic, the second program of a segment."""
-    hit, sp = wf_resolve_phase(scene, state.pool, params, config, raw)
-    return wf_logic_phase(scene, params, state, config, hit, sp, occluded,
-                          pixel_base)
+    with span("flt::shade"):
+        with span("flt::shade.resolve"):
+            hit, sp = wf_resolve_phase(scene, state.pool, params, config, raw)
+        with span("flt::shade.logic"):
+            return wf_logic_phase(scene, params, state, config, hit, sp,
+                                  occluded, pixel_base)
 
 
 def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
@@ -388,162 +394,244 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     plen = pool.path_len + 1
     shadow_blocked = torch.where(pool.shadow_pending, occluded, True)
 
-    # ---- LOGIC (wf_logic.cl) ---------------------------------------------
-    terminate = plen <= 0   # pre-birth paths regenerate without splatting
-    if cfg.max_bounces > 0:
-        terminate |= plen >= (cfg.max_bounces + 1)
+    with span("flt::shade.logic.terminate"):
+        # ---- LOGIC (wf_logic.cl) --------------------------------------------
+        terminate = plen <= 0   # pre-birth paths regenerate without splatting
+        if cfg.max_bounces > 0:
+            terminate |= plen >= (cfg.max_bounces + 1)
 
-    # Russian roulette with the T / contProb compensation (wf_logic.cl:
-    # 62-74); its draw comes before the spp cap's fetch, as the reference's
-    if cfg.use_roulette:
-        u_rr, seed = rand(seed)
-        cp = torch.clamp(luminance(T), 0.01, 0.5)
-        rr = ~terminate & (plen > MIN_PATH_LENGTH)
-        terminate |= rr & (u_rr > cp)
-        T = vwhere(rr, T / cp, T)
+        # Russian roulette with the T / contProb compensation (wf_logic.cl:
+        # 62-74); its draw comes before the spp cap's fetch, as the reference's
+        if cfg.use_roulette:
+            u_rr, seed = rand(seed)
+            cp = torch.clamp(luminance(T), 0.01, 0.5)
+            rr = ~terminate & (plen > MIN_PATH_LENGTH)
+            terminate |= rr & (u_rr > cp)
+            T = vwhere(rr, T / cp, T)
 
-    max_samples_reached = torch.zeros(n, dtype=torch.bool, device=dev)
-    if cfg.max_spp > 0:
-        # the cap's value comes from params (spp retargets), its presence
-        # and fallback value from the config (integrator_wf.py:392-406)
-        cap = torch.as_tensor(params.max_spp, dtype=torch.int32, device=dev)
-        spp_cap = torch.where(cap > 0, cap, cfg.max_spp)
-        if block:
-            pix_spp = bs.fetch(torch.remainder(lpid, pk_).to(torch.int32),
-                               state.spp.to(torch.float32)[None, :],
-                               groups=g_local).to(torch.int32)
-        else:
-            # pre-birth lanes (pixel 0 from wf_reset) lie outside a slice
-            # that does not start at 0: clamped, they read a count they
-            # never use (they terminate without splatting)
-            idx = (torch.clamp(lpid, 0, num_pixels - 1) if pixel_base
-                   else lpid)
-            pix_spp = state.spp[idx.long()]
-        max_samples_reached = pix_spp >= spp_cap
-        terminate |= max_samples_reached
+        max_samples_reached = torch.zeros(n, dtype=torch.bool, device=dev)
+        if cfg.max_spp > 0:
+            # the cap's value comes from params (spp retargets), its presence
+            # and fallback value from the config (integrator_wf.py:392-406)
+            cap = torch.as_tensor(params.max_spp, dtype=torch.int32,
+                                  device=dev)
+            spp_cap = torch.where(cap > 0, cap, cfg.max_spp)
+            if block:
+                pix_spp = bs.fetch(torch.remainder(lpid, pk_).to(torch.int32),
+                                   state.spp.to(torch.float32)[None, :],
+                                   groups=g_local).to(torch.int32)
+            else:
+                # pre-birth lanes (pixel 0 from wf_reset) lie outside a slice
+                # that does not start at 0: clamped, they read a count they
+                # never use (they terminate without splatting)
+                idx = (torch.clamp(lpid, 0, num_pixels - 1) if pixel_base
+                       else lpid)
+                pix_spp = state.spp[idx.long()]
+            max_samples_reached = pix_spp >= spp_cap
+            terminate |= max_samples_reached
 
-    terminate |= is_zero(T) | (pool.last_pdf_w == 0.0)
-    use_mis = (plen > 1) & ~pool.last_specular
+        terminate |= is_zero(T) | (pool.last_pdf_w == 0.0)
+        use_mis = (plen > 1) & ~pool.last_specular
 
-    # ---- implicit environment hit (wf_logic.cl:98-122): the camera ray's
-    # always, later ones with implicit sampling, MIS-weighted when NEE is
-    # on too
-    if use_env:
-        miss = (hit.i < 0) & ~terminate & (plen > 0)
-        bg_raw, direct_pdf = env_radiance_and_pdf(scene.env, pool.dir,
-                                                  cfg.fast_env)
-        bg = bg_raw * params.env_map_strength
-        if not cfg.sample_impl:
-            bg = vwhere(plen == 1, bg, Vec3.zeros(n, dev))
-        w = 1.0
-        if cfg.sample_impl and cfg.sample_expl:
-            actual = pool.last_pdf_w * pool.last_light_pick
-            w_mis = actual / torch.clamp_min(actual + direct_pdf, 1e-30)
-            w = torch.where(use_mis, w_mis, 1.0)
-        Ei = vwhere(miss, Ei + T * bg * w, Ei)
-    terminate |= hit.i < 0
+    with span("flt::shade.logic.env"):
+        # ---- implicit environment hit (wf_logic.cl:98-122): the camera ray's
+        # always, later ones with implicit sampling, MIS-weighted when NEE is
+        # on too
+        if use_env:
+            miss = (hit.i < 0) & ~terminate & (plen > 0)
+            bg_raw, direct_pdf = env_radiance_and_pdf(scene.env, pool.dir,
+                                                      cfg.fast_env)
+            bg = bg_raw * params.env_map_strength
+            if not cfg.sample_impl:
+                bg = vwhere(plen == 1, bg, Vec3.zeros(n, dev))
+            w = 1.0
+            if cfg.sample_impl and cfg.sample_expl:
+                actual = pool.last_pdf_w * pool.last_light_pick
+                w_mis = actual / torch.clamp_min(actual + direct_pdf, 1e-30)
+                w = torch.where(use_mis, w_mis, 1.0)
+            Ei = vwhere(miss, Ei + T * bg * w, Ei)
+        terminate |= hit.i < 0
 
-    # ---- implicit area light hit (wf_logic.cl:124-147), MIS-weighted when
-    # NEE is on (the trace only reports it with implicit sampling)
-    if light is not None:
-        al = (hit.area_light_hit > 0) & ~terminate
-        mis_w = 1.0
+    with span("flt::shade.logic.light"):
+        # ---- implicit area light hit (wf_logic.cl:124-147), MIS-weighted when
+        # NEE is on (the trace only reports it with implicit sampling)
+        if light is not None:
+            al = (hit.area_light_hit > 0) & ~terminate
+            mis_w = 1.0
+            if cfg.sample_expl:
+                pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
+                dist = length(hit.P - pool.orig)
+                pdf_w = pdf_area_to_solid_angle(pdf_a, dist,
+                                                -dot(pool.dir, hit.N))
+                w_mis = pool.last_pdf_w / torch.clamp_min(
+                    pool.last_pdf_w + pdf_w * pool.last_light_pick, 1e-30)
+                mis_w = torch.where(use_mis, w_mis, 1.0)
+            Ei = vwhere(al, Ei + T * light.E * mis_w, Ei)
+            terminate |= al
+
+    with span("flt::shade.logic.nee"):
+        # ---- NEE shadow-ray resolution (wf_logic.cl:149-168) ----------------
         if cfg.sample_expl:
-            pdf_a = 1.0 / (4.0 * light.size_x * light.size_y)
-            dist = length(hit.P - pool.orig)
-            pdf_w = pdf_area_to_solid_angle(pdf_a, dist,
-                                            -dot(pool.dir, hit.N))
-            w_mis = pool.last_pdf_w / torch.clamp_min(
-                pool.last_pdf_w + pdf_w * pool.last_light_pick, 1e-30)
-            mis_w = torch.where(use_mis, w_mis, 1.0)
-        Ei = vwhere(al, Ei + T * light.E * mis_w, Ei)
-        terminate |= al
+            unblocked = ~shadow_blocked
+            denom = (pool.last_light_pick * pool.last_pdf_direct
+                     + (1.0 if cfg.sample_impl else 0.0)
+                     * pool.last_pdf_implicit)
+            contrib = pool.last_bsdf * pool.last_T * pool.last_emission * (
+                pool.last_cos_th / torch.clamp_min(denom, 1e-30))
+            Ei = vwhere(unblocked, Ei + contrib, Ei)
 
-    # ---- NEE shadow-ray resolution (wf_logic.cl:149-168) ------------------
-    if cfg.sample_expl:
-        unblocked = ~shadow_blocked
-        denom = (pool.last_light_pick * pool.last_pdf_direct
-                 + (1.0 if cfg.sample_impl else 0.0)
-                 * pool.last_pdf_implicit)
-        contrib = pool.last_bsdf * pool.last_T * pool.last_emission * (
-            pool.last_cos_th / torch.clamp_min(denom, 1e-30))
-        Ei = vwhere(unblocked, Ei + contrib, Ei)
-
-    # ---- splat terminated paths (wf_logic.cl:171-205) ---------------------
-    splat = terminate & (plen > 0) & ~max_samples_reached
-    film = state.film
-    splat_records = None
-    if block:
-        data_t = torch.stack([torch.where(splat, Ei.x, 0.0),
-                              torch.where(splat, Ei.y, 0.0),
-                              torch.where(splat, Ei.z, 0.0),
-                              splat.to(torch.float32)], dim=0)
-        local_col = torch.where(splat, torch.remainder(lpid, pk_), -1).to(
-            torch.int32)
-        fmat = torch.stack([film.color.x, film.color.y, film.color.z,
-                            film.weight], dim=0)
-        if cfg.max_spp > 0:
-            # each pixel admits exactly its remaining budget (K7); the
-            # weight deltas are whole numbers below 2^24, so rounding them
-            # is exact
-            remaining = torch.clamp_min(spp_cap - state.spp, 0).to(
-                torch.float32)[None, :]
-            new_mat = bs.splat(local_col, data_t, fmat, groups=g_local,
-                               remaining=remaining)
-            delta_w = new_mat[3] - film.weight
-            spp_counts = state.spp + torch.round(delta_w).to(torch.int32)
-            n_splatted = torch.round(delta_w.sum()).to(torch.int32)
+    with span("flt::shade.logic.splat"):
+        # ---- splat terminated paths (wf_logic.cl:171-205) -------------------
+        splat = terminate & (plen > 0) & ~max_samples_reached
+        film = state.film
+        splat_records = None
+        if block:
+            data_t = torch.stack([torch.where(splat, Ei.x, 0.0),
+                                  torch.where(splat, Ei.y, 0.0),
+                                  torch.where(splat, Ei.z, 0.0),
+                                  splat.to(torch.float32)], dim=0)
+            local_col = torch.where(splat, torch.remainder(lpid, pk_), -1).to(
+                torch.int32)
+            fmat = torch.stack([film.color.x, film.color.y, film.color.z,
+                                film.weight], dim=0)
+            if cfg.max_spp > 0:
+                # each pixel admits exactly its remaining budget (K7); the
+                # weight deltas are whole numbers below 2^24, so rounding them
+                # is exact
+                remaining = torch.clamp_min(spp_cap - state.spp, 0).to(
+                    torch.float32)[None, :]
+                new_mat = bs.splat(local_col, data_t, fmat, groups=g_local,
+                                   remaining=remaining)
+                delta_w = new_mat[3] - film.weight
+                spp_counts = state.spp + torch.round(delta_w).to(torch.int32)
+                n_splatted = torch.round(delta_w.sum()).to(torch.int32)
+            else:
+                new_mat = bs.splat(local_col, data_t, fmat, groups=g_local)
+                spp_counts = state.spp
+                n_splatted = splat.sum()
+            film = Film(color=Vec3(new_mat[0], new_mat[1], new_mat[2]),
+                        weight=new_mat[3])
         else:
-            new_mat = bs.splat(local_col, data_t, fmat, groups=g_local)
-            spp_counts = state.spp
+            if cfg.max_spp > 0:
+                # exact admission (integrator_wf.py:453-471): rank each
+                # pixel's splatting lanes in lane order and admit the pixel's
+                # remaining budget
+                rank = run_ranks(torch.where(splat, lpid, 0x7FFFFFFF))
+                splat &= rank < (spp_cap - pix_spp)
+            data = torch.stack([torch.where(splat, Ei.x, 0.0),
+                                torch.where(splat, Ei.y, 0.0),
+                                torch.where(splat, Ei.z, 0.0),
+                                splat.to(torch.float32)], dim=1)
+            seg = torch.where(splat, lpid, num_pixels).to(torch.int32)
             n_splatted = splat.sum()
-        film = Film(color=Vec3(new_mat[0], new_mat[1], new_mat[2]),
-                    weight=new_mat[3])
-    else:
-        if cfg.max_spp > 0:
-            # exact admission (integrator_wf.py:453-471): rank each
-            # pixel's splatting lanes in lane order and admit the pixel's
-            # remaining budget
-            rank = run_ranks(torch.where(splat, lpid, 0x7FFFFFFF))
-            splat &= rank < (spp_cap - pix_spp)
-        data = torch.stack([torch.where(splat, Ei.x, 0.0),
-                            torch.where(splat, Ei.y, 0.0),
-                            torch.where(splat, Ei.z, 0.0),
-                            splat.to(torch.float32)], dim=1)
-        seg = torch.where(splat, lpid, num_pixels).to(torch.int32)
-        n_splatted = splat.sum()
-        spp_counts = state.spp
-        acc = scatter_pixels(seg, data, num_pixels)
-        film = Film(color=Vec3(film.color.x + acc[:, 0],
-                               film.color.y + acc[:, 1],
-                               film.color.z + acc[:, 2]),
-                    weight=film.weight + acc[:, 3])
-        if cfg.max_spp > 0:
-            spp_counts = torch.minimum(
-                spp_counts + scatter_pixels(seg, splat.to(torch.int32),
-                                            num_pixels),
-                spp_cap)
+            spp_counts = state.spp
+            acc = scatter_pixels(seg, data, num_pixels)
+            film = Film(color=Vec3(film.color.x + acc[:, 0],
+                                   film.color.y + acc[:, 1],
+                                   film.color.z + acc[:, 2]),
+                        weight=film.weight + acc[:, 3])
+            if cfg.max_spp > 0:
+                spp_counts = torch.minimum(
+                    spp_counts + scatter_pixels(seg, splat.to(torch.int32),
+                                                num_pixels),
+                    spp_cap)
 
-    # ---- shading of surviving paths: NEE generation + material ------------
-    alive = ~terminate
-    if sp is None:      # tables that resolve nothing (trace.py's third branch)
-        sp = resolve_material(scene.mats, hit.mat_id, hit.uv_u, hit.uv_v,
-                              scene.atlas)
-    else:
-        sp = apply_textures(sp, hit.uv_u, hit.uv_v, scene.atlas)
+    with span("flt::shade.logic.surface"):
+        # ---- shading of surviving paths: NEE generation + material ----------
+        alive = ~terminate
+        if sp is None:  # tables that resolve nothing (trace.py's third branch)
+            sp = resolve_material(scene.mats, hit.mat_id, hit.uv_u,
+                                  hit.uv_v, scene.atlas)
+        else:
+            sp = apply_textures(sp, hit.uv_u, hit.uv_v, scene.atlas)
 
-    # implicit triangle emission (weight-1; emissive surfaces are never
-    # NEE-sampled as lights)
-    em = alive & (hit.i >= 0) & (sp.type == bx.BXDF_EMISSIVE)
-    Ei = vwhere(em, Ei + T * sp.Ke, Ei)
+        # implicit triangle emission (weight-1; emissive surfaces are never
+        # NEE-sampled as lights)
+        em = alive & (hit.i >= 0) & (sp.type == bx.BXDF_EMISSIVE)
+        Ei = vwhere(em, Ei + T * sp.Ke, Ei)
 
-    nrm = tangent_space_normal(hit, scene.tri_frames, sp.map_N, scene.atlas,
-                               meta=sp.n_meta)
-    backface = dot(nrm, pool.dir) > 0.0
-    nrm = vwhere(backface, -nrm, nrm)
-    nee_orig = hit.P - pool.dir * 1e-3
+        nrm = tangent_space_normal(hit, scene.tri_frames, sp.map_N,
+                                   scene.atlas, meta=sp.n_meta)
+        backface = dot(nrm, pool.dir) > 0.0
+        nrm = vwhere(backface, -nrm, nrm)
+        nee_orig = hit.P - pool.dir * 1e-3
 
-    singular = (sp.type & bx.BXDF_SINGULAR_MASK) != 0
+        singular = (sp.type & bx.BXDF_SINGULAR_MASK) != 0
+
+        shadow_orig, shadow_dir = pool.shadow_orig, pool.shadow_dir
+        shadow_len = pool.shadow_len
+        l_pdf_direct, l_cos_th = pool.last_pdf_direct, pool.last_cos_th
+        l_pick, l_emission = pool.last_light_pick, pool.last_emission
+
+        # ---- NEE (with explicit sampling): pick the env map or the area light
+        # (wf_logic.cl:249-251), in the reference's order of draws: the pick,
+        # the env sample when there is an env map, the area-light sample when
+        # there is a light
+        shadow_pending = torch.zeros(n, dtype=torch.bool, device=dev)
+        if cfg.sample_expl:
+            do_nee = alive & ~singular
+            env_prob = (float(cfg.use_env_map)
+                        / max(1, int(cfg.use_env_map)
+                              + int(cfg.use_area_light)))
+            u_pick, seed = rand(seed)
+            pick_env = u_pick < env_prob
+
+            if use_env:
+                u_env, seed = rand(seed)
+                L, direct_pdf, env_raw = env_sample(scene.env, u_env,
+                                                    cfg.fast_env)
+                m = do_nee & pick_env
+                shadow_orig = vwhere(m, nee_orig, shadow_orig)
+                shadow_dir = vwhere(m, L, shadow_dir)
+                shadow_len = torch.where(m, params.world_radius * 2.0,
+                                         shadow_len)
+                l_pdf_direct = torch.where(m, direct_pdf, l_pdf_direct)
+                l_cos_th = torch.where(m, torch.clamp_min(dot(L, nrm), 0.0),
+                                       l_cos_th)
+                l_pick = torch.where(m, env_prob, l_pick)
+                l_emission = vwhere(m, env_raw * params.env_map_strength,
+                                    l_emission)
+                shadow_pending |= m
+
+            if light is not None:
+                pdf_a, pos_l, seed = sample_area_light(light, seed)
+                Lv = pos_l - nee_orig
+                len0 = length(Lv)
+                inv_len = 1.0 / torch.clamp_min(len0, 1e-30)
+                Ln = Lv * inv_len
+                cos_light = torch.clamp_min(dot(light.N, -Lv), 0.0)
+                ok = do_nee & ~pick_env & (cos_light > 0.0)
+                len_l = len0 * 0.995                    # wf_logic.cl:308
+                direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l,
+                                                     cos_light * inv_len)
+                cos_th = torch.clamp_min(dot(Ln, nrm), 0.0)
+                shadow_orig = vwhere(ok, nee_orig, shadow_orig)
+                shadow_dir = vwhere(ok, Ln, shadow_dir)
+                shadow_len = torch.where(ok, len_l, shadow_len)
+                l_pdf_direct = torch.where(ok, direct_pdf, l_pdf_direct)
+                l_cos_th = torch.where(ok, cos_th, l_cos_th)
+                l_pick = torch.where(ok, 1.0 - env_prob, l_pick)
+                l_emission = vwhere(ok, Vec3(light.E.x.expand(n),
+                                             light.E.y.expand(n),
+                                             light.E.z.expand(n)), l_emission)
+                shadow_pending |= ok
+
+        # ---- material phase (wf_mat_*.cl): the NEE ray's BSDF and pdf -----
+        nee_bsdf = bxdf_eval(nrm, sp, backface, pool.dir, shadow_dir,
+                             cfg.material_types)
+        nee_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, pool.dir,
+                                           shadow_dir, cfg.material_types),
+                                  0.0)
+
+    with span("flt::shade.logic.material"):
+        # the continuation ray's lobe sample
+        d_new, pdf_w, f, seed = bxdf_sample(nrm, sp, backface, pool.dir,
+                                            seed, cfg.material_types)
+        bad = (pdf_w == 0.0) | is_zero(f)
+        new_T = vwhere(bad, Vec3.zeros(n, dev),
+                       T * f * (dot(nrm, d_new)
+                                / torch.where(bad, 1.0, pdf_w)))
+        cont_orig = hit.P + d_new * 1e-4
 
     # ---- denoiser guide features (wf_logic.cl:214-237): the first hit's
     # normal in camera space (rows right, up, -dir) and the first
@@ -553,150 +641,83 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     features = state.features
     first_diffuse = pool.first_diffuse_hit
     if cfg.denoiser:
-        cam = params.camera
-        nm = alive & (plen == 1)
-        cs = Vec3(dot(cam.right, nrm), dot(cam.up, nrm), -dot(cam.dir, nrm))
-        am = alive & ~singular & ~first_diffuse
-        first_diffuse = ~terminate & (first_diffuse | (alive & ~singular))
-        # [8, n] for K4, [n, 8] rows for the flat scatter
-        fdata = torch.stack([
-            torch.where(am, sp.Kd.x, 0.0), torch.where(am, sp.Kd.y, 0.0),
-            torch.where(am, sp.Kd.z, 0.0), am.to(torch.float32),
-            torch.where(nm, cs.x, 0.0), torch.where(nm, cs.y, 0.0),
-            torch.where(nm, cs.z, 0.0), nm.to(torch.float32)],
-            dim=0 if block else 1)
-        f_old = torch.stack([*features.albedo, features.albedo_w,
-                             *features.normal, features.normal_w], dim=0)
+        with span("flt::shade.logic.features"):
+            cam = params.camera
+            nm = alive & (plen == 1)
+            cs = Vec3(dot(cam.right, nrm), dot(cam.up, nrm),
+                      -dot(cam.dir, nrm))
+            am = alive & ~singular & ~first_diffuse
+            first_diffuse = ~terminate & (first_diffuse | (alive & ~singular))
+            # [8, n] for K4, [n, 8] rows for the flat scatter
+            fdata = torch.stack([
+                torch.where(am, sp.Kd.x, 0.0), torch.where(am, sp.Kd.y, 0.0),
+                torch.where(am, sp.Kd.z, 0.0), am.to(torch.float32),
+                torch.where(nm, cs.x, 0.0), torch.where(nm, cs.y, 0.0),
+                torch.where(nm, cs.z, 0.0), nm.to(torch.float32)],
+                dim=0 if block else 1)
+            f_old = torch.stack([*features.albedo, features.albedo_w,
+                                 *features.normal, features.normal_w], dim=0)
+            if block:
+                f_local = torch.where(nm | am, torch.remainder(lpid, pk_),
+                                      -1).to(torch.int32)
+                f_new = bs.splat(f_local, fdata, f_old, groups=g_local)
+            else:
+                fseg = torch.where(nm | am, lpid, num_pixels).to(torch.int32)
+                f_new = f_old + scatter_pixels(fseg, fdata, num_pixels).T
+            features = FeatureFilm(albedo=Vec3(f_new[0], f_new[1], f_new[2]),
+                                   albedo_w=f_new[3],
+                                   normal=Vec3(f_new[4], f_new[5], f_new[6]),
+                                   normal_w=f_new[7])
+
+    with span("flt::shade.logic.raygen"):
+        # ---- RAYGEN for terminated paths (wf_raygen.cl): one ring per group,
+        # or the flat ring's one cursor over every pixel
         if block:
-            f_local = torch.where(nm | am, torch.remainder(lpid, pk_),
-                                  -1).to(torch.int32)
-            f_new = bs.splat(f_local, fdata, f_old, groups=g_local)
+            term_i = terminate.to(torch.int32).view(g_local, s_)
+            rank2 = (torch.cumsum(term_i, dim=1) - term_i).to(torch.int32)
+            n_term_g = term_i.sum(dim=1).to(torch.int32)
+            n_regen = n_term_g.sum()
+            # the slice's groups are g0.. of the whole film's
+            g_row = pixel_base // pk_ + torch.arange(
+                g_local, dtype=torch.int32, device=dev)
+            len_g = torch.clamp(cfg.num_pixels - g_row * p_true, 1, p_true)
+            new_l = torch.remainder(state.curr_pixel[:, None] + rank2,
+                                    len_g[:, None])
+            new_pixel = (pixel_base + lane_g * pk_ + new_l.reshape(n)).to(
+                torch.int32)
+            curr_out = torch.remainder(state.curr_pixel + n_term_g, len_g).to(
+                torch.int32)
         else:
-            fseg = torch.where(nm | am, lpid, num_pixels).to(torch.int32)
-            f_new = f_old + scatter_pixels(fseg, fdata, num_pixels).T
-        features = FeatureFilm(albedo=Vec3(f_new[0], f_new[1], f_new[2]),
-                               albedo_w=f_new[3],
-                               normal=Vec3(f_new[4], f_new[5], f_new[6]),
-                               normal_w=f_new[7])
+            rank, n_regen = exclusive_rank(terminate)
+            new_pixel = (pixel_base + torch.remainder(
+                state.curr_pixel + rank, num_pixels)).to(torch.int32)
+            curr_out = torch.remainder(state.curr_pixel + n_regen,
+                                       num_pixels).to(torch.int32)
+        pixel_index = torch.where(terminate, new_pixel, pool.pixel_index)
+        # camera rays address TRUE pixels
+        cam_pid = padded_to_true_pid(cfg, pixel_index)
+        cam_orig, cam_dir, seed = generate_camera_rays(
+            cam_pid, params.camera, cfg.width, cfg.height,
+            params.world_radius, seed)
 
-    shadow_orig, shadow_dir = pool.shadow_orig, pool.shadow_dir
-    shadow_len = pool.shadow_len
-    l_pdf_direct, l_cos_th = pool.last_pdf_direct, pool.last_cos_th
-    l_pick, l_emission = pool.last_light_pick, pool.last_emission
-
-    # ---- NEE (with explicit sampling): pick the env map or the area light
-    # (wf_logic.cl:249-251), in the reference's order of draws: the pick,
-    # the env sample when there is an env map, the area-light sample when
-    # there is a light
-    shadow_pending = torch.zeros(n, dtype=torch.bool, device=dev)
-    if cfg.sample_expl:
-        do_nee = alive & ~singular
-        env_prob = (float(cfg.use_env_map)
-                    / max(1, int(cfg.use_env_map)
-                          + int(cfg.use_area_light)))
-        u_pick, seed = rand(seed)
-        pick_env = u_pick < env_prob
-
-        if use_env:
-            u_env, seed = rand(seed)
-            L, direct_pdf, env_raw = env_sample(scene.env, u_env,
-                                                cfg.fast_env)
-            m = do_nee & pick_env
-            shadow_orig = vwhere(m, nee_orig, shadow_orig)
-            shadow_dir = vwhere(m, L, shadow_dir)
-            shadow_len = torch.where(m, params.world_radius * 2.0,
-                                     shadow_len)
-            l_pdf_direct = torch.where(m, direct_pdf, l_pdf_direct)
-            l_cos_th = torch.where(m, torch.clamp_min(dot(L, nrm), 0.0),
-                                   l_cos_th)
-            l_pick = torch.where(m, env_prob, l_pick)
-            l_emission = vwhere(m, env_raw * params.env_map_strength,
-                                l_emission)
-            shadow_pending |= m
-
-        if light is not None:
-            pdf_a, pos_l, seed = sample_area_light(light, seed)
-            Lv = pos_l - nee_orig
-            len0 = length(Lv)
-            inv_len = 1.0 / torch.clamp_min(len0, 1e-30)
-            Ln = Lv * inv_len
-            cos_light = torch.clamp_min(dot(light.N, -Lv), 0.0)
-            ok = do_nee & ~pick_env & (cos_light > 0.0)
-            len_l = len0 * 0.995                    # wf_logic.cl:308
-            direct_pdf = pdf_area_to_solid_angle(pdf_a, len_l,
-                                                 cos_light * inv_len)
-            cos_th = torch.clamp_min(dot(Ln, nrm), 0.0)
-            shadow_orig = vwhere(ok, nee_orig, shadow_orig)
-            shadow_dir = vwhere(ok, Ln, shadow_dir)
-            shadow_len = torch.where(ok, len_l, shadow_len)
-            l_pdf_direct = torch.where(ok, direct_pdf, l_pdf_direct)
-            l_cos_th = torch.where(ok, cos_th, l_cos_th)
-            l_pick = torch.where(ok, 1.0 - env_prob, l_pick)
-            l_emission = vwhere(ok, Vec3(light.E.x.expand(n),
-                                         light.E.y.expand(n),
-                                         light.E.z.expand(n)), l_emission)
-            shadow_pending |= ok
-
-    # ---- material phase (wf_mat_*.cl) -------------------------------------
-    nee_bsdf = bxdf_eval(nrm, sp, backface, pool.dir, shadow_dir,
-                         cfg.material_types)
-    nee_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, pool.dir,
-                                       shadow_dir, cfg.material_types), 0.0)
-    d_new, pdf_w, f, seed = bxdf_sample(nrm, sp, backface, pool.dir, seed,
-                                        cfg.material_types)
-    bad = (pdf_w == 0.0) | is_zero(f)
-    new_T = vwhere(bad, Vec3.zeros(n, dev),
-                   T * f * (dot(nrm, d_new) / torch.where(bad, 1.0, pdf_w)))
-    cont_orig = hit.P + d_new * 1e-4
-
-    # ---- RAYGEN for terminated paths (wf_raygen.cl): one ring per group,
-    # or the flat ring's one cursor over every pixel
-    if block:
-        term_i = terminate.to(torch.int32).view(g_local, s_)
-        rank2 = (torch.cumsum(term_i, dim=1) - term_i).to(torch.int32)
-        n_term_g = term_i.sum(dim=1).to(torch.int32)
-        n_regen = n_term_g.sum()
-        # the slice's groups are g0.. of the whole film's
-        g_row = pixel_base // pk_ + torch.arange(g_local, dtype=torch.int32,
-                                                 device=dev)
-        len_g = torch.clamp(cfg.num_pixels - g_row * p_true, 1, p_true)
-        new_l = torch.remainder(state.curr_pixel[:, None] + rank2,
-                                len_g[:, None])
-        new_pixel = (pixel_base + lane_g * pk_ + new_l.reshape(n)).to(
-            torch.int32)
-        curr_out = torch.remainder(state.curr_pixel + n_term_g, len_g).to(
-            torch.int32)
-    else:
-        rank, n_regen = exclusive_rank(terminate)
-        new_pixel = (pixel_base + torch.remainder(state.curr_pixel + rank,
-                                                  num_pixels)).to(torch.int32)
-        curr_out = torch.remainder(state.curr_pixel + n_regen,
-                                   num_pixels).to(torch.int32)
-    pixel_index = torch.where(terminate, new_pixel, pool.pixel_index)
-    # camera rays address TRUE pixels
-    cam_pid = padded_to_true_pid(cfg, pixel_index)
-    cam_orig, cam_dir, seed = generate_camera_rays(
-        cam_pid, params.camera, cfg.width, cfg.height,
-        params.world_radius, seed)
-
-    # merge: terminated -> fresh camera path; alive -> continuation
-    ones3 = Vec3.ones(n, dev)
-    zeros3 = Vec3.zeros(n, dev)
-    orig = vwhere(terminate, cam_orig, cont_orig)
-    direc = vwhere(terminate, cam_dir, d_new)
-    T_out = vwhere(terminate, ones3, new_T)
-    Ei_out = vwhere(terminate, zeros3, Ei)
-    plen_out = torch.where(terminate, 0, plen).to(torch.int32)
-    last_pdf_w = torch.where(terminate, 1.0, pdf_w)
-    last_specular = torch.where(terminate, True, singular)
-    last_T = vwhere(terminate, zeros3, T)
-    shadow_pending &= ~terminate
-    l_pdf_direct = torch.where(terminate, 0.0, l_pdf_direct)
-    l_pdf_implicit = torch.where(terminate, 0.0, nee_pdf)
-    l_cos_th = torch.where(terminate, 0.0, l_cos_th)
-    l_pick = torch.where(terminate, 1.0, l_pick)
-    l_emission = vwhere(terminate, zeros3, l_emission)
-    nee_bsdf = vwhere(terminate, zeros3, nee_bsdf)
+        # merge: terminated -> fresh camera path; alive -> continuation
+        ones3 = Vec3.ones(n, dev)
+        zeros3 = Vec3.zeros(n, dev)
+        orig = vwhere(terminate, cam_orig, cont_orig)
+        direc = vwhere(terminate, cam_dir, d_new)
+        T_out = vwhere(terminate, ones3, new_T)
+        Ei_out = vwhere(terminate, zeros3, Ei)
+        plen_out = torch.where(terminate, 0, plen).to(torch.int32)
+        last_pdf_w = torch.where(terminate, 1.0, pdf_w)
+        last_specular = torch.where(terminate, True, singular)
+        last_T = vwhere(terminate, zeros3, T)
+        shadow_pending &= ~terminate
+        l_pdf_direct = torch.where(terminate, 0.0, l_pdf_direct)
+        l_pdf_implicit = torch.where(terminate, 0.0, nee_pdf)
+        l_cos_th = torch.where(terminate, 0.0, l_cos_th)
+        l_pick = torch.where(terminate, 1.0, l_pick)
+        l_emission = vwhere(terminate, zeros3, l_emission)
+        nee_bsdf = vwhere(terminate, zeros3, nee_bsdf)
 
     new_pool = WfPool(
         orig=orig, dir=direc,

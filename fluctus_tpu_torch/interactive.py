@@ -69,6 +69,7 @@ import shlex
 import sys
 
 from . import state_io
+from .profiling import span
 
 
 def run_interactive(renderer, out_path: str = "preview.png",
@@ -90,28 +91,35 @@ def run_interactive(renderer, out_path: str = "preview.png",
         return out_path + ".tmp" + os.path.splitext(out_path)[1]
 
     def refresh():
-        # recompileKernels analogue: the sampling/light toggles change the
-        # config's switches
-        renderer.rebuild_config()
-        renderer.reset()
-        if mode_mk:
-            # exact-spp preview (integrator combo, tracer_ui.cpp:129)
-            renderer.render_single(spp=max(1, min(segments, 16)))
+        with span("flt::refresh"):
+            with span("flt::refresh.restart"):
+                # recompileKernels analogue: the sampling/light toggles
+                # change the config's switches
+                renderer.rebuild_config()
+                renderer.reset()
+                if not mode_mk:
+                    renderer.init_wavefront(
+                        renderer.num_tasks
+                        if getattr(renderer, "num_tasks", None) else None)
+            if mode_mk:
+                # exact-spp preview (integrator combo, tracer_ui.cpp:129)
+                with span("flt::refresh.render"):
+                    renderer.render_single(spp=max(1, min(segments, 16)))
+            elif fast_preview:
+                # splatPreview role (mk_splat_preview.cl:13-25): two
+                # segments (camera rays + first NEE resolve), then blend the
+                # incomplete paths in for instant (biased) feedback during
+                # camera motion
+                with span("flt::refresh.render"):
+                    renderer.render_wavefront(2)
+                with span("flt::refresh.preview"):
+                    renderer.film = renderer.wavefront_preview_film()
+            else:
+                with span("flt::refresh.render"):
+                    renderer.render_wavefront(segments)
+                with span("flt::refresh.preview"):
+                    renderer.film = renderer.wavefront_film()
             _save_frame()
-            return
-        renderer.init_wavefront(renderer.num_tasks
-                                if getattr(renderer, "num_tasks", None)
-                                else None)
-        if fast_preview:
-            # splatPreview role (mk_splat_preview.cl:13-25): two segments
-            # (camera rays + first NEE resolve), then blend the incomplete
-            # paths in for instant (biased) feedback during camera motion
-            renderer.render_wavefront(2)
-            renderer.film = renderer.wavefront_preview_film()
-        else:
-            renderer.render_wavefront(segments)
-            renderer.film = renderer.wavefront_film()
-        _save_frame()
 
     def _save_frame():
         # the frame is renderer.film's image (C7: the preview film when it

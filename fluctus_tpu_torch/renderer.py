@@ -45,6 +45,7 @@ from .core.trace import (DeviceScene, TrianglesDevice, make_tri_frames,
                          trace_extension)
 from .geom import AreaLight, Camera, PostProcessParams, RenderConfig, RenderParams
 from .image_io import save_hdr, save_png
+from .profiling import span
 from .progress import ProgressView
 from .scene import Scene
 from .settings import Settings
@@ -112,6 +113,8 @@ class Renderer:
         self.exposure = 1.0
         self._wf_state = None
         self._wf_cfg: Optional[RenderConfig] = None
+        self._wf_total = None        # int64[4] counters (RenderStats order)
+        self._wf_segments = 0        # segments counted in _wf_total
         self._wf_exact_mode = False
         self._film_src = "mk"
 
@@ -542,11 +545,11 @@ class Renderer:
         params = self.params._replace(max_spp=torch.tensor(
             target, dtype=torch.int32, device=self.device))
         done = 0
-        counters = []
+        self._clear_counters()
         while done < max_segments:
             for _ in range(16):
                 state, c = wf_segment(self.device_scene, params, state, cfg)
-                counters.append(c)
+                self._count(c)
                 done += 1
             cur = int(state.spp.min())
             if progress:
@@ -563,7 +566,6 @@ class Renderer:
         self._wf_state = state
         self._wf_cfg = cfg
         self._wf_exact_mode = True      # render_wavefront must re-init
-        self._wf_counters = counters
         if state.features is not None:
             self.features = _tree_map(lambda a: unpad_pixels(a, cfg),
                                       state.features)
@@ -586,7 +588,7 @@ class Renderer:
         self._wf_state = wf_reset(cfg, self.num_tasks,
                                   world_radius=self.world_radius,
                                   device=self.device)
-        self._wf_counters = []
+        self._clear_counters()
 
     def render_wavefront(self, segments: int, sync: bool = True):
         """Advance the wavefront `segments` steps: per segment the trace
@@ -598,25 +600,35 @@ class Renderer:
             self.init_wavefront(getattr(self, "num_tasks", None))
         cfg = self._wf_cfg
         for _ in range(segments):
-            raw, occ = wf_trace_phase(self.device_scene, self._wf_state.pool,
-                                      self.params, cfg)
-            self._wf_state, cnt = wf_shade_phase(
-                self.device_scene, self.params, self._wf_state, cfg, raw,
-                occ)
-            self._wf_counters.append(cnt)
+            with span("flt::segment"):
+                raw, occ = wf_trace_phase(self.device_scene,
+                                          self._wf_state.pool, self.params,
+                                          cfg)
+                self._wf_state, cnt = wf_shade_phase(
+                    self.device_scene, self.params, self._wf_state, cfg, raw,
+                    occ)
+                self._count(cnt)
         if sync:
             self._sync()
         return self._wf_state
 
+    def _clear_counters(self):
+        self._wf_total = torch.zeros(4, dtype=torch.int64, device=self.device)
+        self._wf_segments = 0
+
+    def _count(self, c):
+        """Add one segment's counters to the running total: two device
+        operations (the stack and the add), no sync."""
+        self._wf_total += torch.stack([c.raygen, c.extension, c.shadow,
+                                       c.splatted])
+        self._wf_segments += 1
+
     def wavefront_stats(self) -> RenderStats:
-        """Counters summed over the segments since init_wavefront, fetched
-        in one transfer."""
-        if not self._wf_counters:
+        """Counters summed over the segments since init_wavefront (or of
+        the last exact-spp wavefront call), fetched in one transfer."""
+        if not self._wf_segments:
             return RenderStats.zeros()
-        mat = torch.stack([torch.stack([c.raygen.long(), c.extension.long(),
-                                        c.shadow.long(), c.splatted.long()])
-                           for c in self._wf_counters]).sum(dim=0).tolist()
-        return RenderStats(*mat)
+        return RenderStats(*self._wf_total.tolist())
 
     def wavefront_film(self) -> Film:
         """The wavefront state's film in the true pixel layout; with the
@@ -668,11 +680,15 @@ class Renderer:
     def _ldr(self, color: Vec3, weight) -> np.ndarray:
         """Tonemap a flat film (bottom scanline first) to the [H, W, 3]
         top-first image in [0, 1]."""
-        rgb = postprocess(color, weight, self.params.pp.exposure,
-                          self.params.pp.tm_operator)
-        arr = torch.stack([rgb.x, rgb.y, rgb.z], dim=-1).cpu().numpy()
-        return np.clip(arr.reshape(self.height, self.width, 3)[::-1], 0.0,
-                       1.0)
+        with span("flt::frame.tonemap"):
+            rgb = postprocess(color, weight, self.params.pp.exposure,
+                              self.params.pp.tm_operator)
+            img = torch.stack([rgb.x, rgb.y, rgb.z], dim=-1)
+        with span("flt::frame.copy"):       # waits for the queued work
+            arr = img.cpu().numpy()
+        with span("flt::frame.host"):
+            return np.clip(arr.reshape(self.height, self.width, 3)[::-1],
+                           0.0, 1.0)
 
     def _vec_image(self, v3: Vec3, w) -> torch.Tensor:
         """An accumulated Vec3 buffer over its weights: the [H, W, 3] mean
@@ -685,15 +701,20 @@ class Renderer:
         """The mean radiance per pixel of ``film`` (default the current
         film), [H, W, 3] top-first."""
         film = self.current_film() if film is None else film
-        return self._vec_image(film.color, film.weight).cpu().numpy()
+        img = self._vec_image(film.color, film.weight)
+        with span("flt::frame.copy"):
+            return img.cpu().numpy()
 
     def save_image(self, path: str, film: Optional[Film] = None):
         """Write ``film`` (default the current film): Radiance .hdr for a
         ``.hdr`` path, else an 8-bit PNG."""
-        if path.endswith(".hdr"):
-            save_hdr(path, self.hdr_image(film))
-        else:
-            save_png(path, self.ldr_image(film))
+        with span("flt::frame"):
+            if path.endswith(".hdr"):
+                img, write = self.hdr_image(film), save_hdr
+            else:
+                img, write = self.ldr_image(film), save_png
+            with span("flt::frame.encode"):
+                write(path, img)
 
     # -- denoiser (OptixDenoiser stand-in; tracer.cpp:339-356 gating) ---------
     def _feature_tensors(self):

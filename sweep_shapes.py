@@ -359,6 +359,7 @@ def profile_wavefront(cs, r, n=2):
     over n luxball segments (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from fluctus_tpu_torch import profiling
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -367,7 +368,7 @@ def profile_wavefront(cs, r, n=2):
     ops, dev_us = 0, 0.0
     for e in prof.key_averages():
         dt = getattr(e, "self_device_time_total", 0) or 0
-        if dt > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        if profiling.is_device_op(e):
             ops += e.count
             dev_us += dt
     return dict(device_ops_per_segment=ops / n,

@@ -127,7 +127,7 @@ def test_bm_json_matches_reference(tmp_path, monkeypatch, reference_route):
     assert list(exact.stats) == [int(x) for x in jexact.stats]
 
     # the films: the port's own renders of the same settings
-    segments = len(wf._wf_counters)
+    segments = wf._wf_segments
     assert segments % 8 == 0 and bool((wf.film.weight >= 2).all())
     direct = _direct(str(ours_dir), "luxball.obj", True, segments)
     for a, b in zip((wf.film.weight, *wf.film.color),

@@ -455,7 +455,7 @@ def test_render_single_wavefront_contract(tmp_path):
     assert r._wf_cfg.max_spp == 0 and not r._wf_exact_mode
     assert float(r.current_film().weight.sum()) > 0
     r.render_wavefront(1)                   # continues: no second re-init
-    assert len(r._wf_counters) == 3
+    assert r._wf_segments == 3
 
 
 def test_save_hdr_matches_reference_writer(tmp_path):
