@@ -23,7 +23,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    +inf and NaN, an all-culled tile, ties at 0.0) with 1, 13, 33 and
    4,096 boxes (the wrapper's limit; one more must raise ValueError) and
    a tile of 96 rays; K4 on groups with every lane on one pixel, every
-   lane on its own pixel, empty lanes and every lane empty.
+   lane on its own pixel, empty lanes and every lane empty. bsdf_shade
+   (csrc/bsdf_shade.cu, the segment's BSDF work; on the grid in 2b and
+   the production scene in 11a too) held to bsdf_shade_plain on its
+   recorded calls, every output and the seeds bit for bit, and timed
+   beside its byte bound and the plain version.
 3. luxball path: Renderer(1920, 1080) on luxball with a 1M-path pool, 2
    warm-up segments, a fresh pool, then SEGMENTS timed segments; Mrays/s
    (primary + extension + shadow rays, as bench.py counts them),
@@ -39,8 +43,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2b, 3b, 4b: the same three phases on the large-scene path: the 8x8
    luxball grid (361,088 triangles, 2,056 clusters, past both tier
    switches), so each segment runs K1 over superclusters, K5 twice, K6
-   and K4. 2b holds K1 (over superclusters), K5 (both modes) and K6 to
-   their plain versions
+   and K4. 2b holds K1 (over superclusters), K5 (both modes), K6 and
+   bsdf_shade to their plain versions
    and times K3 on K6's inputs; 3b times LARGE_SEGMENTS segments, checks
    the primary-hit share, and holds K5's calls of its last segment to the
    plain version and times them. The trace kernels (K2, K5, K9) are held
@@ -115,8 +119,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    specular map on the glossy core, a rough dielectric glass, and a
    second instance beside it with a rough-reflection core and an ideal
    glass; 11,282 triangles on the flat tier, K1-K4), at 1080p with 1M
-   paths, depth 10, phase 3's view and light. 11a: K1-K4 held to their
-   plain versions on the recorded calls of segments 2 and 4; on K3's
+   paths, depth 10, phase 3's view and light. 11a: K1-K4 and bsdf_shade
+   (every lobe but the mirror; its entry in the kernels line) held to
+   their plain versions on the recorded calls of segments 2 and 4; on K3's
    calls the share of textured lanes (map rows 22-24) and that their
    descriptor rows 29-34 are non-zero, K6 on the same calls and K10 on
    the same winners with the tables' f32 attrs, each bit for bit against
@@ -333,15 +338,17 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s, data sheet
 EXACT_SPP = 16
 MK_SPP = 2
 MK_MEAN_GATE = 0.15        # tests/test_render_single_wf.py:35-38
+# the megastep shades with the plain lobes (bsdf_shade is the wavefront's)
 _ZERO = {"trace_rol_sc": 0, "resolve_v5s": 0, "block_splat_capped": 0,
-         "fetch": 0, "trace_ros": 0, "resolve_v1": 0}
+         "fetch": 0, "trace_ros": 0, "resolve_v1": 0, "bsdf_shade": 0}
 PER_SEGMENT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
-               "block_splat": 1, **_ZERO}
+               "block_splat": 1, **_ZERO, "bsdf_shade": 1}
 PER_SEGMENT_LARGE = {"tile_order": 2, "trace_rol_sc": 2, "resolve_v5s": 1,
                      "block_splat": 1, "trace_rol": 0, "resolve_v5": 0,
                      "block_splat_capped": 0, "fetch": 0, "trace_ros": 0,
-                     "resolve_v1": 0}
+                     "resolve_v1": 0, "bsdf_shade": 1}
 PER_SEGMENT_EXACT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
+                     "bsdf_shade": 1,
                      "block_splat": 0, "trace_rol_sc": 0, "resolve_v5s": 0,
                      "block_splat_capped": 1, "fetch": 1, "trace_ros": 0,
                      "resolve_v1": 0}
@@ -403,7 +410,8 @@ SOURCES = {"tile_order": "fluctus_tpu_torch/csrc/tile_order.cu",
            "fetch": "fluctus_tpu_torch/csrc/fetch.cu",
            "trace_ros": "fluctus_tpu_torch/csrc/trace_ros.cu",
            "resolve_v1": "fluctus_tpu_torch/csrc/resolve_v1.cu",
-           "bvh_bitstack": "fluctus_tpu_torch/csrc/bvh_bitstack.cu"}
+           "bvh_bitstack": "fluctus_tpu_torch/csrc/bvh_bitstack.cu",
+           "bsdf_shade": "fluctus_tpu_torch/csrc/bsdf_shade.cu"}
 REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "trace_rol": "fluctus_tpu/accel/mxu_trace.py:736",
             "resolve_v5": "fluctus_tpu/accel/mxu_trace.py:1745",
@@ -415,7 +423,9 @@ REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "trace_ros": "fluctus_tpu/accel/mxu_trace.py:630",
             "resolve_v1": "fluctus_tpu/accel/mxu_trace.py:1669",
             "bvh_bitstack": "fluctus_tpu/accel/traverse.py:150 _traverse "
-                            "(not a Pallas kernel)"}
+                            "(not a Pallas kernel)",
+            "bsdf_shade": "none: fluctus_tpu/bsdf/dispatch.py's masked "
+                          "bxdf_eval/bxdf_pdf/bxdf_sample are jnp code"}
 
 
 def emit(obj):
@@ -472,10 +482,11 @@ class Recorder:
     def __init__(self):
         from fluctus_tpu_torch.accel import mxu_trace as mt
         from fluctus_tpu_torch.core import block_splat as bs
+        from fluctus_tpu_torch.core import integrator_wf as wf
         self.targets = [(mt, "tile_order"), (mt, "trace_rol"),
                         (mt, "resolve_v5"), (bs, "splat"),
                         (mt, "trace_rol_sc"), (mt, "resolve_v5s"),
-                        (mt, "resolve_v1")]
+                        (mt, "resolve_v1"), (wf, "bsdf_shade")]
         self.calls = {}
         self.active = None
 
@@ -502,7 +513,9 @@ def plain_versions():
     """Swap every kernel wrapper for its plain PyTorch version (the parity
     phases' reference runs); returns the undo function."""
     from fluctus_tpu_torch.accel import mxu_trace as mt
+    from fluctus_tpu_torch.bsdf import dispatch as bd
     from fluctus_tpu_torch.core import block_splat as bs
+    from fluctus_tpu_torch.core import integrator_wf as wf
 
     def splat(local, data, film, groups, remaining=None):
         if remaining is None:
@@ -516,7 +529,8 @@ def plain_versions():
              (mt, "resolve_v5s", mt.resolve_v5s_plain),
              (bs, "fetch", bs.fetch_plain),
              (mt, "trace_ros", mt.trace_ros_plain),
-             (mt, "resolve_v1", mt.resolve_v1_plain)]
+             (mt, "resolve_v1", mt.resolve_v1_plain),
+             (wf, "bsdf_shade", bd.bsdf_shade_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -984,9 +998,77 @@ def check_splats(rec_calls, what):
                                      f"({what}, segment {seg})")
 
 
+# bsdf_shade's outputs in the order of its Shaded tuple, Vec3s spread
+SHADE_OUTPUTS = ("nee_bsdf.x", "nee_bsdf.y", "nee_bsdf.z", "nee_pdf",
+                 "dir.x", "dir.y", "dir.z", "pdf", "seed", "T.x", "T.y",
+                 "T.z", "orig.x", "orig.y", "orig.z")
+# a lane's bytes, each stream read or written once: 26 float32 inputs, the
+# int32 type, the bool backface and the int64 seed in; 14 float32 outputs
+# and the seed out
+SHADE_LANE_BYTES = 26 * 4 + 4 + 1 + 8 + 14 * 4 + 8
+
+
+def shade_flat(out):
+    from fluctus_tpu_torch.vec import Vec3
+    return [c for v in out for c in (v if isinstance(v, Vec3) else (v,))]
+
+
+def shade_diffs(got, ref, args):
+    """Per output of bsdf_shade, the lanes whose bits differ between the
+    kernel's ``got`` and the plain version's ``ref``; for each differing
+    output its first lanes with their type, face and both values."""
+    import torch
+    diff, detail = {}, {}
+    for name, a, b in zip(SHADE_OUTPUTS, shade_flat(got), shade_flat(ref)):
+        ab, bb = ((a.view(torch.int32), b.view(torch.int32))
+                  if a.dtype == torch.float32 else (a, b))
+        lanes = torch.nonzero(ab != bb).flatten()
+        diff[name] = int(lanes.numel())
+        if lanes.numel():
+            detail[name] = [
+                dict(lane=int(i), type=int(args[1].type[i]),
+                     backface=bool(args[2][i]), got=float(a[i]),
+                     plain=float(b[i]), bits=int(ab[i]) - int(bb[i]))
+                for i in lanes[:4]]
+    return diff, detail
+
+
+def check_bsdf_shade(rec_calls, what, segs=(2, 4)):
+    """bsdf_shade's kernel against bsdf_shade_plain on every recorded call
+    of ``segs``, every output bit for bit (``what`` names the path); the
+    last call timed beside its byte bound and the plain version. Returns
+    the kernel's entry (lanes by type included)."""
+    import torch
+    from fluctus_tpu_torch.bsdf import dispatch as bd
+    calls = 0
+    for seg in segs:
+        for args, kw in rec_calls[(seg, "bsdf_shade")]:
+            diff, detail = shade_diffs(bd.bsdf_shade(*args, **kw),
+                                       bd.bsdf_shade_plain(*args, **kw),
+                                       args)
+            if any(diff.values()):
+                emit(dict(phase="bsdf_shade_differs", path=what,
+                          segment=seg, differing_lanes=diff, lanes=detail))
+                raise AssertionError(f"bsdf_shade differs from its plain "
+                                     f"version ({what}, segment {seg})")
+            calls += 1
+    args, kw = rec_calls[(segs[-1], "bsdf_shade")][-1]
+    m = args[5].shape[0]
+    kinds, count = torch.unique(args[1].type, return_counts=True)
+    b_ms, b_by = bound(0, SHADE_LANE_BYTES * m)
+    return dict(
+        max_abs_err=0.0, calls=calls,
+        **kernel_ms(lambda: bd.bsdf_shade(*args, **kw)),
+        plain_ms=time_ms(lambda: bd.bsdf_shade_plain(*args, **kw), 3, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{m} lanes, scene types {args[8]}",
+        lanes_by_type={int(k): int(c) for k, c in zip(kinds, count)})
+
+
 def phase_kernels(r, rec_calls):
     """Phase 2: every recorded kernel call vs its plain version."""
     res = check_luxball_kernels(rec_calls, "luxball")
+    res["bsdf_shade_luxball"] = check_bsdf_shade(rec_calls, "luxball")
     (local, data, film), kw = rec_calls[(4, "splat")][0]
     res["block_splat"] = dict(
         **splat_timing(local, data, film, kw["groups"]),
@@ -1036,6 +1118,7 @@ def phase_kernels_large(r, rec_calls):
     res["resolve_v5_on_large"] = dict(
         ms=time_ms(lambda: mt.resolve_v5(*args)),
         shape=res["resolve_v5s"]["shape"])
+    res["bsdf_shade_grid"] = check_bsdf_shade(rec_calls, "8x8 grid")
     # segment 2 traces the camera rays of every lane (segment 1 gives each
     # pre-birth lane its first camera ray)
     return res, float((seg2[1] >= 0).float().mean())
@@ -1893,7 +1976,8 @@ def kernels_line(kres, launches):
     17f's launches), with the table route's K1 + K2 time on the same rays and
     its time and K5's on the 8x8 grid's (17d). K4's entry also carries its
     8-channel calls (12a and 15a: the denoiser's features), with their
-    launches in those runs."""
+    launches in those runs. bsdf_shade's checks and times are 11a's (the
+    production scene), its launches summed as K1-K4's."""
     out = []
     for name in SOURCES:
         k = kres[name]
@@ -2601,6 +2685,7 @@ def phase_production(card, lux_kres):
     # the timed wavefront
     rec = record_segments(r)
     kres = check_luxball_kernels(rec, "production")
+    kres["bsdf_shade"] = check_bsdf_shade(rec, "production")
     tex = check_textured_resolves(rec, r.device_scene.mxu)
     lux = lux_kres["trace_rol"]
     emit(dict(phase="production_kernels_vs_plain", card=card, **info,
@@ -2711,7 +2796,7 @@ def phase_production(card, lux_kres):
     for switches in PROD_PARITY:
         phase_parity(scene, data_dir=data_dir, switches=switches)
     return launches, dict(scene=scene, data_dir=data_dir, main=main,
-                          prof=prof)
+                          prof=prof, bsdf_shade=kres["bsdf_shade"])
 
 
 # ---------------------------------------------------------------------------
@@ -3635,7 +3720,7 @@ class TimedScript:
 
 PHASE15_HELD = {"tile_order", "trace_rol", "trace_rol_sc", "resolve_v5",
                 "block_splat", "block_splat_8", "block_splat_capped",
-                "fetch"}
+                "fetch", "bsdf_shade"}
 
 
 def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
@@ -3643,7 +3728,8 @@ def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
     bit: K1 order and skey, the trace kernels' t (bits), columns and
     visits, the resolve rows (max |difference| 0), K4 at each channel
     count, K7 and K8, the bitstack traversal's t, tri, u, v (bits; the
-    rays and hits of each call noted); phase ``what`` fails on a difference
+    rays and hits of each call noted), bsdf_shade's outputs (bits); phase
+    ``what`` fails on a difference
     or when a kernel of ``want`` has no recorded call. Returns {kernel:
     {calls, max_abs_err, routes}}."""
     import torch
@@ -3712,6 +3798,15 @@ def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
                                    ref.view(torch.int32)):
                     raise AssertionError(f"{what}: {key} differs ({where})")
                 note(key, route)
+            elif name == "bsdf_shade":
+                from fluctus_tpu_torch.bsdf import dispatch as bd
+                diff, detail = shade_diffs(bd.bsdf_shade(*args, **kw),
+                                           bd.bsdf_shade_plain(*args, **kw),
+                                           args)
+                if any(diff.values()):
+                    raise AssertionError(f"{what}: bsdf_shade differs "
+                                         f"({where}): {detail}")
+                note(name, route)
             elif name == "fetch":
                 local, table, g = fetch_args(*args, **kw)
                 if not torch.equal(bs.fetch(local, table, groups=g),
@@ -4509,7 +4604,8 @@ def phase_sharded(card, main):
     # 16a: the block ring against its local simulation
     states, sums, held_a = _local_segments(
         r, cfg, r.params, SEGMENTS, d, "16a",
-        {"tile_order", "trace_rol", "resolve_v5", "block_splat"})
+        {"tile_order", "trace_rol", "resolve_v5", "block_splat",
+         "bsdf_shade"})
     got = res[0]["wf"]["state"]
     _check_gathered("16a", got, states, r.device)
     for x in res:
@@ -4655,7 +4751,8 @@ BVH_SHARD_SEGMENTS = 4     # 17f
 BOX_OPS = 25               # FP32 operations of a box test (22 + 3 compares)
 TRI_OPS = 53               # of a triangle test (46 + 7 compares)
 PER_SEGMENT_BVH = {"bvh_bitstack": 2, "tile_order": 0, "trace_rol": 0,
-                   "resolve_v5": 0, "block_splat": 1, **_ZERO}
+                   "resolve_v5": 0, "block_splat": 1, **_ZERO,
+                   "bsdf_shade": 1}
 PER_SEGMENT_BVH_EXACT = {**PER_SEGMENT_BVH, "block_splat": 0,
                          "block_splat_capped": 1, "fetch": 1}
 # the megastep under the env map and the area light: the extension ray and
@@ -5394,6 +5491,7 @@ def run(kb):
 
     # phase 11: the production luxball (11a-11e)
     launches_p, prod = phase_production(card, kres)
+    kres["bsdf_shade"] = prod["bsdf_shade"]
 
     # phase 12: a user's render job: the denoiser (12a), checkpoint and
     # resume (12b), the CLI (12c)

@@ -15,9 +15,9 @@ A fixed pool of paths is an SoA of [num_tasks] tensors. Each segment runs
 two phases: ``wf_trace_phase`` (extension + shadow trace of the rays staged
 last segment under one shared sort) and ``wf_shade_phase`` (winner
 resolve, then ``wf_logic_phase``: implicit light hits with MIS, NEE
-resolve, the film splat of terminated paths, NEE generation, BSDF
-sampling and per-group pixel-ring raygen). Queues are masks; queue
-lengths are mask popcounts (``WfCounters``).
+resolve, the film splat of terminated paths, NEE generation, the BSDF
+work of ``bsdf.bsdf_shade`` and per-group pixel-ring raygen). Queues are
+masks; queue lengths are mask popcounts (``WfCounters``).
 
 With ``config.block_ring`` (the renderer's default) the pool is
 partitioned into G groups of S lanes; group g renders the true pixels
@@ -49,8 +49,7 @@ import torch
 
 from .. import bxdf_types as bx
 from .. import flags
-from ..bsdf import (apply_textures, bxdf_eval, bxdf_pdf, bxdf_sample,
-                    resolve_material)
+from ..bsdf import apply_textures, bsdf_shade, resolve_material
 from ..envmap import env_radiance_and_pdf, env_sample
 from ..geom import MIN_PATH_LENGTH, RenderConfig, RenderParams
 from ..profiling import span
@@ -616,22 +615,13 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
                                              light.E.z.expand(n)), l_emission)
                 shadow_pending |= ok
 
-        # ---- material phase (wf_mat_*.cl): the NEE ray's BSDF and pdf -----
-        nee_bsdf = bxdf_eval(nrm, sp, backface, pool.dir, shadow_dir,
-                             cfg.material_types)
-        nee_pdf = torch.clamp_min(bxdf_pdf(nrm, sp, backface, pool.dir,
-                                           shadow_dir, cfg.material_types),
-                                  0.0)
-
     with span("flt::shade.logic.material"):
-        # the continuation ray's lobe sample
-        d_new, pdf_w, f, seed = bxdf_sample(nrm, sp, backface, pool.dir,
-                                            seed, cfg.material_types)
-        bad = (pdf_w == 0.0) | is_zero(f)
-        new_T = vwhere(bad, Vec3.zeros(n, dev),
-                       T * f * (dot(nrm, d_new)
-                                / torch.where(bad, 1.0, pdf_w)))
-        cont_orig = hit.P + d_new * 1e-4
+        # ---- material phase (wf_mat_*.cl): the NEE ray's BSDF and pdf, the
+        # continuation ray's lobe sample, the path's new throughput and the
+        # continuation's origin (one kernel on the card)
+        nee_bsdf, nee_pdf, d_new, pdf_w, seed, new_T, cont_orig = bsdf_shade(
+            nrm, sp, backface, pool.dir, shadow_dir, seed, T, hit.P,
+            cfg.material_types)
 
     # ---- denoiser guide features (wf_logic.cl:214-237): the first hit's
     # normal in camera space (rows right, up, -dir) and the first
