@@ -101,9 +101,7 @@ class Probe:
                 self._cur = None
             self.segments += 1
             cur.update(state_in=state, occluded=occluded, config=config,
-                       params=params, state_out=out[0],
-                       pixel_base=(rest[0] if rest else
-                                   kw.get("pixel_base", 0)))
+                       params=params, state_out=out[0])
             self.last = cur
             return out
         return wf_shade_phase

@@ -19,18 +19,17 @@ name, summed over its instances:
 A call or gap inside a nested span counts for every enclosing span too.
 Spans of one name do not nest in the program, so each counts once.
 
-The trace file is the one ``profile.stop_and_read`` wrote; it is read once
-a session (``read``), and only after a traced run. A program without these
+The trace file is the one ``profile.stop_and_read`` wrote (the session's
+``trace_file``: rank 0's in a run on several cards); it is read once a
+session (``read``), and only after a traced run. A program without these
 spans yields an empty summary: its metrics read nothing."""
 
 from __future__ import annotations
 
 import bisect
 import json
-import os
 from types import SimpleNamespace
 
-from . import harness
 from .profile import DEVICE_CATS, LAUNCH_CATS
 
 PREFIX = "flt::"
@@ -135,8 +134,7 @@ def read(s):
         return None
     if not hasattr(s, "flt_spans"):
         try:
-            s.flt_spans = summary_of(os.path.join(harness.CACHE, "trace",
-                                                  "trace.json"))
+            s.flt_spans = summary_of(s.trace_file)
         except (OSError, ValueError, KeyError):
             s.flt_spans = None
     return s.flt_spans
