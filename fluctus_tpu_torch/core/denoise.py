@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from ..profiling import span
+
 # 5-tap B3-spline kernel of the a-trous wavelet (dyadic: the products of
 # two taps are exact in float32)
 _B3 = (1.0 / 16, 1.0 / 4, 3.0 / 8, 1.0 / 4, 1.0 / 16)
@@ -36,28 +38,38 @@ def atrous_denoise(color: torch.Tensor, albedo: Optional[torch.Tensor] = None,
     Each iteration (step 1, 2, 4, ...) weighs the 5x5 taps by the B3
     spline and by exp(-|difference|^2 / sigma^2) of the colour and of each
     guide. blend: 0 = the input, 1 = fully denoised (the reference's
-    denoiser blend, read as strength)."""
-    out = color
-    for it in range(iterations):
-        step = 1 << it
-        acc = torch.zeros_like(out)
-        wacc = torch.zeros_like(out[..., :1])
-        for ky in range(5):
-            for kx in range(5):
-                dy, dx = (ky - 2) * step, (kx - 2) * step
-                nb = _shift2d(out, dy, dx)
-                wt = torch.full_like(wacc, _B3[ky] * _B3[kx])
-                dc = torch.sum((nb - out) ** 2, dim=-1, keepdim=True)
-                wt = wt * torch.exp(-dc / (sigma_color * sigma_color))
-                if albedo is not None:
-                    da = torch.sum((_shift2d(albedo, dy, dx) - albedo) ** 2,
-                                   dim=-1, keepdim=True)
-                    wt = wt * torch.exp(-da / (sigma_albedo * sigma_albedo))
-                if normal is not None:
-                    dn = torch.sum((_shift2d(normal, dy, dx) - normal) ** 2,
-                                   dim=-1, keepdim=True)
-                    wt = wt * torch.exp(-dn / (sigma_normal * sigma_normal))
-                acc = acc + nb * wt
-                wacc = wacc + wt
-        out = acc / torch.clamp_min(wacc, 1e-8)
-    return color * (1.0 - blend) + out * blend
+    denoiser blend, read as strength). Under the profiler the call is
+    an ``flt::denoise`` span holding one ``flt::denoise.iter`` an
+    iteration."""
+    with span("flt::denoise"):
+        out = color
+        for it in range(iterations):
+            with span("flt::denoise.iter"):
+                out = _iteration(out, albedo, normal, 1 << it, sigma_color,
+                                 sigma_albedo, sigma_normal)
+        return color * (1.0 - blend) + out * blend
+
+
+def _iteration(out, albedo, normal, step, sigma_color, sigma_albedo,
+               sigma_normal):
+    """One a-trous pass over ``out`` with taps ``step`` pixels apart."""
+    acc = torch.zeros_like(out)
+    wacc = torch.zeros_like(out[..., :1])
+    for ky in range(5):
+        for kx in range(5):
+            dy, dx = (ky - 2) * step, (kx - 2) * step
+            nb = _shift2d(out, dy, dx)
+            wt = torch.full_like(wacc, _B3[ky] * _B3[kx])
+            dc = torch.sum((nb - out) ** 2, dim=-1, keepdim=True)
+            wt = wt * torch.exp(-dc / (sigma_color * sigma_color))
+            if albedo is not None:
+                da = torch.sum((_shift2d(albedo, dy, dx) - albedo) ** 2,
+                               dim=-1, keepdim=True)
+                wt = wt * torch.exp(-da / (sigma_albedo * sigma_albedo))
+            if normal is not None:
+                dn = torch.sum((_shift2d(normal, dy, dx) - normal) ** 2,
+                               dim=-1, keepdim=True)
+                wt = wt * torch.exp(-dn / (sigma_normal * sigma_normal))
+            acc = acc + nb * wt
+            wacc = wacc + wt
+    return acc / torch.clamp_min(wacc, 1e-8)

@@ -304,7 +304,8 @@ def wf_state_to_numpy(state: WfState) -> dict:
 
 
 def wf_segment(scene: DeviceScene, params: RenderParams, state: WfState,
-               config: RenderConfig, pixel_base: int = 0):
+               config: RenderConfig, pixel_base: int = 0,
+               held: Optional[torch.Tensor] = None):
     """Advance the wavefront one segment: the trace phase, then the shade
     phase (integrator_wf.py:263-279). Returns (state, counters).
 
@@ -312,11 +313,18 @@ def wf_segment(scene: DeviceScene, params: RenderParams, state: WfState,
     whole film by default; under ``parallel.mesh.wf_segment_sharded`` each
     rank owns one slice of the film and the pool, and its own ring
     cursor(s). ``pixel_base`` counts padded pixels on the block ring (a
-    multiple of the padded group size) and true pixels on the flat one."""
+    multiple of the padded group size) and true pixels on the flat one.
+
+    ``held``: an int64 0-d tensor on the pool's device to which a segment
+    under the spp cap adds, on the device, its lanes held idle because
+    their pixel had reached its target (the capped ring's counter)."""
     with span("flt::segment"):
         raw, occluded = wf_trace_phase(scene, state.pool, params, config)
+        # off the cap the shade phase takes its seven arguments as before,
+        # the form that wrappers of it (the benchmark's hooks) know
+        counter = () if held is None else (held,)
         return wf_shade_phase(scene, params, state, config, raw, occluded,
-                              pixel_base)
+                              pixel_base, *counter)
 
 
 def wf_trace_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
@@ -352,23 +360,24 @@ def wf_resolve_phase(scene: DeviceScene, pool: WfPool, params: RenderParams,
 
 
 def wf_shade_phase(scene: DeviceScene, params: RenderParams, state: WfState,
-                   config: RenderConfig, raw, occluded, pixel_base: int = 0):
+                   config: RenderConfig, raw, occluded, pixel_base: int = 0,
+                   held: Optional[torch.Tensor] = None):
     """Resolve + logic, the second program of a segment."""
     with span("flt::shade"):
         with span("flt::shade.resolve"):
             hit, sp = wf_resolve_phase(scene, state.pool, params, config, raw)
         with span("flt::shade.logic"):
             return wf_logic_phase(scene, params, state, config, hit, sp,
-                                  occluded, pixel_base)
+                                  occluded, pixel_base, held)
 
 
 def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
                    config: RenderConfig, hit, sp, occluded,
-                   pixel_base: int = 0):
+                   pixel_base: int = 0, held: Optional[torch.Tensor] = None):
     """Logic + shading + NEE + material sampling + raygen + splat — the
     post-trace half of the segment (wf_logic.cl onward), on the pixel ring
-    ``[pixel_base, pixel_base + len(film))`` (see ``wf_segment``). Returns
-    (state, counters)."""
+    ``[pixel_base, pixel_base + len(film))`` and with the counter ``held``
+    (see ``wf_segment``). Returns (state, counters)."""
     cfg = config
     pool = state.pool
     n = pool.seed.shape[0]
@@ -428,6 +437,8 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
                 pix_spp = state.spp[idx.long()]
             max_samples_reached = pix_spp >= spp_cap
             terminate |= max_samples_reached
+            if held is not None:
+                held += max_samples_reached.sum()
 
         terminate |= is_zero(T) | (pool.last_pdf_w == 0.0)
         use_mis = (plen > 1) & ~pool.last_specular

@@ -25,7 +25,7 @@ import hashlib
 import os
 import sys
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -84,6 +84,14 @@ def _tree_map(fn, tree):
     return type(tree)(*(_tree_map(fn, x) for x in tree))
 
 
+class CappedStats(NamedTuple):
+    """The capped ring's counters over one exact-spp wavefront call."""
+    segments: int      # segments run
+    lanes: int         # the pool's lanes
+    held: int          # lane-segments held idle: the pixel had its target
+    admitted: int      # splat records admitted (K7, or the flat ring's)
+
+
 def _restored_samples(film: Film) -> int:
     """The samples a restored film holds (its weights' sum, exact)."""
     return int(film.weight.to(torch.int64).sum())
@@ -116,6 +124,7 @@ class Renderer:
         self._wf_total = None        # int64[4] counters (RenderStats order)
         self._wf_segments = 0        # segments counted in _wf_total
         self._wf_exact_mode = False
+        self._wf_held = None         # int64 0-d: capped lanes held idle
         self._film_src = "mk"
 
     # -- scene lifecycle (Tracer::init) -------------------------------------
@@ -518,59 +527,68 @@ class Renderer:
         ``self.stats``. With ``progress`` it prints "Rendered: k/N" after
         every 16 segments. A pool size the config's groups do not divide
         renders on the flat pixel ring (the reference's renderer.py:
-        622-623)."""
-        cfg = self.config.replace(max_spp=1, use_roulette=False)
-        n_tasks = num_tasks or self.settings.wf_buffer_size
-        if cfg.block_ring and n_tasks % cfg.groups:
-            cfg = cfg.replace(block_ring=False)   # the pool fits no groups
-        state = self._wf_exact_state
-        if not accumulate or state is None or \
-                state.pool.seed.shape[0] != n_tasks:
-            state = wf_reset(cfg, n_tasks, world_radius=self.world_radius,
-                             device=self.device)
-            self._wf_exact_target = 0
-            if accumulate and self.film is not None:
-                w = self.film.weight
-                if float(w.max()) > 0:
-                    pool = state.pool
-                    state = state._replace(
-                        pool=pool._replace(seed=salt_seeds(
-                            pool.seed, _restored_samples(self.film))),
-                        film=_tree_map(lambda a: pad_pixels(a, cfg),
-                                       self.film),
-                        spp=pad_pixels(w.to(torch.int32), cfg,
-                                       fill=1 << 29))
-                    self._wf_exact_target = int(w.min())
-        target = self._wf_exact_target + spp
-        params = self.params._replace(max_spp=torch.tensor(
-            target, dtype=torch.int32, device=self.device))
-        done = 0
-        self._clear_counters()
-        while done < max_segments:
-            for _ in range(16):
-                state, c = wf_segment(self.device_scene, params, state, cfg)
-                self._count(c)
-                done += 1
-            cur = int(state.spp.min())
-            if progress:
-                print(f"\rRendered: {min(cur, target)}/{target}", end="",
-                      flush=True)
-            if cur >= target:
+        622-623). The capped ring's counters of the call are
+        ``capped_stats()``."""
+        with span("flt::job"):
+            cfg = self.config.replace(max_spp=1, use_roulette=False)
+            n_tasks = num_tasks or self.settings.wf_buffer_size
+            if cfg.block_ring and n_tasks % cfg.groups:
+                # the pool fits no groups
+                cfg = cfg.replace(block_ring=False)
+            state = self._wf_exact_state
+            if not accumulate or state is None or \
+                    state.pool.seed.shape[0] != n_tasks:
+                state = wf_reset(cfg, n_tasks,
+                                 world_radius=self.world_radius,
+                                 device=self.device)
+                self._wf_exact_target = 0
+                if accumulate and self.film is not None:
+                    w = self.film.weight
+                    if float(w.max()) > 0:
+                        pool = state.pool
+                        state = state._replace(
+                            pool=pool._replace(seed=salt_seeds(
+                                pool.seed, _restored_samples(self.film))),
+                            film=_tree_map(lambda a: pad_pixels(a, cfg),
+                                           self.film),
+                            spp=pad_pixels(w.to(torch.int32), cfg,
+                                           fill=1 << 29))
+                        self._wf_exact_target = int(w.min())
+            target = self._wf_exact_target + spp
+            params = self.params._replace(max_spp=torch.tensor(
+                target, dtype=torch.int32, device=self.device))
+            done = 0
+            self._clear_counters()
+            self._wf_held = torch.zeros((), dtype=torch.int64,
+                                        device=self.device)
+            while done < max_segments:
+                for _ in range(16):
+                    state, c = wf_segment(self.device_scene, params, state,
+                                          cfg, held=self._wf_held)
+                    self._count(c)
+                    done += 1
+                with span("flt::job.check"):
+                    cur = int(state.spp.min())
                 if progress:
-                    print()
-                break
-        self.film = _tree_map(lambda a: unpad_pixels(a, cfg), state.film)
-        self._film_src = "mk"
-        self._wf_exact_state = state
-        self._wf_exact_target = target
-        self._wf_state = state
-        self._wf_cfg = cfg
-        self._wf_exact_mode = True      # render_wavefront must re-init
-        if state.features is not None:
-            self.features = _tree_map(lambda a: unpad_pixels(a, cfg),
-                                      state.features)
-        self.stats = self.stats + self.wavefront_stats()
-        return self.film
+                    print(f"\rRendered: {min(cur, target)}/{target}",
+                          end="", flush=True)
+                if cur >= target:
+                    if progress:
+                        print()
+                    break
+            self.film = _tree_map(lambda a: unpad_pixels(a, cfg),
+                                  state.film)
+            self._film_src = "mk"
+            self._wf_exact_state = state
+            self._wf_exact_target = target
+            self._wf_state = state
+            self._wf_cfg = cfg
+            self._wf_exact_mode = True      # render_wavefront must re-init
+            if state.features is not None:
+                self.features = _tree_map(lambda a: unpad_pixels(a, cfg),
+                                          state.features)
+            self.stats = self.stats + self.wavefront_stats()
+            return self.film
 
     # -- wavefront (throughput) mode ------------------------------------------
     def init_wavefront(self, num_tasks: Optional[int] = None):
@@ -629,6 +647,17 @@ class Renderer:
         if not self._wf_segments:
             return RenderStats.zeros()
         return RenderStats(*self._wf_total.tolist())
+
+    def capped_stats(self) -> CappedStats:
+        """The capped ring's counters over the last exact-spp wavefront
+        call (zeros before one), fetched in one transfer: read once a
+        job."""
+        if self._wf_held is None:
+            return CappedStats(0, 0, 0, 0)
+        held, admitted = torch.stack([self._wf_held,
+                                      self._wf_total[3]]).tolist()
+        lanes = self._wf_exact_state.pool.seed.shape[0]
+        return CappedStats(self._wf_segments, lanes, held, admitted)
 
     def wavefront_film(self) -> Film:
         """The wavefront state's film in the true pixel layout; with the
@@ -753,14 +782,20 @@ class Renderer:
         """renderSingle's denoised output (tracer.cpp:173-178): Radiance
         .hdr for a ``.hdr`` path, else tonemapped to an 8-bit PNG."""
         img = self.denoised_tensor(blend)
-        if path.endswith(".hdr"):
-            save_hdr(path, img.cpu().numpy())
-            return
-        n = self.height * self.width
-        flat = torch.flip(img, (0,)).reshape(n, 3)
-        save_png(path, self._ldr(
-            Vec3(flat[:, 0], flat[:, 1], flat[:, 2]),
-            torch.ones(n, dtype=torch.float32, device=self.device)))
+        with span("flt::frame"):
+            if path.endswith(".hdr"):
+                with span("flt::frame.copy"):
+                    arr = img.cpu().numpy()
+                write = save_hdr
+            else:
+                n = self.height * self.width
+                flat = torch.flip(img, (0,)).reshape(n, 3)
+                arr = self._ldr(
+                    Vec3(flat[:, 0], flat[:, 1], flat[:, 2]),
+                    torch.ones(n, dtype=torch.float32, device=self.device))
+                write = save_png
+            with span("flt::frame.encode"):
+                write(path, arr)
 
     # -- picking (kernel_pick.cl / Tracer::pickDofDepth) ----------------------
     def pick_single(self, ndc_x: float, ndc_y: float):
