@@ -23,11 +23,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    +inf and NaN, an all-culled tile, ties at 0.0) with 1, 13, 33 and
    4,096 boxes (the wrapper's limit; one more must raise ValueError) and
    a tile of 96 rays; K4 on groups with every lane on one pixel, every
-   lane on its own pixel, empty lanes and every lane empty. bsdf_shade
-   (csrc/bsdf_shade.cu, the segment's BSDF work; on the grid in 2b and
-   the production scene in 11a too) held to bsdf_shade_plain on its
-   recorded calls, every output and the seeds bit for bit, and timed
-   beside its byte bound and the plain version.
+   lane on its own pixel, empty lanes and every lane empty.
+   surface_shade (csrc/surface_shade.cu, the segment's surface, material
+   and raygen sections; on the grid in 2b and the production scene in
+   11a too) held to surface_shade_plain on its recorded calls, the new
+   pool, cursors and count bit for bit, and timed beside its byte bound
+   and the plain version; bsdf_shade (csrc/bsdf_shade.cu, the BSDF work,
+   which only the plain version now calls) held to bsdf_shade_plain on
+   the calls the plain version makes there, every output and the seeds
+   bit for bit, and timed the same way.
 3. luxball path: Renderer(1920, 1080) on luxball with a 1M-path pool, 2
    warm-up segments, a fresh pool, then SEGMENTS timed segments; Mrays/s
    (primary + extension + shadow rays, as bench.py counts them),
@@ -43,8 +47,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2b, 3b, 4b: the same three phases on the large-scene path: the 8x8
    luxball grid (361,088 triangles, 2,056 clusters, past both tier
    switches), so each segment runs K1 over superclusters, K5 twice, K6
-   and K4. 2b holds K1 (over superclusters), K5 (both modes), K6 and
-   bsdf_shade to their plain versions
+   and K4. 2b holds K1 (over superclusters), K5 (both modes), K6,
+   surface_shade and bsdf_shade to their plain versions
    and times K3 on K6's inputs; 3b times LARGE_SEGMENTS segments, checks
    the primary-hit share, and holds K5's calls of its last segment to the
    plain version and times them. The trace kernels (K2, K5, K9) are held
@@ -119,9 +123,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    specular map on the glossy core, a rough dielectric glass, and a
    second instance beside it with a rough-reflection core and an ideal
    glass; 11,282 triangles on the flat tier, K1-K4), at 1080p with 1M
-   paths, depth 10, phase 3's view and light. 11a: K1-K4 and bsdf_shade
-   (every lobe but the mirror; its entry in the kernels line) held to
-   their plain versions on the recorded calls of segments 2 and 4; on K3's
+   paths, depth 10, phase 3's view and light. 11a: K1-K4, surface_shade
+   and bsdf_shade (every lobe but the mirror; their entries in the
+   kernels line) held to their plain versions on the recorded calls of
+   segments 2 and 4, surface_shade also on segment 4's lanes recast as
+   the four-card cell's rank (1,024 groups of 1,024, pixel_base not 0)
+   and timed at both shapes; on K3's
    calls the share of textured lanes (map rows 22-24) and that their
    descriptor rows 29-34 are non-zero, K6 on the same calls and K10 on
    the same winners with the tables' f32 attrs, each bit for bit against
@@ -338,17 +345,20 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s, data sheet
 EXACT_SPP = 16
 MK_SPP = 2
 MK_MEAN_GATE = 0.15        # tests/test_render_single_wf.py:35-38
-# the megastep shades with the plain lobes (bsdf_shade is the wavefront's)
+# the megastep shades with the plain lobes; the wavefront's surface,
+# material and raygen sections are one surface_shade launch, whose plain
+# version alone calls bsdf_shade
 _ZERO = {"trace_rol_sc": 0, "resolve_v5s": 0, "block_splat_capped": 0,
-         "fetch": 0, "trace_ros": 0, "resolve_v1": 0, "bsdf_shade": 0}
+         "fetch": 0, "trace_ros": 0, "resolve_v1": 0, "bsdf_shade": 0,
+         "surface_shade": 0}
 PER_SEGMENT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
-               "block_splat": 1, **_ZERO, "bsdf_shade": 1}
+               "block_splat": 1, **_ZERO, "surface_shade": 1}
 PER_SEGMENT_LARGE = {"tile_order": 2, "trace_rol_sc": 2, "resolve_v5s": 1,
                      "block_splat": 1, "trace_rol": 0, "resolve_v5": 0,
                      "block_splat_capped": 0, "fetch": 0, "trace_ros": 0,
-                     "resolve_v1": 0, "bsdf_shade": 1}
+                     "resolve_v1": 0, "bsdf_shade": 0, "surface_shade": 1}
 PER_SEGMENT_EXACT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
-                     "bsdf_shade": 1,
+                     "bsdf_shade": 0, "surface_shade": 1,
                      "block_splat": 0, "trace_rol_sc": 0, "resolve_v5s": 0,
                      "block_splat_capped": 1, "fetch": 1, "trace_ros": 0,
                      "resolve_v1": 0}
@@ -411,7 +421,8 @@ SOURCES = {"tile_order": "fluctus_tpu_torch/csrc/tile_order.cu",
            "trace_ros": "fluctus_tpu_torch/csrc/trace_ros.cu",
            "resolve_v1": "fluctus_tpu_torch/csrc/resolve_v1.cu",
            "bvh_bitstack": "fluctus_tpu_torch/csrc/bvh_bitstack.cu",
-           "bsdf_shade": "fluctus_tpu_torch/csrc/bsdf_shade.cu"}
+           "bsdf_shade": "fluctus_tpu_torch/csrc/bsdf_shade.cu",
+           "surface_shade": "fluctus_tpu_torch/csrc/surface_shade.cu"}
 REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "trace_rol": "fluctus_tpu/accel/mxu_trace.py:736",
             "resolve_v5": "fluctus_tpu/accel/mxu_trace.py:1745",
@@ -425,7 +436,10 @@ REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "bvh_bitstack": "fluctus_tpu/accel/traverse.py:150 _traverse "
                             "(not a Pallas kernel)",
             "bsdf_shade": "none: fluctus_tpu/bsdf/dispatch.py's masked "
-                          "bxdf_eval/bxdf_pdf/bxdf_sample are jnp code"}
+                          "bxdf_eval/bxdf_pdf/bxdf_sample are jnp code",
+            "surface_shade": "none: fluctus_tpu/core/integrator_wf.py's "
+                             "surface, material and raygen sections are "
+                             "jnp code"}
 
 
 def emit(obj):
@@ -486,7 +500,7 @@ class Recorder:
         self.targets = [(mt, "tile_order"), (mt, "trace_rol"),
                         (mt, "resolve_v5"), (bs, "splat"),
                         (mt, "trace_rol_sc"), (mt, "resolve_v5s"),
-                        (mt, "resolve_v1"), (wf, "bsdf_shade")]
+                        (mt, "resolve_v1"), (wf, "surface_shade")]
         self.calls = {}
         self.active = None
 
@@ -530,7 +544,8 @@ def plain_versions():
              (bs, "fetch", bs.fetch_plain),
              (mt, "trace_ros", mt.trace_ros_plain),
              (mt, "resolve_v1", mt.resolve_v1_plain),
-             (wf, "bsdf_shade", bd.bsdf_shade_plain)]
+             (wf, "bsdf_shade", bd.bsdf_shade_plain),
+             (wf, "surface_shade", wf.surface_shade_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -1065,10 +1080,197 @@ def check_bsdf_shade(rec_calls, what, segs=(2, 4)):
         lanes_by_type={int(k): int(c) for k, c in zip(kinds, count)})
 
 
+def surface_flat(out):
+    """surface_shade's outputs (integrator_wf.Surfaced: the new pool, the
+    guide features, the cursors, the restarted count) as (name, tensor),
+    Vec3s and tuples spread."""
+    res = []
+
+    def walk(name, v):
+        if v is None:
+            return
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            for f, x in zip(v._fields, v):
+                walk(f"{name}.{f}" if name else f, x)
+        else:
+            res.append((name, v))
+    walk("", out)
+    return res
+
+
+def surface_diffs(got, ref):
+    """Per output of surface_shade, the elements whose bits differ between
+    the kernel's ``got`` and the plain version's ``ref`` (-1: another
+    shape or dtype); only the differing outputs."""
+    import torch
+    diff = {}
+    for (name, a), (_, b) in zip(surface_flat(got), surface_flat(ref)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            diff[name] = -1
+            continue
+        ab, bb = ((a.view(torch.int32), b.view(torch.int32))
+                  if a.dtype == torch.float32 else (a, b))
+        k = int((ab != bb).sum())
+        if k:
+            diff[name] = k
+    return diff
+
+
+def surface_plain(args, kw, bsdf_calls=None, key=None):
+    """surface_shade's plain version on one call, its BSDF work through
+    bsdf_shade_plain; each bsdf_shade call's arguments appended to
+    ``bsdf_calls[key]`` when given."""
+    from fluctus_tpu_torch.bsdf import dispatch as bd
+    from fluctus_tpu_torch.core import integrator_wf as wf
+    real = wf.bsdf_shade
+
+    def plain(*a, **k):
+        if bsdf_calls is not None:
+            bsdf_calls.setdefault(key, []).append((a, k))
+        return bd.bsdf_shade_plain(*a, **k)
+    wf.bsdf_shade = plain
+    try:
+        return wf.surface_shade_plain(*args, **kw)
+    finally:
+        wf.bsdf_shade = real
+
+
+def surface_bytes(args, kw):
+    """The bytes surface_shade's kernel needs on one call: each per-lane
+    stream it takes read once, and each output written once; an alive
+    lane's texel word (and baked descriptors, and tangent frame for a
+    normal map) for each map it fetches; the env map's two words (the
+    single-read route) for each alive lane under NEE; the group cursors
+    in and the cursors and counts out."""
+    from fluctus_tpu_torch.core import integrator_wf as wf
+    scene, params, state, cfg, hit, sp, seed, T, Ei, term, plen = args
+    n = seed.shape[0]
+    a, flags = wf._surface_args(scene, params, state, cfg, hit, sp, seed, T,
+                                Ei, term, plen, None, False)
+    metas = {id(t) for m in (sp.kd_meta, sp.ks_meta, sp.n_meta)
+             if m is not None for t in m}
+    total = sum(t.element_size() * n for t, _, kind in a
+                if kind == "lane" and t is not None and id(t) not in metas)
+    alive = ~term
+    for bit, mp, meta in ((wf._TEX_KD, sp.map_Kd, sp.kd_meta),
+                          (wf._TEX_KS, sp.map_Ks, sp.ks_meta),
+                          (wf._TEX_N, sp.map_N, sp.n_meta)):
+        if flags & bit:
+            k = int(((mp >= 0) & alive).sum())
+            total += k * (4 + (12 if meta is not None else 0)
+                          + (48 if bit == wf._TEX_N else 0))
+    if flags & wf._ENV:
+        total += int(alive.sum()) * 8
+    rows = wf._F_ROWS if cfg.denoiser else wf._NRM_ROW
+    total += n * (rows * 4 + 2 * 4 + 8 + (4 if cfg.denoiser else 2))
+    return total + state.curr_pixel.numel() * 4 * 3
+
+
+def surface_kernel_ms(args, kw):
+    """surface_shade's kernel alone on one call: timed inside the launch
+    of integrator_wf._surface_kernel (its argument arrays alive), beside
+    the same call's whole wrapper with its allocations."""
+    from fluctus_tpu_torch.core import integrator_wf as wf
+    out = {}
+
+    def launch(*a):
+        out.update(kernel_ms(lambda: wf.K_SURFACE(*a)))
+        wf.K_SURFACE(*a)
+    wf._surface_kernel(launch, *args, **kw)
+    out["wrapper_ms"] = time_ms(lambda: wf.surface_shade(*args, **kw))
+    return out
+
+
+def check_surface_shade(rec_calls, what, segs=(2, 4)):
+    """surface_shade's kernel against its plain version on every recorded
+    call of ``segs``: the new pool, the guide features, the cursors and the
+    restarted count bit for bit (``what`` names the path). The plain
+    version's bsdf_shade calls are kept (keyed like ``rec_calls``) for
+    check_bsdf_shade. The last call timed beside its byte bound and the
+    plain version. Returns (the kernel's entry, the bsdf_shade calls)."""
+    import torch
+    from fluctus_tpu_torch.core import integrator_wf as wf
+    bsdf_calls = {}
+    calls = 0
+    for seg in segs:
+        for args, kw in rec_calls[(seg, "surface_shade")]:
+            diff = surface_diffs(wf.surface_shade(*args, **kw),
+                                 surface_plain(args, kw, bsdf_calls,
+                                               (seg, "bsdf_shade")))
+            if diff:
+                emit(dict(phase="surface_shade_differs", path=what,
+                          segment=seg, differing=diff))
+                raise AssertionError(f"surface_shade differs from its plain "
+                                     f"version ({what}, segment {seg})")
+            calls += 1
+    args, kw = rec_calls[(segs[-1], "surface_shade")][-1]
+    n = args[6].shape[0]
+    b_ms, b_by = bound(0, surface_bytes(args, kw))
+    kinds, count = torch.unique(args[5].type, return_counts=True)
+    return dict(
+        max_abs_err=0.0, calls=calls, **surface_kernel_ms(args, kw),
+        plain_ms=time_ms(lambda: surface_plain(args, kw), 3, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"{n} lanes, {args[2].curr_pixel.numel()} groups, "
+              f"pixel_base {kw.get('pixel_base', 0)}",
+        terminated=int(args[9].sum()),
+        lanes_by_type={int(k): int(c) for k, c in zip(kinds, count)}), \
+        bsdf_calls
+
+
+def x4_rank_call(args, kw, shard=1, ranks=4):
+    """A recorded 1M-lane block-ring call recast as the four-card cell's
+    rank ``shard`` of ``ranks`` (wf_reset of ranks x the pool, sharded): the
+    same lanes as 1,024 groups of 1,024 of a 4,096-group config, the film
+    slice and cursors of that rank, pixel_base its first padded pixel, and
+    each lane's pixel moved onto the slice's ring."""
+    import torch
+    from fluctus_tpu_torch.core import integrator_wf as wf
+    from fluctus_tpu_torch.core.integrator_mk import FeatureFilm, Film
+    scene, params, state, cfg, hit, sp, seed, T, Ei, term, plen = args
+    n = seed.shape[0]
+    p_true, pk = wf._block_geom(cfg)    # 4,096 groups over ranks x n lanes
+    g_local = cfg.groups // ranks
+    base = shard * g_local * pk
+    dev = seed.device
+    lane_g = torch.arange(n, device=dev) // (n // g_local)
+    g_row = base // pk + torch.arange(g_local, device=dev)
+    len_g = torch.clamp(cfg.num_pixels - g_row * p_true, 1, p_true)
+    pix = (base + lane_g * pk
+           + torch.remainder(state.pool.pixel_index, len_g[lane_g])).to(
+        torch.int32)
+    npix = g_local * pk
+    curr = torch.remainder(state.curr_pixel[:g_local], len_g).to(torch.int32)
+    st = wf.WfState(
+        pool=state.pool._replace(pixel_index=pix),
+        film=Film.zeros(npix, dev),
+        spp=torch.zeros(npix, dtype=torch.int32, device=dev),
+        curr_pixel=curr,
+        features=(FeatureFilm.zeros(npix, dev) if cfg.denoiser else None))
+    return (scene, params, st, cfg, hit, sp, seed, T, Ei, term, plen), \
+        dict(pixel_base=base)
+
+
+def phase_surface_shade(rec_calls, what):
+    """surface_shade at the production shapes: segment 4's recorded call
+    (1M lanes, 4,096 groups of 256) and the same lanes as the four-card
+    cell's rank 1 of 4 (1,024 groups of 1,024, pixel_base not 0), each held
+    bit for bit to the plain version and timed beside its bound. Returns
+    (the entry of the production call with the x4 rank's under ``x4``, the
+    bsdf_shade calls of the production segments)."""
+    entry, bcalls = check_surface_shade(rec_calls, what)
+    args, kw = rec_calls[(4, "surface_shade")][-1]
+    x4 = {(4, "surface_shade"): [x4_rank_call(args, kw)]}
+    entry["x4"], _ = check_surface_shade(x4, f"{what}, x4 rank", segs=(4,))
+    return entry, bcalls
+
+
 def phase_kernels(r, rec_calls):
     """Phase 2: every recorded kernel call vs its plain version."""
     res = check_luxball_kernels(rec_calls, "luxball")
-    res["bsdf_shade_luxball"] = check_bsdf_shade(rec_calls, "luxball")
+    res["surface_shade_luxball"], bcalls = check_surface_shade(rec_calls,
+                                                               "luxball")
+    res["bsdf_shade_luxball"] = check_bsdf_shade(bcalls, "luxball")
     (local, data, film), kw = rec_calls[(4, "splat")][0]
     res["block_splat"] = dict(
         **splat_timing(local, data, film, kw["groups"]),
@@ -1118,7 +1320,9 @@ def phase_kernels_large(r, rec_calls):
     res["resolve_v5_on_large"] = dict(
         ms=time_ms(lambda: mt.resolve_v5(*args)),
         shape=res["resolve_v5s"]["shape"])
-    res["bsdf_shade_grid"] = check_bsdf_shade(rec_calls, "8x8 grid")
+    res["surface_shade_grid"], bcalls = check_surface_shade(rec_calls,
+                                                            "8x8 grid")
+    res["bsdf_shade_grid"] = check_bsdf_shade(bcalls, "8x8 grid")
     # segment 2 traces the camera rays of every lane (segment 1 gives each
     # pre-birth lane its first camera ray)
     return res, float((seg2[1] >= 0).float().mean())
@@ -1976,8 +2180,10 @@ def kernels_line(kres, launches):
     17f's launches), with the table route's K1 + K2 time on the same rays and
     its time and K5's on the 8x8 grid's (17d). K4's entry also carries its
     8-channel calls (12a and 15a: the denoiser's features), with their
-    launches in those runs. bsdf_shade's checks and times are 11a's (the
-    production scene), its launches summed as K1-K4's."""
+    launches in those runs. surface_shade's and bsdf_shade's checks and
+    times are 11a's (the production scene; surface_shade's also at the
+    four-card rank's shape), their launches summed as K1-K4's
+    (bsdf_shade's 0: only surface_shade's plain version calls it)."""
     out = []
     for name in SOURCES:
         k = kres[name]
@@ -2685,7 +2891,8 @@ def phase_production(card, lux_kres):
     # the timed wavefront
     rec = record_segments(r)
     kres = check_luxball_kernels(rec, "production")
-    kres["bsdf_shade"] = check_bsdf_shade(rec, "production")
+    kres["surface_shade"], bcalls = phase_surface_shade(rec, "production")
+    kres["bsdf_shade"] = check_bsdf_shade(bcalls, "production")
     tex = check_textured_resolves(rec, r.device_scene.mxu)
     lux = lux_kres["trace_rol"]
     emit(dict(phase="production_kernels_vs_plain", card=card, **info,
@@ -2796,7 +3003,8 @@ def phase_production(card, lux_kres):
     for switches in PROD_PARITY:
         phase_parity(scene, data_dir=data_dir, switches=switches)
     return launches, dict(scene=scene, data_dir=data_dir, main=main,
-                          prof=prof, bsdf_shade=kres["bsdf_shade"])
+                          prof=prof, bsdf_shade=kres["bsdf_shade"],
+                          surface_shade=kres["surface_shade"])
 
 
 # ---------------------------------------------------------------------------
@@ -3720,7 +3928,7 @@ class TimedScript:
 
 PHASE15_HELD = {"tile_order", "trace_rol", "trace_rol_sc", "resolve_v5",
                 "block_splat", "block_splat_8", "block_splat_capped",
-                "fetch", "bsdf_shade"}
+                "fetch", "surface_shade", "bsdf_shade"}
 
 
 def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
@@ -3798,15 +4006,25 @@ def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
                                    ref.view(torch.int32)):
                     raise AssertionError(f"{what}: {key} differs ({where})")
                 note(key, route)
-            elif name == "bsdf_shade":
+            elif name == "surface_shade":
                 from fluctus_tpu_torch.bsdf import dispatch as bd
-                diff, detail = shade_diffs(bd.bsdf_shade(*args, **kw),
-                                           bd.bsdf_shade_plain(*args, **kw),
-                                           args)
-                if any(diff.values()):
-                    raise AssertionError(f"{what}: bsdf_shade differs "
-                                         f"({where}): {detail}")
+                from fluctus_tpu_torch.core import integrator_wf as wf
+                bcalls = {}
+                diff = surface_diffs(wf.surface_shade(*args, **kw),
+                                     surface_plain(args, kw, bcalls, name))
+                if diff:
+                    raise AssertionError(f"{what}: surface_shade differs "
+                                         f"({where}): {diff}")
                 note(name, route)
+                # its BSDF work, the plain version's bsdf_shade calls
+                for bargs, bkw in bcalls.get(name, []):
+                    diff, detail = shade_diffs(
+                        bd.bsdf_shade(*bargs, **bkw),
+                        bd.bsdf_shade_plain(*bargs, **bkw), bargs)
+                    if any(diff.values()):
+                        raise AssertionError(f"{what}: bsdf_shade differs "
+                                             f"({where}): {detail}")
+                    note("bsdf_shade", route)
             elif name == "fetch":
                 local, table, g = fetch_args(*args, **kw)
                 if not torch.equal(bs.fetch(local, table, groups=g),
@@ -4605,7 +4823,7 @@ def phase_sharded(card, main):
     states, sums, held_a = _local_segments(
         r, cfg, r.params, SEGMENTS, d, "16a",
         {"tile_order", "trace_rol", "resolve_v5", "block_splat",
-         "bsdf_shade"})
+         "surface_shade", "bsdf_shade"})
     got = res[0]["wf"]["state"]
     _check_gathered("16a", got, states, r.device)
     for x in res:
@@ -4752,7 +4970,7 @@ BOX_OPS = 25               # FP32 operations of a box test (22 + 3 compares)
 TRI_OPS = 53               # of a triangle test (46 + 7 compares)
 PER_SEGMENT_BVH = {"bvh_bitstack": 2, "tile_order": 0, "trace_rol": 0,
                    "resolve_v5": 0, "block_splat": 1, **_ZERO,
-                   "bsdf_shade": 1}
+                   "surface_shade": 1}
 PER_SEGMENT_BVH_EXACT = {**PER_SEGMENT_BVH, "block_splat": 0,
                          "block_splat_capped": 1, "fetch": 1}
 # the megastep under the env map and the area light: the extension ray and
@@ -5492,6 +5710,7 @@ def run(kb):
     # phase 11: the production luxball (11a-11e)
     launches_p, prod = phase_production(card, kres)
     kres["bsdf_shade"] = prod["bsdf_shade"]
+    kres["surface_shade"] = prod["surface_shade"]
 
     # phase 12: a user's render job: the denoiser (12a), checkpoint and
     # resume (12b), the CLI (12c)

@@ -15,9 +15,11 @@ A fixed pool of paths is an SoA of [num_tasks] tensors. Each segment runs
 two phases: ``wf_trace_phase`` (extension + shadow trace of the rays staged
 last segment under one shared sort) and ``wf_shade_phase`` (winner
 resolve, then ``wf_logic_phase``: implicit light hits with MIS, NEE
-resolve, the film splat of terminated paths, NEE generation, the BSDF
-work of ``bsdf.bsdf_shade`` and per-group pixel-ring raygen). Queues are
-masks; queue lengths are mask popcounts (``WfCounters``).
+resolve, the film splat of terminated paths, then ``surface_shade``: the
+surviving paths' textures, shading normal, NEE generation and BSDF work,
+the guide features and per-group pixel-ring raygen, one launch of
+csrc/surface_shade.cu on the card). Queues are masks; queue lengths are
+mask popcounts (``WfCounters``).
 
 With ``config.block_ring`` (the renderer's default) the pool is
 partitioned into G groups of S lanes; group g renders the true pixels
@@ -42,19 +44,22 @@ materials are resolved from the hits, as on tables that resolve nothing.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import bxdf_types as bx
-from .. import flags
+from .. import envmap, flags
+from .. import kernel_build as kb
 from ..bsdf import apply_textures, bsdf_shade, resolve_material
 from ..envmap import env_radiance_and_pdf, env_sample
 from ..geom import MIN_PATH_LENGTH, RenderConfig, RenderParams
 from ..profiling import span
 from ..rng import burtle_hash, rand
 from ..sampling import pdf_area_to_solid_angle, sample_area_light
+from ..texture_fetch import ONE_255
 from ..vec import Vec3, dot, is_zero, length, luminance, where as vwhere
 from . import block_splat as bs
 from .camera import generate_camera_rays
@@ -392,8 +397,6 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     if block:
         p_true, pk_ = _block_geom(cfg)
         g_local = num_pixels // pk_             # groups this slice owns
-        s_ = n // g_local
-        lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s_
 
     seed = pool.seed
     T = pool.T
@@ -546,6 +549,116 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
                                                 num_pixels),
                     spp_cap)
 
+    # ---- the surface, material and raygen sections: one kernel on the card
+    surf = surface_shade(scene, params, state, cfg, hit, sp, seed, T, Ei,
+                         terminate, plen, pixel_base=pixel_base)
+    counters = WfCounters(
+        raygen=surf.n_regen,
+        # all n lanes are traced each segment (ray counts compare like for
+        # like with the reference)
+        extension=torch.tensor(n, dtype=torch.int32, device=dev),
+        shadow=surf.pool.shadow_pending.sum(),
+        splatted=n_splatted)
+    new_state = WfState(pool=surf.pool, film=film, spp=spp_counts,
+                        curr_pixel=surf.curr_pixel, features=surf.features)
+    return new_state, counters
+
+
+# ---------------------------------------------------------------------------
+# The surface, material and raygen sections of a segment
+# (csrc/surface_shade.cu on the card)
+# ---------------------------------------------------------------------------
+
+K_SURFACE = kb.Kernel("surface_shade", "surface_shade.cu",
+                      "surface_shade_launch",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int])
+
+
+class Surfaced(NamedTuple):
+    """What ``surface_shade`` gives a segment."""
+    pool: WfPool                        # the new pool
+    features: Optional[FeatureFilm]     # the guide features (denoiser)
+    curr_pixel: torch.Tensor            # the ring cursor(s) after raygen
+    n_regen: torch.Tensor               # the lanes raygen restarted
+
+
+def _guide_features(params, state: WfState, config: RenderConfig,
+                    terminate, plen, alive, singular, nrm: Vec3, kd: Vec3,
+                    pixel_base: int = 0):
+    """The denoiser's guide features (wf_logic.cl:214-237): the first hit's
+    normal in camera space (rows right, up, -dir) and the first
+    non-singular hit's albedo, splat as one 8-channel record after the
+    film's (K4, or the flat ring's scatter); a path's first-diffuse flag
+    ends with it. Returns (features, first-diffuse flags), the state's own
+    without the denoiser."""
+    cfg = config
+    pool = state.pool
+    features = state.features
+    first_diffuse = pool.first_diffuse_hit
+    if not cfg.denoiser:
+        return features, first_diffuse
+    num_pixels = state.film.weight.shape[0]
+    lpid = pool.pixel_index - pixel_base if pixel_base else pool.pixel_index
+    block = cfg.block_ring
+    if block:
+        _, pk_ = _block_geom(cfg)
+        g_local = num_pixels // pk_
+    with span("flt::shade.logic.features"):
+        cam = params.camera
+        nm = alive & (plen == 1)
+        cs = Vec3(dot(cam.right, nrm), dot(cam.up, nrm),
+                  -dot(cam.dir, nrm))
+        am = alive & ~singular & ~first_diffuse
+        first_diffuse = ~terminate & (first_diffuse | (alive & ~singular))
+        # [8, n] for K4, [n, 8] rows for the flat scatter
+        fdata = torch.stack([
+            torch.where(am, kd.x, 0.0), torch.where(am, kd.y, 0.0),
+            torch.where(am, kd.z, 0.0), am.to(torch.float32),
+            torch.where(nm, cs.x, 0.0), torch.where(nm, cs.y, 0.0),
+            torch.where(nm, cs.z, 0.0), nm.to(torch.float32)],
+            dim=0 if block else 1)
+        f_old = torch.stack([*features.albedo, features.albedo_w,
+                             *features.normal, features.normal_w], dim=0)
+        if block:
+            f_local = torch.where(nm | am, torch.remainder(lpid, pk_),
+                                  -1).to(torch.int32)
+            f_new = bs.splat(f_local, fdata, f_old, groups=g_local)
+        else:
+            fseg = torch.where(nm | am, lpid, num_pixels).to(torch.int32)
+            f_new = f_old + scatter_pixels(fseg, fdata, num_pixels).T
+        features = FeatureFilm(albedo=Vec3(f_new[0], f_new[1], f_new[2]),
+                               albedo_w=f_new[3],
+                               normal=Vec3(f_new[4], f_new[5], f_new[6]),
+                               normal_w=f_new[7])
+    return features, first_diffuse
+
+
+def surface_shade_plain(scene: DeviceScene, params: RenderParams,
+                        state: WfState, config: RenderConfig, hit, sp, seed,
+                        T: Vec3, Ei: Vec3, terminate, plen,
+                        pixel_base: int = 0) -> Surfaced:
+    """The plain version of the kernel: wf_logic_phase's torch code for
+    the surviving paths' surface (textures, implicit triangle emission,
+    the shading normal, NEE sampling), their material (``bsdf_shade``),
+    the guide features and the terminated paths' raygen, then the merge
+    into the new pool. ``seed``, ``T`` and ``Ei`` are the lanes' after the
+    sections before; ``sp`` None resolves the materials from the hits."""
+    K_SURFACE.plain_runs += 1
+    cfg = config
+    pool = state.pool
+    n = pool.seed.shape[0]
+    dev = pool.seed.device
+    use_env = cfg.use_env_map and scene.env is not None
+    light = params.area_light if cfg.use_area_light else None
+    num_pixels = state.film.weight.shape[0]
+    block = cfg.block_ring
+    if block:
+        p_true, pk_ = _block_geom(cfg)
+        g_local = num_pixels // pk_
+        s_ = n // g_local
+        lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s_
+
     with span("flt::shade.logic.surface"):
         # ---- shading of surviving paths: NEE generation + material ----------
         alive = ~terminate
@@ -634,41 +747,9 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
             nrm, sp, backface, pool.dir, shadow_dir, seed, T, hit.P,
             cfg.material_types)
 
-    # ---- denoiser guide features (wf_logic.cl:214-237): the first hit's
-    # normal in camera space (rows right, up, -dir) and the first
-    # non-singular hit's albedo, splat as one 8-channel record after the
-    # film's (K4, or the flat ring's scatter); a path's first-diffuse flag
-    # ends with it
-    features = state.features
-    first_diffuse = pool.first_diffuse_hit
-    if cfg.denoiser:
-        with span("flt::shade.logic.features"):
-            cam = params.camera
-            nm = alive & (plen == 1)
-            cs = Vec3(dot(cam.right, nrm), dot(cam.up, nrm),
-                      -dot(cam.dir, nrm))
-            am = alive & ~singular & ~first_diffuse
-            first_diffuse = ~terminate & (first_diffuse | (alive & ~singular))
-            # [8, n] for K4, [n, 8] rows for the flat scatter
-            fdata = torch.stack([
-                torch.where(am, sp.Kd.x, 0.0), torch.where(am, sp.Kd.y, 0.0),
-                torch.where(am, sp.Kd.z, 0.0), am.to(torch.float32),
-                torch.where(nm, cs.x, 0.0), torch.where(nm, cs.y, 0.0),
-                torch.where(nm, cs.z, 0.0), nm.to(torch.float32)],
-                dim=0 if block else 1)
-            f_old = torch.stack([*features.albedo, features.albedo_w,
-                                 *features.normal, features.normal_w], dim=0)
-            if block:
-                f_local = torch.where(nm | am, torch.remainder(lpid, pk_),
-                                      -1).to(torch.int32)
-                f_new = bs.splat(f_local, fdata, f_old, groups=g_local)
-            else:
-                fseg = torch.where(nm | am, lpid, num_pixels).to(torch.int32)
-                f_new = f_old + scatter_pixels(fseg, fdata, num_pixels).T
-            features = FeatureFilm(albedo=Vec3(f_new[0], f_new[1], f_new[2]),
-                                   albedo_w=f_new[3],
-                                   normal=Vec3(f_new[4], f_new[5], f_new[6]),
-                                   normal_w=f_new[7])
+    features, first_diffuse = _guide_features(
+        params, state, cfg, terminate, plen, alive, singular, nrm, sp.Kd,
+        pixel_base)
 
     with span("flt::shade.logic.raygen"):
         # ---- RAYGEN for terminated paths (wf_raygen.cl): one ring per group,
@@ -734,13 +815,221 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         last_cos_th=l_cos_th, last_light_pick=l_pick,
         shadow_len=shadow_len, first_diffuse_hit=first_diffuse)
 
-    counters = WfCounters(
-        raygen=n_regen,
-        # all n lanes are traced each segment (ray counts compare like for
-        # like with the reference)
-        extension=torch.tensor(n, dtype=torch.int32, device=dev),
-        shadow=shadow_pending.sum(),
-        splatted=n_splatted)
-    new_state = WfState(pool=new_pool, film=film, spp=spp_counts,
-                        curr_pixel=curr_out, features=features)
-    return new_state, counters
+    return Surfaced(new_pool, features, curr_out, n_regen)
+
+
+# the kernel's float output rows (csrc/surface_shade.cu: FOut): the new
+# pool's 33, then the denoiser's shading normal and Kd
+_NRM_ROW, _KD_ROW, _F_ROWS = 33, 36, 39
+# csrc/surface_shade.cu: I_FLAGS
+_EXPL, _ENV, _ENV_FAST, _LIGHT = 1, 2, 4, 8
+_TEX_KD, _TEX_KS, _TEX_N, _DENOISE, _BLOCK = 16, 32, 64, 128, 256
+
+
+def _surface_args(scene, params, state, cfg, hit, sp, seed, T, Ei,
+                  terminate, plen, rank, textured):
+    """The kernel's inputs in its order, (tensor or None, dtype, kind) with
+    kind "lane" ([n]), "table" (any shape) or "param" (one value), and its
+    flags."""
+    f32, i32 = torch.float32, torch.int32
+    pool = state.pool
+    atlas = scene.atlas
+    tex = atlas is not None and atlas.count > 0
+    kd = tex and atlas.has_kd and not textured
+    ks = tex and atlas.has_ks and not textured
+    nmap = tex and atlas.has_n
+    env = scene.env if cfg.use_env_map else None
+    expl = cfg.sample_expl
+    fast = env is not None and cfg.fast_env and env.prob_alias is not None
+    light = params.area_light if cfg.use_area_light else None
+    flags = ((_EXPL if expl else 0) | (_ENV if expl and env is not None else 0)
+             | (_ENV_FAST if fast else 0)
+             | (_LIGHT if expl and light is not None else 0)
+             | (_TEX_KD if kd else 0) | (_TEX_KS if ks else 0)
+             | (_TEX_N if nmap else 0)
+             | (_DENOISE if cfg.denoiser else 0)
+             | (_BLOCK if cfg.block_ring else 0))
+
+    def lanes(dtype, *ts):
+        return [(t, dtype, "lane") for t in ts]
+
+    def meta(m, used):
+        return lanes(i32, *(m if used and m is not None else (None,) * 3))
+
+    def tab(t, dtype, used=True):
+        return [(t if used else None, dtype, "table")]
+
+    def pars(*ts, used=True):
+        # a Python number becomes a 0-d tensor, as torch would take it
+        val = lambda t: t if isinstance(t, torch.Tensor) else torch.tensor(
+            float(t), dtype=f32, device=seed.device)
+        return [(val(t) if used else None, f32, "param") for t in ts]
+
+    args = (
+        lanes(f32, *hit.P, *hit.N, hit.uv_u, hit.uv_v, *sp.Kd, *sp.Ks,
+              *sp.Ke, sp.alpha, sp.Ni, *pool.dir, *T, *Ei,
+              *pool.shadow_orig, *pool.shadow_dir, pool.shadow_len,
+              pool.last_pdf_direct, pool.last_cos_th, pool.last_light_pick,
+              *pool.last_emission)
+        + lanes(i32, hit.i, sp.type, sp.map_Kd, sp.map_Ks, sp.map_N, plen,
+                pool.pixel_index)
+        + meta(sp.kd_meta, kd) + meta(sp.ks_meta, ks)
+        + meta(sp.n_meta, nmap) + lanes(i32, rank)
+        + lanes(torch.bool, terminate) + lanes(torch.int64, seed)
+        + tab(state.curr_pixel, i32)
+        + tab(atlas.texels if tex else None, i32)
+        + sum((tab(getattr(atlas, k) if tex else None, i32)
+               for k in ("offset", "width", "height")), [])
+        + tab(scene.tri_frames, f32, nmap)
+        + tab(env.packed if fast else None, i32)
+        + tab(env.prob_alias if fast else None, i32)
+        + tab(None if env is None or fast else env.prob_table, f32)
+        + tab(None if env is None or fast else env.alias_table, i32)
+        + tab(None if env is None or fast else env.pdf_table, f32)
+        + sum((tab(None if env is None or fast else c, f32)
+               for c in (env.image if env is not None else (None,) * 3)),
+              [])
+        + tab(env.inv_mean_lum if fast else None, f32))
+    cam = params.camera
+    lt = params.area_light
+    has_light = light is not None
+    args += (pars(*cam.pos, *cam.dir, *cam.up, *cam.right, cam.fov_scale,
+                  cam.aperture_size, cam.focal_dist)
+             + pars(*lt.pos, *lt.right, *lt.up, *lt.N, *lt.E, lt.size_x,
+                    lt.size_y, used=has_light)
+             + pars(params.world_radius)
+             + pars(params.env_map_strength, used=env is not None))
+    return args, flags
+
+
+def _check_args(args, n, dev, cuda):
+    """Each input of one device, its dtype, [n] for the lanes' and one
+    value for the parameters; contiguous CUDA tensors for the kernel."""
+    for k, (t, dtype, kind) in enumerate(args):
+        if t is None:
+            continue
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"surface_shade: argument {k} is a "
+                             f"{type(t).__name__}, not a tensor")
+        if t.dtype != dtype:
+            raise ValueError(f"surface_shade: argument {k} has dtype "
+                             f"{t.dtype}, expected {dtype}")
+        if kind == "lane" and t.shape != (n,):
+            raise ValueError(f"surface_shade: argument {k} has shape "
+                             f"{tuple(t.shape)}, expected ({n},)")
+        if kind == "param" and t.numel() != 1:
+            raise ValueError(f"surface_shade: argument {k} has "
+                             f"{t.numel()} values, expected 1")
+        if t.device != dev:
+            raise ValueError(f"surface_shade: argument {k} is on "
+                             f"{t.device}, the seeds on {dev}")
+    if not cuda:
+        return
+    for k, (t, _, _) in enumerate(args):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"surface_shade: argument {k} is not "
+                             f"contiguous")
+    kb.check_cuda("surface_shade", *(t for t, _, _ in args if t is not None))
+
+
+def _surface_kernel(launch, scene, params, state, config, hit, sp, seed, T,
+                    Ei, terminate, plen, pixel_base=0, cuda=True):
+    """The kernel's route of ``surface_shade``: its inputs checked (with
+    ``cuda`` as CUDA tensors, contiguous), its outputs allocated, one
+    ``launch(ptrs, ints, floats, groups)``, the new pool viewed from them,
+    then the guide features."""
+    cfg = config
+    pool = state.pool
+    n = seed.shape[0]
+    dev = seed.device
+    with span("flt::shade.logic.surface_raygen"):
+        textured = sp is None
+        if textured:    # tables that resolve nothing
+            sp = resolve_material(scene.mats, hit.mat_id, hit.uv_u,
+                                  hit.uv_v, scene.atlas)
+        num_pixels = state.film.weight.shape[0]
+        block = cfg.block_ring
+        rank = n_regen = None
+        if not block:
+            rank, n_regen = exclusive_rank(terminate)
+        args, flags = _surface_args(scene, params, state, cfg, hit, sp, seed,
+                                    T, Ei, terminate, plen, rank, textured)
+        _check_args(args, n, dev, cuda)
+        groups = s = pk = p_true = 0
+        if block:
+            p_true, pk = _block_geom(cfg)
+            groups = num_pixels // pk
+            s = n // groups
+        fo = torch.empty((_F_ROWS if cfg.denoiser else _NRM_ROW, n),
+                         dtype=torch.float32, device=dev)
+        io = torch.empty((2, n), dtype=torch.int32, device=dev)
+        bo = torch.empty((4 if cfg.denoiser else 2, n), dtype=torch.bool,
+                         device=dev)
+        seed_out = torch.empty_like(seed)
+        ring = (torch.empty((2, groups), dtype=torch.int32, device=dev)
+                if block else None)
+        rows = lambda o, k: [o[j] if j < o.shape[0] else None
+                             for j in range(k)]
+        outs = rows(fo, _F_ROWS) + rows(io, 2) + rows(bo, 4) + [seed_out,
+                                                                ring]
+        ptr = lambda t: 0 if t is None else t.data_ptr()
+        ptrs = (ctypes.c_void_p * (len(args) + len(outs)))(
+            *(ptr(a[0]) for a in args), *(ptr(t) for t in outs))
+        env = scene.env
+        env_prob = (float(cfg.use_env_map)
+                    / max(1, int(cfg.use_env_map) + int(cfg.use_area_light)))
+        ints = (ctypes.c_int * 15)(
+            n, s, flags, int(cfg.material_types), cfg.width, cfg.height, pk,
+            p_true, cfg.num_pixels, pixel_base, num_pixels,
+            env.width if env is not None else 0,
+            env.height if env is not None else 0,
+            scene.tri_frames.shape[1] if flags & _TEX_N else 0,
+            pixel_base // pk if block else 0)
+        floats = (ctypes.c_float * 12)(
+            1.0 / cfg.width, 1.0 / cfg.height, cfg.width * (1.0 / cfg.height),
+            env_prob, 1.0 - env_prob, envmap._U_SCALE, envmap._V_SCALE,
+            envmap._PI, envmap._TWO_PI, envmap._INV_2PI_PI, ONE_255,
+            1.0 / 16383.0)
+        launch(ctypes.addressof(ptrs), ctypes.addressof(ints),
+               ctypes.addressof(floats), groups)
+        if block:
+            curr_out, n_regen = ring[0], ring[1].sum()
+        else:
+            curr_out = torch.remainder(state.curr_pixel + n_regen,
+                                       num_pixels).to(torch.int32)
+    v = lambda k: Vec3(fo[k], fo[k + 1], fo[k + 2])
+    if cfg.denoiser:
+        features, first_diffuse = _guide_features(
+            params, state, cfg, terminate, plen, bo[2], bo[3], v(_NRM_ROW),
+            v(_KD_ROW), pixel_base)
+    else:
+        features, first_diffuse = state.features, pool.first_diffuse_hit
+    new_pool = WfPool(
+        orig=v(0), dir=v(3), shadow_orig=v(6), shadow_dir=v(9), T=v(12),
+        Ei=v(15), last_bsdf=v(18), last_emission=v(21), last_T=v(24),
+        last_pdf_w=fo[27], path_len=io[0], seed=seed_out,
+        last_specular=bo[0],
+        shadow_blocked=torch.ones(n, dtype=torch.bool, device=dev),
+        shadow_pending=bo[1], pixel_index=io[1], last_pdf_direct=fo[28],
+        last_pdf_implicit=fo[29], last_cos_th=fo[30],
+        last_light_pick=fo[31], shadow_len=fo[32],
+        first_diffuse_hit=first_diffuse)
+    return Surfaced(new_pool, features, curr_out, n_regen)
+
+
+def surface_shade(scene: DeviceScene, params: RenderParams, state: WfState,
+                  config: RenderConfig, hit, sp, seed, T: Vec3, Ei: Vec3,
+                  terminate, plen, pixel_base: int = 0) -> Surfaced:
+    """The surface, material and raygen sections of a segment (see
+    ``surface_shade_plain``) on the pixel ring ``[pixel_base, pixel_base +
+    len(film))``: ``hit`` and ``sp`` the resolve's, ``seed``, ``T`` and
+    ``Ei`` the lanes' after the sections before, ``terminate`` the lanes
+    that end, ``plen`` their path lengths. The plain version on CPU
+    tensors; on CUDA tensors one launch of csrc/surface_shade.cu (inputs
+    of another dtype, shape or device, or not contiguous, raise), then the
+    guide features in torch."""
+    if seed.device.type == "cpu":
+        return surface_shade_plain(scene, params, state, config, hit, sp,
+                                   seed, T, Ei, terminate, plen, pixel_base)
+    return _surface_kernel(K_SURFACE, scene, params, state, config, hit, sp,
+                           seed, T, Ei, terminate, plen, pixel_base)

@@ -200,8 +200,10 @@ def kernel_on_cpu(tmp_path_factory):
     d = tmp_path_factory.mktemp("bsdf_shade_cpu")
     csrc = os.path.join(os.path.dirname(kb.__file__), "csrc")
     (d / "cuda_runtime.h").write_text(_CUDA_STUB)
-    with open(os.path.join(csrc, "common.cuh")) as f:
-        (d / "common.cuh").write_text(f.read())
+    for name in os.listdir(csrc):
+        if name.endswith(".cuh"):
+            with open(os.path.join(csrc, name)) as f:
+                (d / name).write_text(f.read())
     with open(os.path.join(csrc, "bsdf_shade.cu")) as f:
         src = f.read()
     src, k = re.subn(

@@ -160,7 +160,8 @@ def test_wrappers_route_by_device():
     assert set(kb.KERNELS) == {"tile_order", "trace_rol", "resolve_v5",
                                "block_splat", "trace_rol_sc", "resolve_v5s",
                                "block_splat_capped", "fetch", "trace_ros",
-                               "resolve_v1", "bvh_bitstack", "bsdf_shade"}
+                               "resolve_v1", "bvh_bitstack", "bsdf_shade",
+                               "surface_shade"}
     rem = torch.zeros((1, 2 * 128))
     assert bs.splat(local, data, film, groups=2, remaining=rem).sum() == 0
     assert bs.fetch(local, film[3:], groups=2).shape == (4,)
