@@ -28,10 +28,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and raygen sections; on the grid in 2b and the production scene in
    11a too) held to surface_shade_plain on its recorded calls, the new
    pool, cursors and count bit for bit, and timed beside its byte bound
-   and the plain version; bsdf_shade (csrc/bsdf_shade.cu, the BSDF work,
-   which only the plain version now calls) held to bsdf_shade_plain on
-   the calls the plain version makes there, every output and the seeds
-   bit for bit, and timed the same way.
+   and the plain version.
 3. luxball path: Renderer(1920, 1080) on luxball with a 1M-path pool, 2
    warm-up segments, a fresh pool, then SEGMENTS timed segments; Mrays/s
    (primary + extension + shadow rays, as bench.py counts them),
@@ -47,8 +44,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 2b, 3b, 4b: the same three phases on the large-scene path: the 8x8
    luxball grid (361,088 triangles, 2,056 clusters, past both tier
    switches), so each segment runs K1 over superclusters, K5 twice, K6
-   and K4. 2b holds K1 (over superclusters), K5 (both modes), K6,
-   surface_shade and bsdf_shade to their plain versions
+   and K4. 2b holds K1 (over superclusters), K5 (both modes), K6
+   and surface_shade to their plain versions
    and times K3 on K6's inputs; 3b times LARGE_SEGMENTS segments, checks
    the primary-hit share, and holds K5's calls of its last segment to the
    plain version and times them. The trace kernels (K2, K5, K9) are held
@@ -123,8 +120,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    specular map on the glossy core, a rough dielectric glass, and a
    second instance beside it with a rough-reflection core and an ideal
    glass; 11,282 triangles on the flat tier, K1-K4), at 1080p with 1M
-   paths, depth 10, phase 3's view and light. 11a: K1-K4, surface_shade
-   and bsdf_shade (every lobe but the mirror; their entries in the
+   paths, depth 10, phase 3's view and light. 11a: K1-K4 and
+   surface_shade (every lobe but the mirror; their entries in the
    kernels line) held to their plain versions on the recorded calls of
    segments 2 and 4, surface_shade also on segment 4's lanes recast as
    the four-card cell's rank (1,024 groups of 1,024, pixel_base not 0)
@@ -346,19 +343,17 @@ EXACT_SPP = 16
 MK_SPP = 2
 MK_MEAN_GATE = 0.15        # tests/test_render_single_wf.py:35-38
 # the megastep shades with the plain lobes; the wavefront's surface,
-# material and raygen sections are one surface_shade launch, whose plain
-# version alone calls bsdf_shade
+# material and raygen sections are one surface_shade launch
 _ZERO = {"trace_rol_sc": 0, "resolve_v5s": 0, "block_splat_capped": 0,
-         "fetch": 0, "trace_ros": 0, "resolve_v1": 0, "bsdf_shade": 0,
-         "surface_shade": 0}
+         "fetch": 0, "trace_ros": 0, "resolve_v1": 0, "surface_shade": 0}
 PER_SEGMENT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
                "block_splat": 1, **_ZERO, "surface_shade": 1}
 PER_SEGMENT_LARGE = {"tile_order": 2, "trace_rol_sc": 2, "resolve_v5s": 1,
                      "block_splat": 1, "trace_rol": 0, "resolve_v5": 0,
                      "block_splat_capped": 0, "fetch": 0, "trace_ros": 0,
-                     "resolve_v1": 0, "bsdf_shade": 0, "surface_shade": 1}
+                     "resolve_v1": 0, "surface_shade": 1}
 PER_SEGMENT_EXACT = {"tile_order": 2, "trace_rol": 2, "resolve_v5": 1,
-                     "bsdf_shade": 0, "surface_shade": 1,
+                     "surface_shade": 1,
                      "block_splat": 0, "trace_rol_sc": 0, "resolve_v5s": 0,
                      "block_splat_capped": 1, "fetch": 1, "trace_ros": 0,
                      "resolve_v1": 0}
@@ -421,7 +416,6 @@ SOURCES = {"tile_order": "fluctus_tpu_torch/csrc/tile_order.cu",
            "trace_ros": "fluctus_tpu_torch/csrc/trace_ros.cu",
            "resolve_v1": "fluctus_tpu_torch/csrc/resolve_v1.cu",
            "bvh_bitstack": "fluctus_tpu_torch/csrc/bvh_bitstack.cu",
-           "bsdf_shade": "fluctus_tpu_torch/csrc/bsdf_shade.cu",
            "surface_shade": "fluctus_tpu_torch/csrc/surface_shade.cu"}
 REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "trace_rol": "fluctus_tpu/accel/mxu_trace.py:736",
@@ -435,8 +429,6 @@ REPLACES = {"tile_order": "fluctus_tpu/accel/mxu_trace.py:1056",
             "resolve_v1": "fluctus_tpu/accel/mxu_trace.py:1669",
             "bvh_bitstack": "fluctus_tpu/accel/traverse.py:150 _traverse "
                             "(not a Pallas kernel)",
-            "bsdf_shade": "none: fluctus_tpu/bsdf/dispatch.py's masked "
-                          "bxdf_eval/bxdf_pdf/bxdf_sample are jnp code",
             "surface_shade": "none: fluctus_tpu/core/integrator_wf.py's "
                              "surface, material and raygen sections are "
                              "jnp code"}
@@ -527,7 +519,6 @@ def plain_versions():
     """Swap every kernel wrapper for its plain PyTorch version (the parity
     phases' reference runs); returns the undo function."""
     from fluctus_tpu_torch.accel import mxu_trace as mt
-    from fluctus_tpu_torch.bsdf import dispatch as bd
     from fluctus_tpu_torch.core import block_splat as bs
     from fluctus_tpu_torch.core import integrator_wf as wf
 
@@ -544,7 +535,6 @@ def plain_versions():
              (bs, "fetch", bs.fetch_plain),
              (mt, "trace_ros", mt.trace_ros_plain),
              (mt, "resolve_v1", mt.resolve_v1_plain),
-             (wf, "bsdf_shade", bd.bsdf_shade_plain),
              (wf, "surface_shade", wf.surface_shade_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
@@ -1013,73 +1003,6 @@ def check_splats(rec_calls, what):
                                      f"({what}, segment {seg})")
 
 
-# bsdf_shade's outputs in the order of its Shaded tuple, Vec3s spread
-SHADE_OUTPUTS = ("nee_bsdf.x", "nee_bsdf.y", "nee_bsdf.z", "nee_pdf",
-                 "dir.x", "dir.y", "dir.z", "pdf", "seed", "T.x", "T.y",
-                 "T.z", "orig.x", "orig.y", "orig.z")
-# a lane's bytes, each stream read or written once: 26 float32 inputs, the
-# int32 type, the bool backface and the int64 seed in; 14 float32 outputs
-# and the seed out
-SHADE_LANE_BYTES = 26 * 4 + 4 + 1 + 8 + 14 * 4 + 8
-
-
-def shade_flat(out):
-    from fluctus_tpu_torch.vec import Vec3
-    return [c for v in out for c in (v if isinstance(v, Vec3) else (v,))]
-
-
-def shade_diffs(got, ref, args):
-    """Per output of bsdf_shade, the lanes whose bits differ between the
-    kernel's ``got`` and the plain version's ``ref``; for each differing
-    output its first lanes with their type, face and both values."""
-    import torch
-    diff, detail = {}, {}
-    for name, a, b in zip(SHADE_OUTPUTS, shade_flat(got), shade_flat(ref)):
-        ab, bb = ((a.view(torch.int32), b.view(torch.int32))
-                  if a.dtype == torch.float32 else (a, b))
-        lanes = torch.nonzero(ab != bb).flatten()
-        diff[name] = int(lanes.numel())
-        if lanes.numel():
-            detail[name] = [
-                dict(lane=int(i), type=int(args[1].type[i]),
-                     backface=bool(args[2][i]), got=float(a[i]),
-                     plain=float(b[i]), bits=int(ab[i]) - int(bb[i]))
-                for i in lanes[:4]]
-    return diff, detail
-
-
-def check_bsdf_shade(rec_calls, what, segs=(2, 4)):
-    """bsdf_shade's kernel against bsdf_shade_plain on every recorded call
-    of ``segs``, every output bit for bit (``what`` names the path); the
-    last call timed beside its byte bound and the plain version. Returns
-    the kernel's entry (lanes by type included)."""
-    import torch
-    from fluctus_tpu_torch.bsdf import dispatch as bd
-    calls = 0
-    for seg in segs:
-        for args, kw in rec_calls[(seg, "bsdf_shade")]:
-            diff, detail = shade_diffs(bd.bsdf_shade(*args, **kw),
-                                       bd.bsdf_shade_plain(*args, **kw),
-                                       args)
-            if any(diff.values()):
-                emit(dict(phase="bsdf_shade_differs", path=what,
-                          segment=seg, differing_lanes=diff, lanes=detail))
-                raise AssertionError(f"bsdf_shade differs from its plain "
-                                     f"version ({what}, segment {seg})")
-            calls += 1
-    args, kw = rec_calls[(segs[-1], "bsdf_shade")][-1]
-    m = args[5].shape[0]
-    kinds, count = torch.unique(args[1].type, return_counts=True)
-    b_ms, b_by = bound(0, SHADE_LANE_BYTES * m)
-    return dict(
-        max_abs_err=0.0, calls=calls,
-        **kernel_ms(lambda: bd.bsdf_shade(*args, **kw)),
-        plain_ms=time_ms(lambda: bd.bsdf_shade_plain(*args, **kw), 3, 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"{m} lanes, scene types {args[8]}",
-        lanes_by_type={int(k): int(c) for k, c in zip(kinds, count)})
-
-
 def surface_flat(out):
     """surface_shade's outputs (integrator_wf.Surfaced: the new pool, the
     guide features, the cursors, the restarted count) as (name, tensor),
@@ -1116,25 +1039,6 @@ def surface_diffs(got, ref):
     return diff
 
 
-def surface_plain(args, kw, bsdf_calls=None, key=None):
-    """surface_shade's plain version on one call, its BSDF work through
-    bsdf_shade_plain; each bsdf_shade call's arguments appended to
-    ``bsdf_calls[key]`` when given."""
-    from fluctus_tpu_torch.bsdf import dispatch as bd
-    from fluctus_tpu_torch.core import integrator_wf as wf
-    real = wf.bsdf_shade
-
-    def plain(*a, **k):
-        if bsdf_calls is not None:
-            bsdf_calls.setdefault(key, []).append((a, k))
-        return bd.bsdf_shade_plain(*a, **k)
-    wf.bsdf_shade = plain
-    try:
-        return wf.surface_shade_plain(*args, **kw)
-    finally:
-        wf.bsdf_shade = real
-
-
 def surface_bytes(args, kw):
     """The bytes surface_shade's kernel needs on one call: each per-lane
     stream it takes read once, and each output written once; an alive
@@ -1143,10 +1047,13 @@ def surface_bytes(args, kw):
     single-read route) for each alive lane under NEE; the group cursors
     in and the cursors and counts out."""
     from fluctus_tpu_torch.core import integrator_wf as wf
+    from fluctus_tpu_torch.core import pixel_ring as pr
     scene, params, state, cfg, hit, sp, seed, T, Ei, term, plen = args
     n = seed.shape[0]
+    kring = pr.segment_ring(cfg, state.film.weight.shape[0],
+                            kw.get("pixel_base", 0)).kernel_args(term)
     a, flags = wf._surface_args(scene, params, state, cfg, hit, sp, seed, T,
-                                Ei, term, plen, None, False)
+                                Ei, term, plen, kring, False)
     metas = {id(t) for m in (sp.kd_meta, sp.ks_meta, sp.n_meta)
              if m is not None for t in m}
     total = sum(t.element_size() * n for t, _, kind in a
@@ -1184,19 +1091,16 @@ def surface_kernel_ms(args, kw):
 def check_surface_shade(rec_calls, what, segs=(2, 4)):
     """surface_shade's kernel against its plain version on every recorded
     call of ``segs``: the new pool, the guide features, the cursors and the
-    restarted count bit for bit (``what`` names the path). The plain
-    version's bsdf_shade calls are kept (keyed like ``rec_calls``) for
-    check_bsdf_shade. The last call timed beside its byte bound and the
-    plain version. Returns (the kernel's entry, the bsdf_shade calls)."""
+    restarted count bit for bit (``what`` names the path). The last call
+    timed beside its byte bound and the plain version. Returns the
+    kernel's entry."""
     import torch
     from fluctus_tpu_torch.core import integrator_wf as wf
-    bsdf_calls = {}
     calls = 0
     for seg in segs:
         for args, kw in rec_calls[(seg, "surface_shade")]:
             diff = surface_diffs(wf.surface_shade(*args, **kw),
-                                 surface_plain(args, kw, bsdf_calls,
-                                               (seg, "bsdf_shade")))
+                                 wf.surface_shade_plain(*args, **kw))
             if diff:
                 emit(dict(phase="surface_shade_differs", path=what,
                           segment=seg, differing=diff))
@@ -1209,13 +1113,12 @@ def check_surface_shade(rec_calls, what, segs=(2, 4)):
     kinds, count = torch.unique(args[5].type, return_counts=True)
     return dict(
         max_abs_err=0.0, calls=calls, **surface_kernel_ms(args, kw),
-        plain_ms=time_ms(lambda: surface_plain(args, kw), 3, 1),
+        plain_ms=time_ms(lambda: wf.surface_shade_plain(*args, **kw), 3, 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"{n} lanes, {args[2].curr_pixel.numel()} groups, "
               f"pixel_base {kw.get('pixel_base', 0)}",
         terminated=int(args[9].sum()),
-        lanes_by_type={int(k): int(c) for k, c in zip(kinds, count)}), \
-        bsdf_calls
+        lanes_by_type={int(k): int(c) for k, c in zip(kinds, count)})
 
 
 def x4_rank_call(args, kw, shard=1, ranks=4):
@@ -1226,10 +1129,11 @@ def x4_rank_call(args, kw, shard=1, ranks=4):
     each lane's pixel moved onto the slice's ring."""
     import torch
     from fluctus_tpu_torch.core import integrator_wf as wf
+    from fluctus_tpu_torch.core import pixel_ring as pr
     from fluctus_tpu_torch.core.integrator_mk import FeatureFilm, Film
     scene, params, state, cfg, hit, sp, seed, T, Ei, term, plen = args
     n = seed.shape[0]
-    p_true, pk = wf._block_geom(cfg)    # 4,096 groups over ranks x n lanes
+    _, p_true, pk = pr.geometry(cfg)    # 4,096 groups over ranks x n lanes
     g_local = cfg.groups // ranks
     base = shard * g_local * pk
     dev = seed.device
@@ -1256,21 +1160,18 @@ def phase_surface_shade(rec_calls, what):
     (1M lanes, 4,096 groups of 256) and the same lanes as the four-card
     cell's rank 1 of 4 (1,024 groups of 1,024, pixel_base not 0), each held
     bit for bit to the plain version and timed beside its bound. Returns
-    (the entry of the production call with the x4 rank's under ``x4``, the
-    bsdf_shade calls of the production segments)."""
-    entry, bcalls = check_surface_shade(rec_calls, what)
+    the entry of the production call with the x4 rank's under ``x4``."""
+    entry = check_surface_shade(rec_calls, what)
     args, kw = rec_calls[(4, "surface_shade")][-1]
     x4 = {(4, "surface_shade"): [x4_rank_call(args, kw)]}
-    entry["x4"], _ = check_surface_shade(x4, f"{what}, x4 rank", segs=(4,))
-    return entry, bcalls
+    entry["x4"] = check_surface_shade(x4, f"{what}, x4 rank", segs=(4,))
+    return entry
 
 
 def phase_kernels(r, rec_calls):
     """Phase 2: every recorded kernel call vs its plain version."""
     res = check_luxball_kernels(rec_calls, "luxball")
-    res["surface_shade_luxball"], bcalls = check_surface_shade(rec_calls,
-                                                               "luxball")
-    res["bsdf_shade_luxball"] = check_bsdf_shade(bcalls, "luxball")
+    res["surface_shade_luxball"] = check_surface_shade(rec_calls, "luxball")
     (local, data, film), kw = rec_calls[(4, "splat")][0]
     res["block_splat"] = dict(
         **splat_timing(local, data, film, kw["groups"]),
@@ -1320,9 +1221,7 @@ def phase_kernels_large(r, rec_calls):
     res["resolve_v5_on_large"] = dict(
         ms=time_ms(lambda: mt.resolve_v5(*args)),
         shape=res["resolve_v5s"]["shape"])
-    res["surface_shade_grid"], bcalls = check_surface_shade(rec_calls,
-                                                            "8x8 grid")
-    res["bsdf_shade_grid"] = check_bsdf_shade(bcalls, "8x8 grid")
+    res["surface_shade_grid"] = check_surface_shade(rec_calls, "8x8 grid")
     # segment 2 traces the camera rays of every lane (segment 1 gives each
     # pre-birth lane its first camera ray)
     return res, float((seg2[1] >= 0).float().mean())
@@ -1880,7 +1779,7 @@ def phase_exact(r, card):
     exact image's mean, the timed render's line)."""
     import torch
     from fluctus_tpu_torch import kernel_build as kb
-    from fluctus_tpu_torch.core.integrator_wf import _block_geom, unpad_pixels
+    from fluctus_tpu_torch.core.pixel_ring import geometry, unpad_pixels
     r.reset()
     with ExactRecorder() as rec:
         r.render_single(EXACT_SPP)
@@ -1907,7 +1806,7 @@ def phase_exact(r, card):
     # padded slots by the block geometry; the first slot of a group that
     # owns no true pixel is not parked dead, by the reference's wf_reset,
     # so its ring renders it like a pixel (a "phantom" slot)
-    p_true, pk = _block_geom(r.config)
+    _, p_true, pk = geometry(r.config)
     slot = torch.arange(state.spp.numel(), device=state.spp.device)
     padded = (slot % pk) >= (r.config.num_pixels
                              - (slot // pk) * p_true).clamp(0, p_true)
@@ -1960,7 +1859,7 @@ def phase_exact_parity(width=256, height=144, paths=1 << 16, spp=4):
     """Phase 5c: render_single(spp) through the kernels and, from the same
     reset, through the plain versions."""
     import torch
-    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    from fluctus_tpu_torch.core.pixel_ring import unpad_pixels
     runs = []
     for use_plain in (False, True):
         undo = plain_versions() if use_plain else (lambda: None)
@@ -2180,10 +2079,9 @@ def kernels_line(kres, launches):
     17f's launches), with the table route's K1 + K2 time on the same rays and
     its time and K5's on the 8x8 grid's (17d). K4's entry also carries its
     8-channel calls (12a and 15a: the denoiser's features), with their
-    launches in those runs. surface_shade's and bsdf_shade's checks and
-    times are 11a's (the production scene; surface_shade's also at the
-    four-card rank's shape), their launches summed as K1-K4's
-    (bsdf_shade's 0: only surface_shade's plain version calls it)."""
+    launches in those runs. surface_shade's checks and times are 11a's
+    (the production scene, and the four-card rank's shape), its launches
+    summed as K1-K4's."""
     out = []
     for name in SOURCES:
         k = kres[name]
@@ -2324,7 +2222,7 @@ def phase_k10(card, b16_main):
     launches in the timed run)."""
     import torch
     from fluctus_tpu_torch import kernel_build as kb
-    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    from fluctus_tpu_torch.core.pixel_ring import unpad_pixels
     data_dir, full = no_b16_cache()
     r = make_renderer(1920, 1080, "cuda", data_dir=data_dir)
     sc = r.device_scene.mxu
@@ -2542,7 +2440,7 @@ def phase_env(card, plain_main):
     import torch
     from fluctus_tpu_torch import flags
     from fluctus_tpu_torch import kernel_build as kb
-    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    from fluctus_tpu_torch.core.pixel_ring import unpad_pixels
     r = make_renderer(1920, 1080, "cuda", env_map=ENV_FILE)
     route = env_route(r)
     if not (route["use_env_map"] and route["fast_env"]
@@ -2868,7 +2766,7 @@ def phase_production(card, lux_kres):
     import torch
     from fluctus_tpu_torch import kernel_build as kb
     from fluctus_tpu_torch.core.integrator_mk import Film, render_sample
-    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    from fluctus_tpu_torch.core.pixel_ring import unpad_pixels
     t0 = time.perf_counter()
     data_dir = fresh_dir()
     scene = write_production_scene(fresh_dir(), PROD_SIZES, seed=11)
@@ -2891,8 +2789,7 @@ def phase_production(card, lux_kres):
     # the timed wavefront
     rec = record_segments(r)
     kres = check_luxball_kernels(rec, "production")
-    kres["surface_shade"], bcalls = phase_surface_shade(rec, "production")
-    kres["bsdf_shade"] = check_bsdf_shade(bcalls, "production")
+    kres["surface_shade"] = phase_surface_shade(rec, "production")
     tex = check_textured_resolves(rec, r.device_scene.mxu)
     lux = lux_kres["trace_rol"]
     emit(dict(phase="production_kernels_vs_plain", card=card, **info,
@@ -3003,8 +2900,7 @@ def phase_production(card, lux_kres):
     for switches in PROD_PARITY:
         phase_parity(scene, data_dir=data_dir, switches=switches)
     return launches, dict(scene=scene, data_dir=data_dir, main=main,
-                          prof=prof, bsdf_shade=kres["bsdf_shade"],
-                          surface_shade=kres["surface_shade"])
+                          prof=prof, surface_shade=kres["surface_shade"])
 
 
 # ---------------------------------------------------------------------------
@@ -3035,7 +2931,7 @@ def phase_denoiser(card, prod):
     import torch
     from fluctus_tpu_torch import kernel_build as kb
     from fluctus_tpu_torch.core.denoise import atrous_denoise
-    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    from fluctus_tpu_torch.core.pixel_ring import unpad_pixels
     r = make_renderer(1920, 1080, "cuda", prod["scene"],
                       data_dir=prod["data_dir"],
                       switches={"use_denoiser": True})
@@ -3134,7 +3030,7 @@ def phase_resume(card):
     Renderer's load_checkpoint and render_single(RESUME_SPP); against an
     uninterrupted render_single(2 * RESUME_SPP)."""
     import torch
-    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    from fluctus_tpu_torch.core.pixel_ring import unpad_pixels
     data_dir = fresh_dir()
     ck = os.path.join(fresh_dir(), "luxball.ckpt.npz")
     r = make_renderer(1920, 1080, "cuda", data_dir=data_dir)
@@ -3236,14 +3132,14 @@ def phase_cli(card):
 # ---------------------------------------------------------------------------
 
 def scatter_timing(seg, data, num_pixels, what):
-    """The flat ring's film scatter (``integrator_wf.scatter_pixels``: a
+    """The flat ring's film scatter (``pixel_ring.scatter_pixels``: a
     zeroed [num_pixels + 1, C] buffer and one index_add_) on one recorded
     call: its device time and its byte bound (the pixel ids and records
     read once, the [num_pixels, C] sums written once)."""
-    from fluctus_tpu_torch.core import integrator_wf as wf
+    from fluctus_tpu_torch.core import pixel_ring as pr
     m, c = data.shape
     b_ms, b_by = bound(m * c, nbytes(seg, data) + num_pixels * c * 4)
-    return dict(**kernel_ms(lambda: wf.scatter_pixels(seg, data,
+    return dict(**kernel_ms(lambda: pr.scatter_pixels(seg, data,
                                                       num_pixels)),
                 bound_ms=b_ms, bound_by=b_by, cell=what,
                 shape=f"{m} records x {c} channels into {num_pixels} + 1 "
@@ -3338,7 +3234,7 @@ def phase_flat(card, exact_line, plain_main):
     Returns the launches of 13a's and 13c's timed runs."""
     import torch
     from fluctus_tpu_torch import kernel_build as kb
-    from fluctus_tpu_torch.core import integrator_wf as wf
+    from fluctus_tpu_torch.core import pixel_ring as pr
     data_dir = fresh_dir()
 
     # 13a: free-running on the flat ring: K1-K3 held, timed, profiled
@@ -3354,7 +3250,7 @@ def phase_flat(card, exact_line, plain_main):
     if r._wf_cfg.block_ring:
         raise AssertionError("13a: the pool is on the block ring")
     film_k1 = r.wavefront_film()
-    with LastCalls(wf, "scatter_pixels", keep=1) as rec:
+    with LastCalls(pr, "scatter_pixels", keep=1) as rec:
         r.render_wavefront(1)
     scatter = {"channels_4": scatter_timing(*rec.calls[0], "13a")}
     prof = profile_segments(r, card, main["ms_per_segment"])
@@ -3379,7 +3275,7 @@ def phase_flat(card, exact_line, plain_main):
     same = again["rays"] == main["rays"]
     # what the reference's batching would scatter at once: one index_add_
     # of 4 segments' records (against 4 of 13a's single ones)
-    with LastCalls(wf, "scatter_pixels", keep=FLAT_SPLAT_EVERY) as rec:
+    with LastCalls(pr, "scatter_pixels", keep=FLAT_SPLAT_EVERY) as rec:
         r.render_wavefront(FLAT_SPLAT_EVERY)
     segs, datas, npx = zip(*rec.calls)
     scatter["batch"] = scatter_timing(torch.cat(segs), torch.cat(datas),
@@ -3398,7 +3294,7 @@ def phase_flat(card, exact_line, plain_main):
     r.settings.use_denoiser = True
     r.rebuild_config()
     r.init_wavefront(1 << 20)
-    with LastCalls(wf, "scatter_pixels", keep=1) as rec:
+    with LastCalls(pr, "scatter_pixels", keep=1) as rec:
         r.render_wavefront(4)
     r.wavefront_film()
     f = r.features
@@ -3928,7 +3824,7 @@ class TimedScript:
 
 PHASE15_HELD = {"tile_order", "trace_rol", "trace_rol_sc", "resolve_v5",
                 "block_splat", "block_splat_8", "block_splat_capped",
-                "fetch", "surface_shade", "bsdf_shade"}
+                "fetch", "surface_shade"}
 
 
 def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
@@ -3936,8 +3832,7 @@ def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
     bit: K1 order and skey, the trace kernels' t (bits), columns and
     visits, the resolve rows (max |difference| 0), K4 at each channel
     count, K7 and K8, the bitstack traversal's t, tri, u, v (bits; the
-    rays and hits of each call noted), bsdf_shade's outputs (bits); phase
-    ``what`` fails on a difference
+    rays and hits of each call noted); phase ``what`` fails on a difference
     or when a kernel of ``want`` has no recorded call. Returns {kernel:
     {calls, max_abs_err, routes}}."""
     import torch
@@ -4007,24 +3902,13 @@ def hold_recorded(calls, want=PHASE15_HELD, what="15a"):
                     raise AssertionError(f"{what}: {key} differs ({where})")
                 note(key, route)
             elif name == "surface_shade":
-                from fluctus_tpu_torch.bsdf import dispatch as bd
                 from fluctus_tpu_torch.core import integrator_wf as wf
-                bcalls = {}
                 diff = surface_diffs(wf.surface_shade(*args, **kw),
-                                     surface_plain(args, kw, bcalls, name))
+                                     wf.surface_shade_plain(*args, **kw))
                 if diff:
                     raise AssertionError(f"{what}: surface_shade differs "
                                          f"({where}): {diff}")
                 note(name, route)
-                # its BSDF work, the plain version's bsdf_shade calls
-                for bargs, bkw in bcalls.get(name, []):
-                    diff, detail = shade_diffs(
-                        bd.bsdf_shade(*bargs, **bkw),
-                        bd.bsdf_shade_plain(*bargs, **bkw), bargs)
-                    if any(diff.values()):
-                        raise AssertionError(f"{what}: bsdf_shade differs "
-                                             f"({where}): {detail}")
-                    note("bsdf_shade", route)
             elif name == "fetch":
                 local, table, g = fetch_args(*args, **kw)
                 if not torch.equal(bs.fetch(local, table, groups=g),
@@ -4800,7 +4684,7 @@ def phase_sharded(card, main):
     sharded run)."""
     import torch
     from fluctus_tpu_torch.core.integrator_mk import Film, render_sample
-    from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+    from fluctus_tpu_torch.core.pixel_ring import unpad_pixels
     from fluctus_tpu_torch.vec import Vec3
     t_phase = time.perf_counter()
     data_dir = fresh_dir()
@@ -4823,7 +4707,7 @@ def phase_sharded(card, main):
     states, sums, held_a = _local_segments(
         r, cfg, r.params, SEGMENTS, d, "16a",
         {"tile_order", "trace_rol", "resolve_v5", "block_splat",
-         "surface_shade", "bsdf_shade"})
+         "surface_shade"})
     got = res[0]["wf"]["state"]
     _check_gathered("16a", got, states, r.device)
     for x in res:
@@ -5709,7 +5593,6 @@ def run(kb):
 
     # phase 11: the production luxball (11a-11e)
     launches_p, prod = phase_production(card, kres)
-    kres["bsdf_shade"] = prod["bsdf_shade"]
     kres["surface_shade"] = prod["surface_shade"]
 
     # phase 12: a user's render job: the denoiser (12a), checkpoint and

@@ -13,20 +13,19 @@ the path (its emission is added by the integrator's implicit hit).
 
 ``bsdf_shade`` is a wavefront segment's BSDF work in one call: the NEE
 ray's bsdf and pdf, the continuation sample and the path's new throughput
-and origin. On CUDA tensors it launches ``csrc/bsdf_shade.cu`` (each lane
-runs its own lobe only); on CPU tensors it runs ``bsdf_shade_plain``, the
-three masked functions above and their epilogue.
+and origin, the three masked functions above and their epilogue, on any
+device. It is the BSDF of ``surface_shade_plain`` (core/integrator_wf.py);
+on the card the segment's kernel, csrc/surface_shade.cu, does the same
+work per lane through csrc/bsdf_device.cuh, each lane its own lobe.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from .. import bxdf_types as bx
-from .. import kernel_build as kb
 from ..rng import rand_n
 from ..sampling import INV_PI, cos_sample_hemisphere_uv
 from ..texture_fetch import mat_get_albedo, mat_get_float3
@@ -261,12 +260,8 @@ def bxdf_pdf(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3,
 
 
 # ---------------------------------------------------------------------------
-# A segment's BSDF work in one call (csrc/bsdf_shade.cu)
+# A segment's BSDF work in one call
 # ---------------------------------------------------------------------------
-
-K_SHADE = kb.Kernel("bsdf_shade", "bsdf_shade.cu", "bsdf_shade_launch",
-                    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
-
 
 class Shaded(NamedTuple):
     """What ``bsdf_shade`` gives each lane."""
@@ -280,13 +275,15 @@ class Shaded(NamedTuple):
     orig: Vec3                # the continuation ray's origin
 
 
-def bsdf_shade_plain(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3,
-                     dir_nee: Vec3, seed, T: Vec3, P: Vec3,
-                     scene_types: int) -> Shaded:
-    """The plain version of the kernel: ``bxdf_eval`` and ``bxdf_pdf`` of
-    the NEE direction, ``bxdf_sample`` of the continuation, then the new
-    throughput T f cos / pdf and the origin P + 1e-4 d."""
-    K_SHADE.plain_runs += 1
+def bsdf_shade(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3,
+               dir_nee: Vec3, seed, T: Vec3, P: Vec3,
+               scene_types: int) -> Shaded:
+    """A segment's BSDF work for every lane: ``bxdf_eval`` and ``bxdf_pdf``
+    of the NEE direction, ``bxdf_sample`` of the continuation, then the
+    new throughput T f cos / pdf and the origin P + 1e-4 d. n the shading
+    normal (flipped to the side of dir_in), sp the lane's material,
+    dir_nee the NEE ray's direction, seed the lane's RNG state, T its
+    throughput, P its hit point."""
     nee_bsdf = bxdf_eval(n, sp, backface, dir_in, dir_nee, scene_types)
     nee_pdf = torch.clamp_min(bxdf_pdf(n, sp, backface, dir_in, dir_nee,
                                        scene_types), 0.0)
@@ -296,52 +293,3 @@ def bsdf_shade_plain(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3,
     new_T = vwhere(bad, Vec3.zeros(seed.shape, seed.device),
                    T * f * (dot(n, d) / torch.where(bad, 1.0, pdf_w)))
     return Shaded(nee_bsdf, nee_pdf, d, pdf_w, seed, new_T, P + d * 1e-4)
-
-
-def _shade_inputs(n, sp, backface, dir_in, dir_nee, seed, T, P):
-    """The kernel's inputs in its order, each checked: one shape [m], one
-    device, of its dtype. Returns (tensors, m)."""
-    f32 = torch.float32
-    floats = (*n, *sp.Kd, *sp.Ks, *sp.Ke, sp.alpha, sp.Ni, *dir_in,
-              *dir_nee, *T, *P)
-    tensors = floats + (sp.type, backface, seed)
-    dtypes = (f32,) * len(floats) + (torch.int32, torch.bool, torch.int64)
-    m = seed.shape[0] if seed.dim() == 1 else -1
-    for k, (t, dt) in enumerate(zip(tensors, dtypes)):
-        if t.shape != (m,):
-            raise ValueError(f"bsdf_shade: argument {k} has shape "
-                             f"{tuple(t.shape)}, expected ({m},)")
-        if t.dtype != dt:
-            raise ValueError(f"bsdf_shade: argument {k} has dtype "
-                             f"{t.dtype}, expected {dt}")
-        if t.device != seed.device:
-            raise ValueError(f"bsdf_shade: argument {k} is on {t.device}, "
-                             f"the seeds on {seed.device}")
-    return tensors, m
-
-
-def bsdf_shade(n: Vec3, sp: ShadingParams, backface, dir_in: Vec3,
-               dir_nee: Vec3, seed, T: Vec3, P: Vec3,
-               scene_types: int) -> Shaded:
-    """A segment's BSDF work for every lane (see ``bsdf_shade_plain``): n
-    the shading normal (flipped to the side of dir_in), sp the lane's
-    material, dir_nee the NEE ray's direction, seed the lane's RNG state,
-    T its throughput, P its hit point. Inputs are [m] tensors: float32,
-    sp.type int32, backface bool, seed int64. The plain version on CPU
-    tensors (of any layout), the kernel on contiguous CUDA tensors;
-    anything else raises."""
-    tensors, m = _shade_inputs(n, sp, backface, dir_in, dir_nee, seed, T, P)
-    if seed.device.type == "cpu":
-        return bsdf_shade_plain(n, sp, backface, dir_in, dir_nee, seed, T, P,
-                                scene_types)
-    for k, t in enumerate(tensors):
-        if not t.is_contiguous():
-            raise ValueError(f"bsdf_shade: argument {k} is not contiguous")
-    kb.check_cuda("bsdf_shade", seed)     # the others share its device
-    out = torch.empty((14, m), dtype=torch.float32, device=seed.device)
-    seed_out = torch.empty_like(seed)
-    ptrs = (ctypes.c_void_p * (len(tensors) + 15))(
-        *(t.data_ptr() for t in (*tensors, *out, seed_out)))
-    K_SHADE(ctypes.addressof(ptrs), m, int(scene_types))
-    v = lambda k: Vec3(out[k], out[k + 1], out[k + 2])
-    return Shaded(v(0), out[3], v(4), out[7], seed_out, v(8), v(11))

@@ -4,7 +4,8 @@ pool (the reference package's core/block_splat.py).
 The pool is partitioned into ``G`` groups of ``S`` lanes; group ``g`` owns
 the ``P`` true pixels ``[g*P, g*P + len_g)``, padded to ``Pk`` in the film.
 A lane only carries paths of its group's pixels, so a segment's splats
-from group ``g`` land in film block ``g``. Channel-major throughout:
+from group ``g`` land in film block ``g`` (the geometry and the ring are
+core/pixel_ring.py's). Channel-major throughout:
 data ``[C, n]``, film ``[C, G*Pk]``.
 
 On CUDA tensors ``splat`` launches K4 (``csrc/block_splat.cu``; up to 8
@@ -31,20 +32,6 @@ K7 = kb.Kernel("block_splat_capped", "block_splat_capped.cu",
                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5)
 K8 = kb.Kernel("fetch", "fetch.cu", "fetch_launch",
                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3)
-
-
-def plan(num_pixels: int, num_tasks: int, groups: int):
-    """Static geometry: (S lanes/group, P true pixels/group, Pk padded to a
-    multiple of 128). P = ceil(pixels/groups), so a short or empty tail of
-    groups is possible; the integrator clamps their ring length to >= 1."""
-    if num_tasks % groups:
-        raise ValueError(f"num_tasks {num_tasks} % groups {groups} != 0")
-    if groups > num_pixels:
-        raise ValueError(f"groups {groups} > {num_pixels} pixels")
-    s = num_tasks // groups
-    p = -(-num_pixels // groups)          # ceil
-    pk = -(-p // 128) * 128
-    return s, p, pk
 
 
 def splat_plain(local, data, film, groups: int):

@@ -21,21 +21,10 @@ the guide features and per-group pixel-ring raygen, one launch of
 csrc/surface_shade.cu on the card). Queues are masks; queue lengths are
 mask popcounts (``WfCounters``).
 
-With ``config.block_ring`` (the renderer's default) the pool is
-partitioned into G groups of S lanes; group g renders the true pixels
-[g*P, g*P + len_g) through its own ring cursor, and its splats land in
-film block g (core/block_splat.py). Film and spp live in the padded
-[G*Pk] layout (``pad_pixels`` / ``unpad_pixels``), and so do the guide
-features.
-
-Without it the pixel ring is flat, the reference's own (wf_raygen.cl:25):
-film, spp and features in true pixel order, one global raygen cursor
-(a 0-d tensor) whose ranks are an exclusive prefix count over the whole
-pool (``exclusive_rank``), and terminated paths splat by a scatter-add
-into ``num_pixels + 1`` buckets, the last one the overflow bucket of
-lanes that do not splat (``scatter_pixels``). Under the spp cap each
-segment reads the spp by a gather and admits exactly each pixel's
-remaining budget, ranking a pixel's splatting lanes by a stable sort.
+The pixel ring (which pixel a lane renders next, and where its samples
+land: the block ring of G groups over a padded film, or the reference's
+flat ring) is core/pixel_ring.py's; a segment asks its ring and does not
+branch on it.
 
 Both rings render a scene without cluster tables too: its extension and
 shadow rays are traced through its BVH (accel/traverse.py), and the
@@ -53,7 +42,8 @@ import torch
 from .. import bxdf_types as bx
 from .. import envmap, flags
 from .. import kernel_build as kb
-from ..bsdf import apply_textures, bsdf_shade, resolve_material
+from ..bsdf import apply_textures, resolve_material
+from ..bsdf import dispatch as bd
 from ..envmap import env_radiance_and_pdf, env_sample
 from ..geom import MIN_PATH_LENGTH, RenderConfig, RenderParams
 from ..profiling import span
@@ -61,7 +51,7 @@ from ..rng import burtle_hash, rand
 from ..sampling import pdf_area_to_solid_angle, sample_area_light
 from ..texture_fetch import ONE_255
 from ..vec import Vec3, dot, is_zero, length, luminance, where as vwhere
-from . import block_splat as bs
+from . import pixel_ring
 from .camera import generate_camera_rays
 from .integrator_mk import FeatureFilm, Film
 from .trace import (DeviceScene, has_resolve_tables, tangent_space_normal,
@@ -114,56 +104,6 @@ class WfCounters(NamedTuple):
     splatted: torch.Tensor
 
 
-def _block_geom(config: RenderConfig):
-    """(P true pixels per group, Pk padded). Group g owns true pixels
-    [g*P, g*P + len_g)."""
-    p_true = -(-config.num_pixels // config.groups)
-    pk = -(-p_true // 128) * 128
-    return p_true, pk
-
-
-def padded_to_true_pid(config: RenderConfig, idx):
-    """Padded pixel index (group g, slot k -> g*Pk + k) to the true pixel
-    id (g*P + k). The identity on the flat ring."""
-    if not config.block_ring:
-        return idx
-    p_true, pk = _block_geom(config)
-    return torch.div(idx, pk, rounding_mode="floor") * p_true \
-        + torch.remainder(idx, pk)
-
-
-def unpad_pixels(arr, config: RenderConfig):
-    """Padded per-pixel array [G*Pk(, C)] -> true layout [num_pixels(, C)].
-    The identity on the flat ring."""
-    if not config.block_ring:
-        return arr
-    p_true, pk = _block_geom(config)
-    g = arr.shape[0] // pk
-    tail = tuple(arr.shape[1:])
-    return arr.reshape((g, pk) + tail)[:, :p_true].reshape(
-        (g * p_true,) + tail)[:config.num_pixels]
-
-
-def pad_pixels(arr, config: RenderConfig, fill=0):
-    """True per-pixel array [num_pixels(, C)] -> padded block layout
-    [G*Pk(, C)] (inverse of unpad_pixels); ``fill`` lands in dead slots.
-    The identity on the flat ring."""
-    if not config.block_ring:
-        return arr
-    p_true, pk = _block_geom(config)
-    g = config.groups
-    total = g * p_true
-    tail = tuple(arr.shape[1:])
-    if total > arr.shape[0]:
-        arr = torch.cat([arr, torch.full((total - arr.shape[0],) + tail,
-                                         fill, dtype=arr.dtype,
-                                         device=arr.device)])
-    m = arr.reshape((g, p_true) + tail)
-    pad = torch.full((g, pk - p_true) + tail, fill, dtype=arr.dtype,
-                     device=arr.device)
-    return torch.cat([m, pad], dim=1).reshape((g * pk,) + tail)
-
-
 def salt_seeds(seed, salt: int):
     """The seeds of a statistically independent stream: each seed mixed
     with ``salt`` by burtle_hash (FLT_SEED_SALT's mix, and the resumed
@@ -171,56 +111,16 @@ def salt_seeds(seed, salt: int):
     return burtle_hash(seed ^ ((salt * 0x9E3779B9) & 0xFFFFFFFF))
 
 
-def exclusive_rank(mask):
-    """Exclusive prefix count of a bool [n] mask in int32, and its total:
-    the flat ring's raygen ranks (the reference's ``exclusive_rank``
-    computes the same counts by triangular matmuls, a TPU workaround)."""
-    m = mask.to(torch.int32)
-    incl = torch.cumsum(m, 0, dtype=torch.int32)
-    return incl - m, incl[-1]
-
-
-def run_ranks(key):
-    """Each lane's rank among the lanes of equal ``key`` [n], in lane
-    order (int64): a stable sort by key, each run's start by cummax, and
-    the ranks scattered back to lane order (the reference sorts them back,
-    its second ``lax.sort``, integrator_wf.py:462-470)."""
-    n = key.shape[0]
-    skey, slane = torch.sort(key, stable=True)
-    pos = torch.arange(n, dtype=torch.int64, device=key.device)
-    newrun = torch.ones(n, dtype=torch.bool, device=key.device)
-    newrun[1:] = skey[1:] != skey[:-1]
-    runstart = torch.cummax(torch.where(newrun, pos, 0), 0).values
-    return torch.empty_like(pos).scatter_(0, slane, pos - runstart)
-
-
-def scatter_pixels(seg, data, num_pixels: int):
-    """The flat ring's film scatter: the rows of ``data`` [m, C] summed by
-    pixel ``seg`` [m] into ``num_pixels + 1`` buckets, the last one the
-    overflow bucket of lanes that do not splat; returns [num_pixels, C].
-    This is the reference's own semantics for the flat ring (its
-    ``segment_sum``), so it stays one ``index_add_``, not a kernel: on the
-    CPU it adds in lane order, as XLA's CPU scatter does; on CUDA it adds
-    by atomics in no fixed order, so float sums are not bit-reproducible
-    there (whole-number weights and int32 counts are)."""
-    acc = torch.zeros((num_pixels + 1,) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    return acc.index_add_(0, seg, data)[:num_pixels]
-
-
 def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0, *,
              device) -> WfState:
     """wf_reset.cl: clear film, reset pool, seed = lane id (salted by
     FLT_SEED_SALT when set). path_len = -1 marks paths as pre-birth: the
-    first segment regenerates them without splatting. On the block ring
-    (whose geometry ``config.block_plan`` checks, raising on a pool the
-    groups do not divide) padded dead pixels' spp is parked at 2^29 and
-    each group has a cursor; on the flat ring spp is zero over the true
-    pixels and the cursor is one 0-d tensor. With ``config.denoiser`` the
-    pool tracks each path's first diffuse hit and the state holds zero
-    guide features."""
-    if config.block_ring:
-        config.block_plan(num_tasks)
+    first segment regenerates them without splatting. The film, spp and
+    ring cursor(s) are the pixel ring's (``pixel_ring.reset``, which raises
+    on a pool the block ring's groups do not divide). With
+    ``config.denoiser`` the pool tracks each path's first diffuse hit and
+    the state holds zero guide features."""
+    npix, spp0, curr0 = pixel_ring.reset(config, num_tasks, device=device)
     n = num_tasks
     salt = flags.env_int("SEED_SALT", 0)
     seed0 = torch.arange(n, dtype=torch.int64, device=device)
@@ -245,18 +145,6 @@ def wf_reset(config: RenderConfig, num_tasks: int, world_radius=1.0, *,
         last_light_pick=f32(1.0),
         shadow_len=f32(2.0 * float(world_radius)),
         first_diffuse_hit=b(False) if config.denoiser else None)
-    if config.block_ring:
-        p_true, pk = _block_geom(config)
-        npix = config.groups * pk
-        gi = torch.arange(npix, dtype=torch.int32, device=device) // pk
-        li = torch.arange(npix, dtype=torch.int32, device=device) % pk
-        live = li < torch.clamp(config.num_pixels - gi * p_true, 1, p_true)
-        spp0 = torch.where(live, 0, 1 << 29).to(torch.int32)
-        curr0 = torch.zeros(config.groups, dtype=torch.int32, device=device)
-    else:
-        npix = config.num_pixels
-        spp0 = torch.zeros(npix, dtype=torch.int32, device=device)
-        curr0 = torch.zeros((), dtype=torch.int32, device=device)
     return WfState(pool=pool, film=Film.zeros(npix, device), spp=spp0,
                    curr_pixel=curr0,
                    features=(FeatureFilm.zeros(npix, device)
@@ -390,13 +278,9 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     use_env = cfg.use_env_map and scene.env is not None
     light = params.area_light if cfg.use_area_light else None
     # the ring's size is the film slice this segment owns
-    num_pixels = state.film.weight.shape[0]
-    # local pixel id (unsharded: the pixel id, without a device op)
-    lpid = pool.pixel_index - pixel_base if pixel_base else pool.pixel_index
-    block = cfg.block_ring
-    if block:
-        p_true, pk_ = _block_geom(cfg)
-        g_local = num_pixels // pk_             # groups this slice owns
+    ring = pixel_ring.segment_ring(cfg, state.film.weight.shape[0],
+                                   pixel_base)
+    lpid = ring.local(pool.pixel_index)
 
     seed = pool.seed
     T = pool.T
@@ -421,23 +305,14 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
             T = vwhere(rr, T / cp, T)
 
         max_samples_reached = torch.zeros(n, dtype=torch.bool, device=dev)
+        spp_cap = pix_spp = None
         if cfg.max_spp > 0:
             # the cap's value comes from params (spp retargets), its presence
             # and fallback value from the config (integrator_wf.py:392-406)
             cap = torch.as_tensor(params.max_spp, dtype=torch.int32,
                                   device=dev)
             spp_cap = torch.where(cap > 0, cap, cfg.max_spp)
-            if block:
-                pix_spp = bs.fetch(torch.remainder(lpid, pk_).to(torch.int32),
-                                   state.spp.to(torch.float32)[None, :],
-                                   groups=g_local).to(torch.int32)
-            else:
-                # pre-birth lanes (pixel 0 from wf_reset) lie outside a slice
-                # that does not start at 0: clamped, they read a count they
-                # never use (they terminate without splatting)
-                idx = (torch.clamp(lpid, 0, num_pixels - 1) if pixel_base
-                       else lpid)
-                pix_spp = state.spp[idx.long()]
+            pix_spp = ring.fetch_spp(lpid, state.spp)
             max_samples_reached = pix_spp >= spp_cap
             terminate |= max_samples_reached
             if held is not None:
@@ -497,57 +372,14 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
         # ---- splat terminated paths (wf_logic.cl:171-205) -------------------
         splat = terminate & (plen > 0) & ~max_samples_reached
         film = state.film
-        splat_records = None
-        if block:
-            data_t = torch.stack([torch.where(splat, Ei.x, 0.0),
-                                  torch.where(splat, Ei.y, 0.0),
-                                  torch.where(splat, Ei.z, 0.0),
-                                  splat.to(torch.float32)], dim=0)
-            local_col = torch.where(splat, torch.remainder(lpid, pk_), -1).to(
-                torch.int32)
-            fmat = torch.stack([film.color.x, film.color.y, film.color.z,
-                                film.weight], dim=0)
-            if cfg.max_spp > 0:
-                # each pixel admits exactly its remaining budget (K7); the
-                # weight deltas are whole numbers below 2^24, so rounding them
-                # is exact
-                remaining = torch.clamp_min(spp_cap - state.spp, 0).to(
-                    torch.float32)[None, :]
-                new_mat = bs.splat(local_col, data_t, fmat, groups=g_local,
-                                   remaining=remaining)
-                delta_w = new_mat[3] - film.weight
-                spp_counts = state.spp + torch.round(delta_w).to(torch.int32)
-                n_splatted = torch.round(delta_w.sum()).to(torch.int32)
-            else:
-                new_mat = bs.splat(local_col, data_t, fmat, groups=g_local)
-                spp_counts = state.spp
-                n_splatted = splat.sum()
-            film = Film(color=Vec3(new_mat[0], new_mat[1], new_mat[2]),
-                        weight=new_mat[3])
-        else:
-            if cfg.max_spp > 0:
-                # exact admission (integrator_wf.py:453-471): rank each
-                # pixel's splatting lanes in lane order and admit the pixel's
-                # remaining budget
-                rank = run_ranks(torch.where(splat, lpid, 0x7FFFFFFF))
-                splat &= rank < (spp_cap - pix_spp)
-            data = torch.stack([torch.where(splat, Ei.x, 0.0),
-                                torch.where(splat, Ei.y, 0.0),
-                                torch.where(splat, Ei.z, 0.0),
-                                splat.to(torch.float32)], dim=1)
-            seg = torch.where(splat, lpid, num_pixels).to(torch.int32)
-            n_splatted = splat.sum()
-            spp_counts = state.spp
-            acc = scatter_pixels(seg, data, num_pixels)
-            film = Film(color=Vec3(film.color.x + acc[:, 0],
-                                   film.color.y + acc[:, 1],
-                                   film.color.z + acc[:, 2]),
-                        weight=film.weight + acc[:, 3])
-            if cfg.max_spp > 0:
-                spp_counts = torch.minimum(
-                    spp_counts + scatter_pixels(seg, splat.to(torch.int32),
-                                                num_pixels),
-                    spp_cap)
+        rows, spp_counts, n_splatted = ring.splat(
+            lpid, splat, [torch.where(splat, Ei.x, 0.0),
+                          torch.where(splat, Ei.y, 0.0),
+                          torch.where(splat, Ei.z, 0.0),
+                          splat.to(torch.float32)],
+            torch.stack([film.color.x, film.color.y, film.color.z,
+                         film.weight], dim=0), state.spp, spp_cap, pix_spp)
+        film = Film(color=Vec3(rows[0], rows[1], rows[2]), weight=rows[3])
 
     # ---- the surface, material and raygen sections: one kernel on the card
     surf = surface_shade(scene, params, state, cfg, hit, sp, seed, T, Ei,
@@ -583,27 +415,21 @@ class Surfaced(NamedTuple):
     n_regen: torch.Tensor               # the lanes raygen restarted
 
 
-def _guide_features(params, state: WfState, config: RenderConfig,
-                    terminate, plen, alive, singular, nrm: Vec3, kd: Vec3,
-                    pixel_base: int = 0):
+def _guide_features(params, state: WfState, config: RenderConfig, ring,
+                    terminate, plen, alive, singular, nrm: Vec3, kd: Vec3):
     """The denoiser's guide features (wf_logic.cl:214-237): the first hit's
     normal in camera space (rows right, up, -dir) and the first
-    non-singular hit's albedo, splat as one 8-channel record after the
-    film's (K4, or the flat ring's scatter); a path's first-diffuse flag
-    ends with it. Returns (features, first-diffuse flags), the state's own
-    without the denoiser."""
+    non-singular hit's albedo, splat by the ring as one 8-channel record
+    after the film's; a path's first-diffuse flag ends with it. Returns
+    (features, first-diffuse flags), the state's own without the
+    denoiser."""
     cfg = config
     pool = state.pool
     features = state.features
     first_diffuse = pool.first_diffuse_hit
     if not cfg.denoiser:
         return features, first_diffuse
-    num_pixels = state.film.weight.shape[0]
-    lpid = pool.pixel_index - pixel_base if pixel_base else pool.pixel_index
-    block = cfg.block_ring
-    if block:
-        _, pk_ = _block_geom(cfg)
-        g_local = num_pixels // pk_
+    lpid = ring.local(pool.pixel_index)
     with span("flt::shade.logic.features"):
         cam = params.camera
         nm = alive & (plen == 1)
@@ -611,22 +437,13 @@ def _guide_features(params, state: WfState, config: RenderConfig,
                   -dot(cam.dir, nrm))
         am = alive & ~singular & ~first_diffuse
         first_diffuse = ~terminate & (first_diffuse | (alive & ~singular))
-        # [8, n] for K4, [n, 8] rows for the flat scatter
-        fdata = torch.stack([
+        f_old = torch.stack([*features.albedo, features.albedo_w,
+                             *features.normal, features.normal_w], dim=0)
+        f_new, _, _ = ring.splat(lpid, nm | am, [
             torch.where(am, kd.x, 0.0), torch.where(am, kd.y, 0.0),
             torch.where(am, kd.z, 0.0), am.to(torch.float32),
             torch.where(nm, cs.x, 0.0), torch.where(nm, cs.y, 0.0),
-            torch.where(nm, cs.z, 0.0), nm.to(torch.float32)],
-            dim=0 if block else 1)
-        f_old = torch.stack([*features.albedo, features.albedo_w,
-                             *features.normal, features.normal_w], dim=0)
-        if block:
-            f_local = torch.where(nm | am, torch.remainder(lpid, pk_),
-                                  -1).to(torch.int32)
-            f_new = bs.splat(f_local, fdata, f_old, groups=g_local)
-        else:
-            fseg = torch.where(nm | am, lpid, num_pixels).to(torch.int32)
-            f_new = f_old + scatter_pixels(fseg, fdata, num_pixels).T
+            torch.where(nm, cs.z, 0.0), nm.to(torch.float32)], f_old)
         features = FeatureFilm(albedo=Vec3(f_new[0], f_new[1], f_new[2]),
                                albedo_w=f_new[3],
                                normal=Vec3(f_new[4], f_new[5], f_new[6]),
@@ -651,13 +468,6 @@ def surface_shade_plain(scene: DeviceScene, params: RenderParams,
     dev = pool.seed.device
     use_env = cfg.use_env_map and scene.env is not None
     light = params.area_light if cfg.use_area_light else None
-    num_pixels = state.film.weight.shape[0]
-    block = cfg.block_ring
-    if block:
-        p_true, pk_ = _block_geom(cfg)
-        g_local = num_pixels // pk_
-        s_ = n // g_local
-        lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s_
 
     with span("flt::shade.logic.surface"):
         # ---- shading of surviving paths: NEE generation + material ----------
@@ -743,41 +553,23 @@ def surface_shade_plain(scene: DeviceScene, params: RenderParams,
         # ---- material phase (wf_mat_*.cl): the NEE ray's BSDF and pdf, the
         # continuation ray's lobe sample, the path's new throughput and the
         # continuation's origin (one kernel on the card)
-        nee_bsdf, nee_pdf, d_new, pdf_w, seed, new_T, cont_orig = bsdf_shade(
-            nrm, sp, backface, pool.dir, shadow_dir, seed, T, hit.P,
-            cfg.material_types)
+        nee_bsdf, nee_pdf, d_new, pdf_w, seed, new_T, cont_orig = \
+            bd.bsdf_shade(nrm, sp, backface, pool.dir, shadow_dir, seed, T,
+                          hit.P, cfg.material_types)
 
+    ring = pixel_ring.segment_ring(cfg, state.film.weight.shape[0],
+                                   pixel_base)
     features, first_diffuse = _guide_features(
-        params, state, cfg, terminate, plen, alive, singular, nrm, sp.Kd,
-        pixel_base)
+        params, state, cfg, ring, terminate, plen, alive, singular, nrm,
+        sp.Kd)
 
     with span("flt::shade.logic.raygen"):
-        # ---- RAYGEN for terminated paths (wf_raygen.cl): one ring per group,
-        # or the flat ring's one cursor over every pixel
-        if block:
-            term_i = terminate.to(torch.int32).view(g_local, s_)
-            rank2 = (torch.cumsum(term_i, dim=1) - term_i).to(torch.int32)
-            n_term_g = term_i.sum(dim=1).to(torch.int32)
-            n_regen = n_term_g.sum()
-            # the slice's groups are g0.. of the whole film's
-            g_row = pixel_base // pk_ + torch.arange(
-                g_local, dtype=torch.int32, device=dev)
-            len_g = torch.clamp(cfg.num_pixels - g_row * p_true, 1, p_true)
-            new_l = torch.remainder(state.curr_pixel[:, None] + rank2,
-                                    len_g[:, None])
-            new_pixel = (pixel_base + lane_g * pk_ + new_l.reshape(n)).to(
-                torch.int32)
-            curr_out = torch.remainder(state.curr_pixel + n_term_g, len_g).to(
-                torch.int32)
-        else:
-            rank, n_regen = exclusive_rank(terminate)
-            new_pixel = (pixel_base + torch.remainder(
-                state.curr_pixel + rank, num_pixels)).to(torch.int32)
-            curr_out = torch.remainder(state.curr_pixel + n_regen,
-                                       num_pixels).to(torch.int32)
+        # ---- RAYGEN for terminated paths (wf_raygen.cl), on the ring
+        new_pixel, curr_out, n_regen = ring.raygen(terminate,
+                                                   state.curr_pixel)
         pixel_index = torch.where(terminate, new_pixel, pool.pixel_index)
         # camera rays address TRUE pixels
-        cam_pid = padded_to_true_pid(cfg, pixel_index)
+        cam_pid = pixel_ring.padded_to_true_pid(cfg, pixel_index)
         cam_orig, cam_dir, seed = generate_camera_rays(
             cam_pid, params.camera, cfg.width, cfg.height,
             params.world_radius, seed)
@@ -827,10 +619,10 @@ _TEX_KD, _TEX_KS, _TEX_N, _DENOISE, _BLOCK = 16, 32, 64, 128, 256
 
 
 def _surface_args(scene, params, state, cfg, hit, sp, seed, T, Ei,
-                  terminate, plen, rank, textured):
+                  terminate, plen, kring, textured):
     """The kernel's inputs in its order, (tensor or None, dtype, kind) with
     kind "lane" ([n]), "table" (any shape) or "param" (one value), and its
-    flags."""
+    flags; ``kring`` the ring's arguments (``pixel_ring.KernelRing``)."""
     f32, i32 = torch.float32, torch.int32
     pool = state.pool
     atlas = scene.atlas
@@ -848,7 +640,7 @@ def _surface_args(scene, params, state, cfg, hit, sp, seed, T, Ei,
              | (_TEX_KD if kd else 0) | (_TEX_KS if ks else 0)
              | (_TEX_N if nmap else 0)
              | (_DENOISE if cfg.denoiser else 0)
-             | (_BLOCK if cfg.block_ring else 0))
+             | (_BLOCK if kring.block else 0))
 
     def lanes(dtype, *ts):
         return [(t, dtype, "lane") for t in ts]
@@ -874,7 +666,7 @@ def _surface_args(scene, params, state, cfg, hit, sp, seed, T, Ei,
         + lanes(i32, hit.i, sp.type, sp.map_Kd, sp.map_Ks, sp.map_N, plen,
                 pool.pixel_index)
         + meta(sp.kd_meta, kd) + meta(sp.ks_meta, ks)
-        + meta(sp.n_meta, nmap) + lanes(i32, rank)
+        + meta(sp.n_meta, nmap) + lanes(i32, kring.rank)
         + lanes(torch.bool, terminate) + lanes(torch.int64, seed)
         + tab(state.curr_pixel, i32)
         + tab(atlas.texels if tex else None, i32)
@@ -948,30 +740,21 @@ def _surface_kernel(launch, scene, params, state, config, hit, sp, seed, T,
             sp = resolve_material(scene.mats, hit.mat_id, hit.uv_u,
                                   hit.uv_v, scene.atlas)
         num_pixels = state.film.weight.shape[0]
-        block = cfg.block_ring
-        rank = n_regen = None
-        if not block:
-            rank, n_regen = exclusive_rank(terminate)
+        ring = pixel_ring.segment_ring(cfg, num_pixels, pixel_base)
+        kr = ring.kernel_args(terminate)
         args, flags = _surface_args(scene, params, state, cfg, hit, sp, seed,
-                                    T, Ei, terminate, plen, rank, textured)
+                                    T, Ei, terminate, plen, kr, textured)
         _check_args(args, n, dev, cuda)
-        groups = s = pk = p_true = 0
-        if block:
-            p_true, pk = _block_geom(cfg)
-            groups = num_pixels // pk
-            s = n // groups
         fo = torch.empty((_F_ROWS if cfg.denoiser else _NRM_ROW, n),
                          dtype=torch.float32, device=dev)
         io = torch.empty((2, n), dtype=torch.int32, device=dev)
         bo = torch.empty((4 if cfg.denoiser else 2, n), dtype=torch.bool,
                          device=dev)
         seed_out = torch.empty_like(seed)
-        ring = (torch.empty((2, groups), dtype=torch.int32, device=dev)
-                if block else None)
         rows = lambda o, k: [o[j] if j < o.shape[0] else None
                              for j in range(k)]
         outs = rows(fo, _F_ROWS) + rows(io, 2) + rows(bo, 4) + [seed_out,
-                                                                ring]
+                                                                kr.out]
         ptr = lambda t: 0 if t is None else t.data_ptr()
         ptrs = (ctypes.c_void_p * (len(args) + len(outs)))(
             *(ptr(a[0]) for a in args), *(ptr(t) for t in outs))
@@ -979,29 +762,24 @@ def _surface_kernel(launch, scene, params, state, config, hit, sp, seed, T,
         env_prob = (float(cfg.use_env_map)
                     / max(1, int(cfg.use_env_map) + int(cfg.use_area_light)))
         ints = (ctypes.c_int * 15)(
-            n, s, flags, int(cfg.material_types), cfg.width, cfg.height, pk,
-            p_true, cfg.num_pixels, pixel_base, num_pixels,
+            n, kr.s, flags, int(cfg.material_types), cfg.width, cfg.height,
+            kr.pk, kr.p_true, cfg.num_pixels, pixel_base, num_pixels,
             env.width if env is not None else 0,
             env.height if env is not None else 0,
-            scene.tri_frames.shape[1] if flags & _TEX_N else 0,
-            pixel_base // pk if block else 0)
+            scene.tri_frames.shape[1] if flags & _TEX_N else 0, kr.g0)
         floats = (ctypes.c_float * 12)(
             1.0 / cfg.width, 1.0 / cfg.height, cfg.width * (1.0 / cfg.height),
             env_prob, 1.0 - env_prob, envmap._U_SCALE, envmap._V_SCALE,
             envmap._PI, envmap._TWO_PI, envmap._INV_2PI_PI, ONE_255,
             1.0 / 16383.0)
         launch(ctypes.addressof(ptrs), ctypes.addressof(ints),
-               ctypes.addressof(floats), groups)
-        if block:
-            curr_out, n_regen = ring[0], ring[1].sum()
-        else:
-            curr_out = torch.remainder(state.curr_pixel + n_regen,
-                                       num_pixels).to(torch.int32)
+               ctypes.addressof(floats), kr.groups)
+        curr_out, n_regen = ring.kernel_cursors(kr, state.curr_pixel)
     v = lambda k: Vec3(fo[k], fo[k + 1], fo[k + 2])
     if cfg.denoiser:
         features, first_diffuse = _guide_features(
-            params, state, cfg, terminate, plen, bo[2], bo[3], v(_NRM_ROW),
-            v(_KD_ROW), pixel_base)
+            params, state, cfg, ring, terminate, plen, bo[2], bo[3],
+            v(_NRM_ROW), v(_KD_ROW))
     else:
         features, first_diffuse = state.features, pool.first_diffuse_hit
     new_pool = WfPool(

@@ -1,13 +1,15 @@
-// BSDF device code shared by bsdf_shade.cu and surface_shade.cu: the
-// lobes of bsdf/dispatch.py and ggx.py, the rng's uniform, the vector and
-// sampling helpers, and ``shade_lane``, a segment's BSDF work for one lane.
+// BSDF device code of surface_shade.cu: the lobes of bsdf/dispatch.py
+// and ggx.py, the rng's uniform, the vector and sampling helpers, and
+// ``shade_lane``, a segment's BSDF work for one lane (dispatch.py's
+// bsdf_shade).
 //
-// Bit for bit against torch's CUDA kernels (see bsdf_shade.cu): each lobe
-// in the torch code's order of terms, every torch operation one rounded
-// IEEE operation (-fmad=false, -prec-div, -prec-sqrt), the libm calls
-// torch's elementwise kernels make, and torch's CUDA forms of the
-// operations with a Python number: x / c is x * (1 / c), c / x is
-// reciprocal(x) * c, x ** 2 is x * x, clamp keeps a NaN.
+// Bit for bit against torch's CUDA kernels: each lobe in the torch code's
+// order of terms, every torch operation one rounded IEEE operation
+// (-fmad=false, -prec-div, -prec-sqrt), the libm calls torch's
+// elementwise kernels make (sqrtf, rsqrtf, sinf, cosf, atan2f), and
+// torch's CUDA forms of the operations with a Python number: x / c is
+// x * (1 / c), c / x is reciprocal(x) * c, x ** 2 is x * x, clamp keeps
+// a NaN.
 #pragma once
 #include "common.cuh"
 

@@ -115,10 +115,6 @@ class RenderConfig:
     block_ring: bool = True
     groups: int = 1024
 
-    def block_plan(self, num_tasks: int):
-        from .core.block_splat import plan
-        return plan(self.num_pixels, num_tasks, self.groups)
-
     @property
     def num_pixels(self) -> int:
         return self.width * self.height

@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..core import pixel_ring
 from ..core.integrator_mk import Film, RenderStats, render_sample
 from ..core.integrator_wf import WfCounters, WfState, wf_segment
 from ..renderer import resolve_device
@@ -152,17 +153,11 @@ def shard_wf_state(state: WfState, mesh: DeviceMesh,
         raise ValueError(f"pool ({n}) and pixels ({p}) must divide the "
                          f"mesh size ({d})")
     k = _shard_index(mesh, axis)
-    if state.curr_pixel.ndim == 1:      # block ring: [G] group cursors
-        if state.curr_pixel.shape[0] % d:
-            raise ValueError(f"groups ({state.curr_pixel.shape[0]}) must "
-                             f"divide the mesh size ({d})")
-        curr = _slice(state.curr_pixel, k, d)
-    else:
-        curr = torch.zeros((), dtype=torch.int32,
-                           device=state.curr_pixel.device)
     return WfState(pool=_slice(state.pool, k, d),
                    film=_slice(state.film, k, d),
-                   spp=_slice(state.spp, k, d), curr_pixel=curr,
+                   spp=_slice(state.spp, k, d),
+                   curr_pixel=pixel_ring.shard_cursors(state.curr_pixel, k,
+                                                       d),
                    features=_slice(state.features, k, d))
 
 

@@ -37,9 +37,10 @@ from .native import build_bvh_native, build_sbvh_native
 from .core.camera import generate_camera_rays
 from .core.denoise import atrous_denoise
 from .core.integrator_mk import FeatureFilm, Film, RenderStats, render_sample
-from .core.integrator_wf import (pad_pixels, padded_to_true_pid,
-                                 salt_seeds, unpad_pixels, wf_reset,
-                                 wf_segment, wf_shade_phase, wf_trace_phase)
+from .core import pixel_ring
+from .core.integrator_wf import (salt_seeds, wf_reset, wf_segment,
+                                 wf_shade_phase, wf_trace_phase)
+from .core.pixel_ring import pad_pixels, padded_to_true_pid, unpad_pixels
 from .core.tonemap import postprocess
 from .core.trace import (DeviceScene, TrianglesDevice, make_tri_frames,
                          trace_extension)
@@ -444,7 +445,7 @@ class Renderer:
                 pool=pool._replace(seed=salt_seeds(pool.seed, salt)))
             if "spp" in z.files:
                 st = st._replace(spp=pad_pixels(t("spp"), cfg,
-                                                fill=1 << 29))
+                                                fill=pixel_ring.DEAD_SPP))
             self._wf_state = st
         if "feat_alb_x" in z.files and self.features is not None:
             self.features = FeatureFilm(
@@ -530,11 +531,9 @@ class Renderer:
         622-623). The capped ring's counters of the call are
         ``capped_stats()``."""
         with span("flt::job"):
-            cfg = self.config.replace(max_spp=1, use_roulette=False)
             n_tasks = num_tasks or self.settings.wf_buffer_size
-            if cfg.block_ring and n_tasks % cfg.groups:
-                # the pool fits no groups
-                cfg = cfg.replace(block_ring=False)
+            cfg = pixel_ring.choose(
+                self.config.replace(max_spp=1, use_roulette=False), n_tasks)
             state = self._wf_exact_state
             if not accumulate or state is None or \
                     state.pool.seed.shape[0] != n_tasks:
@@ -552,7 +551,7 @@ class Renderer:
                             film=_tree_map(lambda a: pad_pixels(a, cfg),
                                            self.film),
                             spp=pad_pixels(w.to(torch.int32), cfg,
-                                           fill=1 << 29))
+                                           fill=pixel_ring.DEAD_SPP))
                         self._wf_exact_target = int(w.min())
             target = self._wf_exact_target + spp
             params = self.params._replace(max_spp=torch.tensor(
@@ -598,9 +597,7 @@ class Renderer:
         are: settings edits since load_scene take effect through
         ``rebuild_config``."""
         self.num_tasks = num_tasks or self.settings.wf_buffer_size
-        cfg = self.config
-        if cfg.block_ring and self.num_tasks % cfg.groups:
-            cfg = cfg.replace(block_ring=False)
+        cfg = pixel_ring.choose(self.config, self.num_tasks)
         self._wf_cfg = cfg
         self._wf_exact_mode = False
         self._wf_state = wf_reset(cfg, self.num_tasks,

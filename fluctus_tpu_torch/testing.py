@@ -17,6 +17,7 @@ from . import bxdf_types as bx
 from .accel import build_bvh
 from .accel import mxu_trace as mt
 from .accel.traverse import BVHDevice
+from .core import pixel_ring
 from .core.trace import DeviceScene, TrianglesDevice, make_tri_frames
 from .envmap import EnvironmentMap
 from .geom import (AreaLight, Camera, PostProcessParams, RenderConfig,
@@ -164,7 +165,7 @@ def mxu_block_scene(width: int = 32, height: int = 16, groups: int = 16,
                           max_bounces=max_bounces, use_env_map=True,
                           use_area_light=False, material_types=mtypes,
                           block_ring=True, groups=groups)
-    config.block_plan(num_tasks)   # validate the geometry eagerly
+    pixel_ring.geometry(config, num_tasks)   # validate it eagerly
     return scene, params, config
 
 

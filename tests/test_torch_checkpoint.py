@@ -49,9 +49,9 @@ from fluctus_tpu.renderer import Renderer as JRenderer
 from fluctus_tpu.settings import Settings as JSettings
 
 from fluctus_tpu_torch import flags
-from fluctus_tpu_torch.core.integrator_wf import (pad_pixels, salt_seeds,
-                                                  unpad_pixels,
+from fluctus_tpu_torch.core.integrator_wf import (salt_seeds,
                                                   wf_state_to_numpy)
+from fluctus_tpu_torch.core.pixel_ring import pad_pixels, unpad_pixels
 from fluctus_tpu_torch.renderer import Renderer
 from fluctus_tpu_torch.settings import Settings
 

@@ -55,7 +55,7 @@ from fluctus_tpu_torch.core import block_splat as tbs
 from fluctus_tpu_torch.core import denoise as tdn
 from fluctus_tpu_torch.core import integrator_mk as tmk
 from fluctus_tpu_torch.core import integrator_wf as twf
-from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+from fluctus_tpu_torch.core.pixel_ring import unpad_pixels
 from fluctus_tpu_torch.image_io import save_png
 from fluctus_tpu_torch.renderer import Renderer
 from fluctus_tpu_torch.settings import Settings

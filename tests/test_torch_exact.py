@@ -53,6 +53,7 @@ from fluctus_tpu_torch import kernel_build as kb
 from fluctus_tpu_torch.accel import mxu_trace as tmt
 from fluctus_tpu_torch.core import block_splat as tbs
 from fluctus_tpu_torch.core import integrator_wf as twf
+from fluctus_tpu_torch.core import pixel_ring as tpr
 from fluctus_tpu_torch.core.trace import DeviceScene as TDeviceScene
 from fluctus_tpu_torch.geom import (AreaLight as TAreaLight,
                                     Camera as TCamera,
@@ -443,7 +444,7 @@ def test_render_single_wavefront_contract(tmp_path):
     for n in (2, 4):
         film = r.render_single(2)
         assert r._wf_cfg.max_spp == 1
-        spp = twf.unpad_pixels(r._wf_state.spp, r.config)
+        spp = tpr.unpad_pixels(r._wf_state.spp, r.config)
         assert (spp == n).all() and (film.weight == n).all()
         assert r.stats.samples == n * 16 * 8
         assert r.current_film() is r.film

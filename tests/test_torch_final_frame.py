@@ -52,6 +52,7 @@ from benchmark.reference import checks, denoise, exact  # noqa: E402
 from fluctus_tpu_torch import renderer as R  # noqa: E402
 from fluctus_tpu_torch.core import block_splat as BS  # noqa: E402
 from fluctus_tpu_torch.core import integrator_wf as W  # noqa: E402
+from fluctus_tpu_torch.core import pixel_ring as PR  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPP = 4
@@ -162,18 +163,18 @@ def test_film_spp_and_features(job):
     last = caps[-1]["state_out"]
     stack = lambda fl: torch.stack([*fl.color, fl.weight])
     assert checks.splat_error(stack(last.film), film) <= 1e-6
-    assert torch.equal(W.unpad_pixels(stack(last.film).T, r._wf_cfg),
+    assert torch.equal(PR.unpad_pixels(stack(last.film).T, r._wf_cfg),
                        torch.stack(job["film"]).T)
     w = r.film.weight
     assert w.shape[0] == r.width * r.height
     assert torch.equal(w, torch.full_like(w, SPP))
-    spp = W.unpad_pixels(last.spp, r._wf_cfg)
+    spp = PR.unpad_pixels(last.spp, r._wf_cfg)
     assert torch.equal(spp, torch.full_like(spp, SPP))
     assert exact.spp_gap(w, SPP) == 0
     fs = lambda fl: torch.stack([*fl.albedo, fl.albedo_w, *fl.normal,
                                  fl.normal_w])
     assert checks.splat_error(fs(last.features), feat) <= 1e-6
-    assert torch.equal(W.unpad_pixels(fs(last.features).T, r._wf_cfg),
+    assert torch.equal(PR.unpad_pixels(fs(last.features).T, r._wf_cfg),
                        fs(r.features).T)
 
 

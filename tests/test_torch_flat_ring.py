@@ -32,6 +32,7 @@ from fluctus_tpu.settings import Settings as JSettings
 
 from fluctus_tpu_torch.core import block_splat as tbs
 from fluctus_tpu_torch.core import integrator_wf as twf
+from fluctus_tpu_torch.core import pixel_ring as tpr
 from fluctus_tpu_torch.renderer import Renderer
 from fluctus_tpu_torch.settings import Settings
 
@@ -128,7 +129,7 @@ def test_run_ranks_match_reference(n, pixels):
     rng = np.random.default_rng(n)
     key = rng.integers(0, pixels, n).astype(np.int32)
     key[rng.random(n) < 1 / 3] = 0x7FFFFFFF
-    got = twf.run_ranks(torch.from_numpy(key))
+    got = tpr.run_ranks(torch.from_numpy(key))
     np.testing.assert_array_equal(got.numpy(),
                                   _reference_ranks(jnp.asarray(key)))
 
@@ -222,7 +223,7 @@ def test_exclusive_rank_matches_reference(n):
     rng = np.random.default_rng(n)
     for density in (0.0, 0.3, 1.0):
         mask = rng.random(n) < density
-        rank, total = twf.exclusive_rank(torch.from_numpy(mask))
+        rank, total = tpr.exclusive_rank(torch.from_numpy(mask))
         jrank, jtotal = jwf.exclusive_rank(jnp.asarray(mask))
         assert rank.dtype == torch.int32
         np.testing.assert_array_equal(rank.numpy(), np.asarray(jrank))

@@ -2,6 +2,7 @@
 package, its renderer needs CUDA unless asked for the CPU, and its kernel
 wrappers take the plain version for CPU tensors only."""
 
+import ast
 import os
 import re
 import subprocess
@@ -59,6 +60,47 @@ def test_source_scan():
         with open(f) as fh:
             for no, line in enumerate(fh, 1):
                 assert not pat.search(line), f"{f}:{no}: {line.strip()}"
+
+
+def _names_ring(node):
+    return any(isinstance(n, ast.Attribute) and n.attr == "block_ring"
+               or isinstance(n, ast.Name) and n.id == "block_ring"
+               for n in ast.walk(node))
+
+
+def _ring_conditions(src):
+    """Line numbers of the conditions in ``src`` that test ``block_ring``:
+    an ``if``, a ternary, a ``while``, an ``assert``, a comprehension's
+    filter or an ``and``/``or`` operand."""
+    lines = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, (ast.If, ast.IfExp, ast.While, ast.Assert)):
+            tests = [node.test]
+        elif isinstance(node, ast.comprehension):
+            tests = node.ifs
+        elif isinstance(node, ast.BoolOp):
+            tests = node.values
+        else:
+            continue
+        lines.update(t.lineno for t in tests if _names_ring(t))
+    return lines
+
+
+def test_only_pixel_ring_branches_on_the_ring():
+    """The pixel ring's decision has one owner: no module of the port but
+    core/pixel_ring.py has a condition on ``block_ring``. Setting the
+    field, by keyword or ``replace``, is allowed; the scan does find the
+    owner's own conditions."""
+    owner = os.path.join("core", "pixel_ring.py")
+    found, owned = [], set()
+    for rel, src in _sources(PKG):
+        lines = _ring_conditions(src)
+        if rel == owner:
+            owned = lines
+        else:
+            found += [f"{rel}:{no}" for no in sorted(lines)]
+    assert owned
+    assert not found, found
 
 
 _KNOB = re.compile(r"env(?:_bool|_int)?\(\s*[\"']([A-Z0-9_]+)[\"']")
@@ -160,7 +202,7 @@ def test_wrappers_route_by_device():
     assert set(kb.KERNELS) == {"tile_order", "trace_rol", "resolve_v5",
                                "block_splat", "trace_rol_sc", "resolve_v5s",
                                "block_splat_capped", "fetch", "trace_ros",
-                               "resolve_v1", "bvh_bitstack", "bsdf_shade",
+                               "resolve_v1", "bvh_bitstack",
                                "surface_shade"}
     rem = torch.zeros((1, 2 * 128))
     assert bs.splat(local, data, film, groups=2, remaining=rem).sum() == 0

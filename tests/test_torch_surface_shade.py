@@ -45,11 +45,13 @@ from fluctus_tpu_torch.bsdf import (ShadingParams, apply_textures,
                                     bsdf_shade, resolve_material)
 from fluctus_tpu_torch.core import block_splat as bs
 from fluctus_tpu_torch.core import integrator_wf as W
+from fluctus_tpu_torch.core import pixel_ring as PR
 from fluctus_tpu_torch.core.camera import generate_camera_rays
 from fluctus_tpu_torch.core.integrator_mk import FeatureFilm, Film
-from fluctus_tpu_torch.core.integrator_wf import (WfPool, exclusive_rank,
-                                                  padded_to_true_pid,
-                                                  scatter_pixels)
+from fluctus_tpu_torch.core.integrator_wf import WfPool
+from fluctus_tpu_torch.core.pixel_ring import (exclusive_rank,
+                                               padded_to_true_pid,
+                                               scatter_pixels)
 from fluctus_tpu_torch.core.trace import tangent_space_normal
 from fluctus_tpu_torch.envmap import env_sample
 from fluctus_tpu_torch.geom import Hit
@@ -86,7 +88,7 @@ def parent_sections(scene, params, state, config, hit, sp, seed, T, Ei,
     lpid = pool.pixel_index - pixel_base if pixel_base else pool.pixel_index
     block = cfg.block_ring
     if block:
-        p_true, pk_ = W._block_geom(cfg)
+        _, p_true, pk_ = PR.geometry(cfg)
         g_local = num_pixels // pk_
         s_ = n // g_local
         lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s_
@@ -547,15 +549,75 @@ def _v(a):
     return Vec3(_f(a[0]), _f(a[1]), _f(a[2]))
 
 
+# the scene masks of test_torch_bsdf_shade: the production luxball's five
+# lobes, the grid's diffuse + ideal dielectric, every lobe
+PROD = (bx.BXDF_DIFFUSE | bx.BXDF_GLOSSY | bx.BXDF_GGX_ROUGH_REFLECTION
+        | bx.BXDF_GGX_ROUGH_DIELECTRIC | bx.BXDF_IDEAL_DIELECTRIC)
+MASKS = {"luxball_prod": PROD,
+         "grid8x8": bx.BXDF_DIFFUSE | bx.BXDF_IDEAL_DIELECTRIC,
+         "all": sum(bx.ALL_TYPES)}
+NO_LOBE = (0, 1, 1 << 9, -1)      # no lobe's bit: terminated, missed lanes
+
+
+def _lobes(rng, sp, m, mask):
+    """Each lane's lobe drawn from every type and the no-lobe values, its
+    parameters as test_torch_bsdf_shade draws them (Ks zero on a quarter,
+    alphas from 0.01, Ni from 0 to 2.4, not 1: a rough dielectric that
+    matches the outside index refracts through a half-vector of rounding
+    noise); ``mask`` the scene's."""
+    ks = rng.random((3, m))
+    ks[:, rng.random(m) < 0.25] = 0.0
+    types = rng.choice(list(bx.ALL_TYPES) + list(NO_LOBE), size=m)
+    return sp._replace(Kd=_v(rng.random((3, m))), Ks=_v(ks),
+                       alpha=_f(0.01 + rng.random(m)),
+                       Ni=_f(rng.choice((0.0, 1.33, 1.5, 2.4), size=m)),
+                       type=_i(types))
+
+
+EDGE = ("no_lobe", "left_out", "emissive", "ideal_tir", "rough_tir")
+
+
+def _edge_lanes(sp, hit, pool, m):
+    """The production mask's edge lanes, lane k of kind EDGE[k % 5]: a type
+    of no lobe's bit, the mirror the mask leaves out, emissive, and the
+    ideal and the rough dielectric (alpha 0.05: its half-vectors within a
+    few degrees of the normal) lit from inside glass of index 1.5 at 60
+    degrees, past the critical 41.8 (interpolated normal +z, no normal
+    map, the ray leaving along +z: the backface flip puts the shading
+    normal at -z, and every such lane reflects back to -z)."""
+    kind = torch.arange(m) % len(EDGE)
+    no_lobe = torch.tensor(NO_LOBE, dtype=torch.int32)[
+        torch.arange(m) // len(EDGE) % len(NO_LOBE)]
+    typ = torch.stack([no_lobe,
+                       torch.full((m,), bx.BXDF_IDEAL_REFLECTION),
+                       torch.full((m,), bx.BXDF_EMISSIVE),
+                       torch.full((m,), bx.BXDF_IDEAL_DIELECTRIC),
+                       torch.full((m,), bx.BXDF_GGX_ROUGH_DIELECTRIC)])
+    typ = typ.gather(0, kind[None].long())[0].to(torch.int32)
+    tir = kind >= 3
+    up = lambda v, w: Vec3(*(torch.where(tir, float(c), a)
+                             for c, a in zip(w, v)))
+    sp = sp._replace(type=typ, Ni=torch.where(tir, 1.5, sp.Ni),
+                     alpha=torch.where(tir, 0.05, sp.alpha),
+                     map_N=torch.where(tir, -1, sp.map_N))
+    hit = hit._replace(N=up(hit.N, (0.0, 0.0, 1.0)))
+    pool = pool._replace(dir=up(pool.dir, (np.sin(np.pi / 3), 0.0,
+                                           np.cos(np.pi / 3))))
+    return sp, hit, pool, tir
+
+
 def seeded_call(r, seed, s, groups, flat=False, shard=None, baked=True,
-                denoiser=True):
+                denoiser=True, lobes=None, edge=False):
     """surface_shade's arguments from a numpy seed on ``r``'s scene (its
     tables, atlas, tangent frames and env map): ``groups`` groups of ``s``
     lanes (the flat ring: one ring over their pixels), or with ``shard``
     = (k, d) slice k of d. Lanes: a third terminated, every material of
     the scene and some emissive ones, uvs past [0, 1] (the maps wrap), the
     descriptors baked (``baked``) or gathered from the atlas, pixels and
-    cursors anywhere on their rings; the camera with depth of field."""
+    cursors anywhere on their rings; the camera with depth of field. With
+    ``lobes`` (a scene mask, set as the config's ``material_types``) each
+    lane's lobe is drawn from every type (``_lobes``); with ``edge`` the
+    lanes are the production mask's edge lanes (``_edge_lanes``)."""
     rng = np.random.default_rng(seed)
     cfg = r.config.replace(groups=groups, block_ring=not flat,
                            denoiser=denoiser, fast_env=True)
@@ -630,8 +692,14 @@ def seeded_call(r, seed, s, groups, flat=False, shard=None, baked=True,
     cam = r.params.camera
     params = r.params._replace(camera=cam._replace(
         aperture_size=torch.tensor(0.05), focal_dist=torch.tensor(3.0)))
-    return (r.device_scene, params, state, cfg, hit, sp, seeds,
-            _v(rng.random((3, m)) + 0.01), _v(rng.random((3, m))),
+    T, Ei = _v(rng.random((3, m)) + 0.01), _v(rng.random((3, m)))
+    if lobes is not None:
+        cfg = cfg.replace(material_types=lobes)
+        sp = _lobes(rng, sp, m, lobes)
+    if edge:
+        sp, hit, pool, _ = _edge_lanes(sp, hit, pool, m)
+        state = state._replace(pool=pool)
+    return (r.device_scene, params, state, cfg, hit, sp, seeds, T, Ei,
             terminate, pool.path_len + 1), dict(pixel_base=base)
 
 
@@ -647,7 +715,12 @@ SEEDED = {"s256": dict(s=256, groups=4), "s1024": dict(s=1024, groups=2),
           "flat": dict(s=256, groups=4, flat=True),
           "sharded": dict(s=256, groups=8, shard=(1, 2)),
           "flat_sharded": dict(s=128, groups=4, flat=True, shard=(1, 2)),
-          "no_denoiser": dict(s=96, groups=4, denoiser=False)}
+          "no_denoiser": dict(s=96, groups=4, denoiser=False),
+          **{f"lobes_{mask}_{seed}": dict(s=256, groups=4,
+                                           lobes=MASKS[mask], seeds=(seed,))
+             for mask in MASKS for seed in (1, 2, 3)},
+          "edge_lanes": dict(s=100, groups=4, lobes=PROD, edge=True,
+                             seeds=(4,))}
 
 
 @pytest.mark.parametrize("case", list(SEEDED))
@@ -655,13 +728,20 @@ def test_kernel_source_matches_plain_seeded(production, kernel_on_cpu, case):
     """Seeded calls (``seeded_call``): S lanes a group not a power of two
     and past the CTA's 256 (the scan's carry across tiles), the flat
     ring's ranks, a slice's pixel_base, the atlas's descriptors, depth of
-    field; the cursors and restarted counts equal."""
-    for seed in (1, 2):
-        args, kw = seeded_call(production, seed, **SEEDED[case])
+    field; every lobe under each scene mask, and the edge lanes (their
+    dielectrics reflect); the cursors and restarted counts equal."""
+    opt = dict(SEEDED[case])
+    for seed in opt.pop("seeds", (1, 2)):
+        args, kw = seeded_call(production, seed, **opt)
         want = W.surface_shade_plain(*args, **kw)
         assert int(want.n_regen) == int(args[9].sum())
         assert_close(run_kernel(kernel_on_cpu, *args, **kw), want,
                      f"{case}, seed {seed}")
+        if opt.get("edge"):
+            tir = (torch.arange(args[9].shape[0]) % len(EDGE) >= 3) \
+                & ~args[9]
+            assert bool(tir.any())
+            assert bool((want.pool.dir.z[tir] < 0.0).all())
 
 
 def test_wrapper_refuses_malformed_inputs(production):

@@ -35,7 +35,7 @@ from fluctus_tpu.core import block_splat as jbs
 from fluctus_tpu_torch import flags
 from fluctus_tpu_torch.core import block_splat as tbs
 from fluctus_tpu_torch.core import integrator_mk as tmk
-from fluctus_tpu_torch.core.integrator_wf import unpad_pixels
+from fluctus_tpu_torch.core.pixel_ring import unpad_pixels
 from fluctus_tpu_torch.geom import MIN_PATH_LENGTH
 from fluctus_tpu_torch.renderer import Renderer
 from fluctus_tpu_torch.settings import Settings

@@ -35,6 +35,7 @@ from fluctus_tpu.scene.texture import pack_atlas
 
 from fluctus_tpu_torch.accel import mxu_trace as tmt
 from fluctus_tpu_torch.core import integrator_wf as twf
+from fluctus_tpu_torch.core import pixel_ring as tpr
 from fluctus_tpu_torch.core.trace import DeviceScene as TDeviceScene
 from fluctus_tpu_torch.geom import (AreaLight as TAreaLight,
                                     Camera as TCamera,
@@ -168,14 +169,14 @@ def test_state_numpy_round_trip():
 
 def test_pad_unpad_and_true_pid():
     cfg = TConfig(width=37, height=11, groups=16)    # ragged tail group
-    p_true, pk = twf._block_geom(cfg)
+    _, p_true, pk = tpr.geometry(cfg)
     x = torch.arange(cfg.num_pixels, dtype=torch.float32)
-    padded = twf.pad_pixels(x, cfg, fill=-1)
+    padded = tpr.pad_pixels(x, cfg, fill=-1)
     assert padded.shape[0] == cfg.groups * pk
-    assert torch.equal(twf.unpad_pixels(padded, cfg), x)
+    assert torch.equal(tpr.unpad_pixels(padded, cfg), x)
     idx = torch.arange(cfg.groups * pk, dtype=torch.int32)
     live = padded >= 0
-    assert torch.equal(twf.padded_to_true_pid(cfg, idx)[live].float(),
+    assert torch.equal(tpr.padded_to_true_pid(cfg, idx)[live].float(),
                        padded[live])
     jcfg = JConfig(width=37, height=11, groups=16, block_ring=True)
     np.testing.assert_array_equal(
@@ -184,13 +185,13 @@ def test_pad_unpad_and_true_pid():
     # the flat ring keeps the true layout: all three are identities, as
     # the reference's
     flat = cfg.replace(block_ring=False)
-    assert twf.pad_pixels(x, flat, fill=-1) is x
-    assert twf.unpad_pixels(x, flat) is x
-    assert twf.padded_to_true_pid(flat, idx) is idx
+    assert tpr.pad_pixels(x, flat, fill=-1) is x
+    assert tpr.unpad_pixels(x, flat) is x
+    assert tpr.padded_to_true_pid(flat, idx) is idx
     jflat = jcfg.replace(block_ring=False)
     np.testing.assert_array_equal(
         np.asarray(jwf.pad_pixels(jnp.asarray(x.numpy()), jflat, fill=-1)),
-        twf.pad_pixels(x, flat, fill=-1).numpy())
+        tpr.pad_pixels(x, flat, fill=-1).numpy())
 
 
 def _renderer(data_dir):
