@@ -143,6 +143,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    sample (render_sample) with roulette on, launches per bounce K1 2, K2
    2, K3 1. 11e: phase 4's parity on the production scene, with
    sample_implicit off, with sample_explicit off and with roulette on.
+   11f: K2 on the benchmark's production cell (luxball_prod through the
+   harness's make_renderer): its two calls of segment PROD_CELL_SEGMENT,
+   then of each band of the four-card cell (wf_reset of 4 x 1M lanes,
+   shard k run through wf_segment with pixel_base, as a rank runs it):
+   K2's queue kernel (tile_queue_launch) equal to tile_queue_plain and
+   its counters to the tiles queued and moved, t (bits), columns and
+   visits bit for bit against the plain version, the queue engaged on
+   the cell's calls (tiles queued out of index order, trace_stats before
+   and after), the share of the 5% heaviest tiles among the queue's first
+   10%, K2 timed.
 12. a user's render job at 1080p with 1M paths, depth 10. 12a: phase
    11's production luxball with use_denoiser: K4 at 4 channels (the film)
    and 8 (the guide features, splat after the film) held bit for bit on
@@ -306,8 +316,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 10. the kernels line (launches including phases 11, 12, 13, 14, 15, 16
    and 17's runs, 16's summed over the ranks, 17's on the bitstack
    route; K4's entry with its 8-channel
-   launches, as counted in 12a and 15a), the card line, then the final
-   result line.
+   launches, as counted in 12a and 15a; K2's with its queue's counters
+   over the whole run, trace_stats, and 11f's times and visits on the
+   production cell), the card line, then the final result line.
 
 Every renderer loads with a fresh temporary ``data_dir`` (removed at the
 end), so phases 2-6 load cold as before (now writing the caches) and
@@ -2094,6 +2105,12 @@ def kernels_line(kres, launches):
         any_ms = k.get("any_hit", {}).get("ms", k.get("any_hit_ms"))
         if any_ms is not None:          # the trace kernels' any-hit call
             entry["any_hit_ms"] = any_ms
+        if name == "trace_rol":        # its queue's counters, 11f's calls
+            from fluctus_tpu_torch.accel import mxu_trace as mt
+            entry["queue"] = mt.trace_stats("cuda")._asdict()
+            cell = k["production_cell"]["cell"]
+            entry["production_ms"] = [c["ms"] for c in cell]
+            entry["production_visits"] = [c["visits_total"] for c in cell]
         for key in ("table_k1_k2_ms", "grid_ms", "grid_k5_closest_ms"):
             if key in k:                # the bitstack kernel's yardsticks
                 entry[key] = k[key]
@@ -2901,6 +2918,134 @@ def phase_production(card, lux_kres):
         phase_parity(scene, data_dir=data_dir, switches=switches)
     return launches, dict(scene=scene, data_dir=data_dir, main=main,
                           prof=prof, surface_shade=kres["surface_shade"])
+
+
+# ---------------------------------------------------------------------------
+# Phase 11f: K2 on the production cell's rays (its queue engaged)
+# ---------------------------------------------------------------------------
+
+PROD_CELL_SEGMENT = 16     # a steady-state segment: the cell warms 12
+X4_RANKS = 4               # the four-card cell's ranks, simulated here
+
+
+def queue_on_card(order):
+    """K2's queue kernel alone (tile_queue_launch of csrc/trace_rol.cu) on
+    one call's candidate lists: the order in which K2 meets the tiles."""
+    import ctypes
+    import torch
+    from fluctus_tpu_torch import kernel_build as kb
+    fn = ctypes.CDLL(kb._lib_path("trace_rol.cu")).tile_queue_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    nt, ncl_pad = order.shape
+    queue = torch.empty(nt, dtype=torch.int32, device=order.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=order.device)
+    err = fn(kb.ptr(order), nt, ncl_pad, kb.ptr(queue), kb.ptr(stats),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tile_queue_launch: CUDA error {err}")
+    moved = int((queue != torch.arange(nt, device=queue.device)).sum())
+    if stats.tolist() != [nt, moved]:
+        raise AssertionError(f"the queue kernel counted {stats.tolist()}, "
+                             f"not [{nt}, {moved}]")
+    return queue
+
+
+def hold_queue(calls, what, engaged=True):
+    """K2 on recorded calls [(args, kw)]: its queue kernel equal to
+    tile_queue_plain, t (bits), columns and visits equal to the plain
+    version's, and how the queue engaged: the tiles K2 queued out of index
+    order on these calls (trace_stats before and after; with ``engaged``
+    some must be) and the share of the 5% heaviest tiles by visits among
+    the first 10% of the queue."""
+    import torch
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    out = []
+    for args, _ in calls:
+        order = args[2]
+        q = queue_on_card(order)
+        plain_q = mt.tile_queue_plain(order)
+        if not torch.equal(q.long(), plain_q):
+            raise AssertionError(f"{what}: K2's queue differs from "
+                                 "tile_queue_plain")
+        before = mt.trace_stats(order.device)
+        got = mt.trace_rol(*args)
+        after = mt.trace_stats(order.device)
+        ref = trace_plain_chunked(mt.trace_rol_plain, *args, chunk=256)
+        diff = trace_diffs(got, ref)
+        if any(diff.values()):
+            raise AssertionError(f"{what}: trace_rol differs from its plain "
+                                 f"version (any_hit={args[-1]}): {diff}")
+        nt = order.shape[0]
+        visits = got[2]
+        heavy = torch.argsort(visits, descending=True,
+                              stable=True)[:max(1, nt // 20)]
+        first = q[:max(1, nt // 10)].long()
+        ms = time_ms(lambda: mt.trace_rol(*args))
+        out.append(dict(
+            any_hit=bool(args[-1]), tiles=nt,
+            queued=after.tiles - before.tiles,
+            out_of_order=after.out_of_order - before.out_of_order,
+            heavy_in_first_tenth=float(torch.isin(heavy, first).float()
+                                       .mean()),
+            ms=ms, visits_total=int(visits.sum()),
+            **visit_stats(visits, args[-2], args[0].shape[2], ms)))
+        if out[-1]["queued"] != nt or (engaged
+                                       and out[-1]["out_of_order"] == 0):
+            raise AssertionError(f"{what}: the queue did not engage: "
+                                 f"{out[-1]}")
+    return out
+
+
+def phase_k2_production(card):
+    """Phase 11f: the benchmark's production cell (luxball_prod through the
+    harness's make_renderer): K2's two calls of segment PROD_CELL_SEGMENT of
+    its 1M-path pool, then of each of the four-card cell's bands (wf_reset
+    of X4_RANKS x 1M lanes, shard k's slice run through wf_segment with
+    pixel_base, as the harness's ranks run it), held by hold_queue."""
+    import torch
+    from benchmark.bm import harness
+    from fluctus_tpu_torch.accel import mxu_trace as mt
+    from fluctus_tpu_torch.core.integrator_wf import wf_reset, wf_segment
+    cfg_file = harness.load_json(harness.BENCH, "configs",
+                                 "luxball_prod.json")
+    r = harness.make_renderer(cfg_file, torch.device("cuda"))
+    r.init_wavefront()
+    r.render_wavefront(PROD_CELL_SEGMENT - 1)
+    with LastCalls(mt, "trace_rol") as last:
+        r.render_wavefront(1)
+    cell = hold_queue([(a, {}) for a in last.calls], "11f cell")
+    bands = []
+    cfg = r.config
+    lanes = r.settings.wf_buffer_size
+    st0 = wf_reset(cfg, lanes * X4_RANKS, world_radius=r.world_radius,
+                   device=r.device)
+    local = st0.film.weight.shape[0] // X4_RANKS
+    for k in range(X4_RANKS):
+        curr = (_cut(st0.curr_pixel, k, X4_RANKS) if st0.curr_pixel.ndim
+                else torch.zeros((), dtype=torch.int32, device=r.device))
+        st = st0._replace(pool=_cut(st0.pool, k, X4_RANKS),
+                          film=_cut(st0.film, k, X4_RANKS),
+                          spp=_cut(st0.spp, k, X4_RANKS), curr_pixel=curr)
+        for _ in range(PROD_CELL_SEGMENT - 1):
+            st, _ = wf_segment(r.device_scene, r.params, st, cfg,
+                               pixel_base=k * local)
+        with LastCalls(mt, "trace_rol") as last:
+            wf_segment(r.device_scene, r.params, st, cfg,
+                       pixel_base=k * local)
+        # the top band's rays may all leave the scene: no tile to move
+        bands.append(dict(band=k, calls=hold_queue(
+            [(a, {}) for a in last.calls], f"11f x4 band {k}",
+            engaged=False)))
+        del st
+    del r, st0
+    torch.cuda.empty_cache()
+    out = dict(phase="trace_rol_production_cell", card=card,
+               segment=PROD_CELL_SEGMENT, cell=cell, x4_bands=bands,
+               stats=mt.trace_stats("cuda")._asdict())
+    emit(out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4341,9 +4486,11 @@ def sweep_build_info(kb):
         for ln in kb.build_log(source).splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
             if m:
-                # the bool template argument mangles as Lb1E / Lb0E
-                cur = modes.setdefault(
-                    "any_hit" if "Lb1E" in m.group(1) else "closest", {})
+                # the bool template argument mangles as Lb1E / Lb0E; other
+                # kernels of the file (K2's queue) are not counted
+                cur = None if f"{name}_kernel" not in m.group(1) else \
+                    modes.setdefault("any_hit" if "Lb1E" in m.group(1)
+                                     else "closest", {})
                 continue
             if cur is None:
                 continue
@@ -5594,6 +5741,8 @@ def run(kb):
     # phase 11: the production luxball (11a-11e)
     launches_p, prod = phase_production(card, kres)
     kres["surface_shade"] = prod["surface_shade"]
+    # phase 11f: K2 on the production cell's rays and the four-card bands'
+    kres["trace_rol"]["production_cell"] = phase_k2_production(card)
 
     # phase 12: a user's render job: the denoiser (12a), checkpoint and
     # resume (12b), the CLI (12c)

@@ -789,8 +789,57 @@ def _tile_order_v2(o4, d4, tmax_col, boxes, rt):
 # ---------------------------------------------------------------------------
 
 K2 = kb.Kernel("trace_rol", "trace_rol.cu", "trace_rol_launch",
-               [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+               [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                + [ctypes.c_longlong, ctypes.c_int])
+
+
+class TraceStats(NamedTuple):
+    """K2's queue counters, summed on the card over its launches on a
+    device: the tiles queued, and those queued out of index order (where
+    the queue moved a tile)."""
+    tiles: int
+    out_of_order: int
+
+
+# per device: K2's queue counters (int64 [2], TraceStats' fields)
+_K2_STATS: dict = {}
+
+
+def _device_key(device):
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _k2_stats(device):
+    key = _device_key(device)
+    st = _K2_STATS.get(key)
+    if st is None:
+        st = _K2_STATS[key] = torch.zeros(2, dtype=torch.int64, device=key)
+    return st
+
+
+def trace_stats(device) -> TraceStats:
+    """K2's queue counters on ``device`` since the process began (one
+    transfer; zeros where K2 never ran on the card, as on the CPU)."""
+    st = _K2_STATS.get(_device_key(device))
+    if st is None:
+        return TraceStats(0, 0)
+    return TraceStats(*st.tolist())
+
+
+def live_counts(order):
+    """K1's live candidates of each tile: the slots of its candidate list
+    before the first -1."""
+    return (order >= 0).to(torch.int32).cumprod(dim=1).sum(dim=1)
+
+
+def tile_queue_plain(order):
+    """The order in which K2 hands its tiles to the card: heaviest first by
+    ``live_counts``, ties in tile index order, tiles with no live candidate
+    last (int64 [nt])."""
+    return torch.argsort(live_counts(order), descending=True, stable=True)
 
 
 class _TraceState:
@@ -899,10 +948,17 @@ def trace_rol_plain(rays, tm, order, cons, t12, boxes, n_clusters: int,
 def trace_rol(rays, tm, order, cons, t12, boxes, n_clusters: int, tc: int,
               any_hit: bool):
     """K2: trace a batch of ray tiles against their candidate clusters
-    (see ``trace_rol_plain``). Returns (t, i, visits)."""
+    (see ``trace_rol_plain``), the tiles met in ``tile_queue_plain``'s
+    order, each result at its tile's own index. Returns (t, i, visits).
+    On the card two launches: the queue (ordered on the card, no host
+    read; it adds to ``trace_stats``), then one cluster a tile in the
+    queue's order."""
     if rays.device.type == "cpu":
-        return trace_rol_plain(rays, tm, order, cons, t12, boxes,
-                               n_clusters, tc, any_hit)
+        q = tile_queue_plain(order)
+        out = trace_rol_plain(rays[q], tm[q], order[q], cons[q], t12, boxes,
+                              n_clusters, tc, any_hit)
+        back = torch.argsort(q)
+        return tuple(x[back] for x in out)
     kb.check_cuda("trace_rol", rays, tm, order, cons, t12, boxes,
                   dtypes=(torch.float32, torch.float32, torch.int32,
                           torch.float32, torch.float32, torch.float32))
@@ -918,9 +974,11 @@ def trace_rol(rays, tm, order, cons, t12, boxes, n_clusters: int, tc: int,
     t = torch.empty((nt, rt), dtype=torch.float32, device=dev)
     i = torch.empty((nt, rt), dtype=torch.int32, device=dev)
     visits = torch.empty(nt, dtype=torch.int32, device=dev)
+    queue = torch.empty(nt, dtype=torch.int32, device=dev)
     K2(kb.ptr(rays), kb.ptr(tm), kb.ptr(order), kb.ptr(cons), kb.ptr(t12),
-       kb.ptr(boxes), kb.ptr(t), kb.ptr(i), kb.ptr(visits), nt, rt,
-       order.shape[1], n_clusters, tc, t12.shape[1], int(any_hit))
+       kb.ptr(boxes), kb.ptr(t), kb.ptr(i), kb.ptr(visits), kb.ptr(queue),
+       kb.ptr(_k2_stats(dev)), nt, rt, order.shape[1], n_clusters, tc,
+       t12.shape[1], int(any_hit))
     return t, i, visits
 
 

@@ -656,6 +656,12 @@ class Renderer:
         lanes = self._wf_exact_state.pool.seed.shape[0]
         return CappedStats(self._wf_segments, lanes, held, admitted)
 
+    def trace_stats(self) -> mt.TraceStats:
+        """K2's queue counters on this renderer's device, summed on the card
+        over every K2 call of the process (zeros on the CPU), fetched in
+        one transfer: read off the hot path, never a segment."""
+        return mt.trace_stats(self.device)
+
     def wavefront_film(self) -> Film:
         """The wavefront state's film in the true pixel layout; with the
         denoiser its guide features go to ``self.features``."""

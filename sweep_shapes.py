@@ -12,8 +12,11 @@ rewrites those lines in the copy, builds every copy with nvcc (in
 parallel), and times each on the same recorded inputs:
 
 - K2: the closest-hit and any-hit calls of segments 4 and 24 of the
-  wavefront on luxball (1920x1080, 1M paths), and of bounce 2 of the
-  megastep (rays sorted, as the single-set trace hands them to K2);
+  wavefront on luxball (1920x1080, 1M paths), of segment PROD_SEGMENT of
+  the benchmark's production cell (luxball_prod.wavefront: its
+  configuration through the harness's make_renderer, a steady-state
+  segment after the cell's 12 warm ones), and of bounce 2 of the megastep
+  (rays sorted, as the single-set trace hands them to K2);
 - K9: the closest-hit and the any-hit call of bounce 2 of the megastep
   with SORT_RAYS off (luxball, 1920x1080, rays in lane order);
 - K5: the closest-hit and any-hit calls of segments 4 and 12 of the
@@ -52,6 +55,20 @@ It also profiles two luxball segments with each K1 (torch.profiler):
 device operations and device ms per segment. Two versions are so
 compared within one run on one card.
 
+``--queue-study`` runs K2's tile study alone, on its luxball and
+production calls: per call the per-tile visits (p50, p99, max, total),
+K1's live-candidate count per tile (the slots before the first -1 of its
+candidate list) and how it ranks the heavy tiles (the share of the 5%
+heaviest tiles by visits that fall in the top 10% by count, and the rank
+correlation), and K2's time on the same tiles in three launch orders:
+index order, heaviest first by visits and heaviest first by K1's count
+(the tile arrays permuted on the host, the outputs permuted back and held
+bit for bit to index order's), in turns.
+
+``--k2-only`` runs K2's shape sets alone, on its luxball, production and
+megastep calls, and prints each mode's least worst-case loss (a shape's
+worst ratio to the fastest shape of a call, over the calls).
+
 ``--fetch-only`` runs K8's part alone. ``--splat-only`` runs K4 alone:
 its 4-channel call of segment 4 of the luxball wavefront (1920x1080, 1M
 paths), the committed build and, with ``--baseline``, the block_splat.cu
@@ -59,7 +76,8 @@ of DIR, in turns (DIR, committed, committed, DIR, three times), each bit
 for bit against splat_plain.
 
 Run from the repository root:
-``python3 sweep_shapes.py [--baseline DIR] [--fetch-only | --splat-only]``.
+``python3 sweep_shapes.py [--baseline DIR] [--fetch-only | --splat-only |
+--queue-study | --k2-only]``.
 """
 
 import argparse
@@ -99,6 +117,9 @@ SHAPE_SETS = [
 ]
 LINE = {"closest": re.compile(r"using Closest = hs::Config<[^>]*>;"),
         "any_hit": re.compile(r"using AnyHit = hs::Config<[^>]*>;")}
+# a steady-state segment of the production cell (12 warm segments, then
+# chunks of 4)
+PROD_SEGMENT = 16
 K1_LINE = re.compile(r"constexpr int RAYS_PER_THREAD = \d+;")
 K8_LINE = re.compile(r"constexpr int LANES_PER_THREAD = \d+;")
 # K8's versions: lanes per thread, then the committed lanes with one
@@ -223,6 +244,7 @@ def record_calls(cs, mt, bs, flags):
         if seg == 4:
             k4_args = k4.calls[0]
     del r
+    calls += production_calls(cs, mt)
     r = cs.make_renderer(1920, 1080, "cuda", cs.LARGE)
     r.init_wavefront(1 << 20)
     for seg in range(1, 13):
@@ -237,6 +259,149 @@ def record_calls(cs, mt, bs, flags):
             calls.append(("tile_order", "8x8 segment 4, superclusters",
                           k1.calls[0]))
     return calls, k4_args
+
+
+def production_calls(cs, mt, segment=PROD_SEGMENT):
+    """K2's two calls and K1's first call of segment ``segment`` of the
+    benchmark's production cell, luxball_prod.wavefront: its configuration
+    (benchmark/configs/luxball_prod.json) through the harness's own
+    make_renderer (1920x1080, 1M paths, the env map and the area light)."""
+    import torch
+    from benchmark.bm import harness
+    cfg = harness.load_json(harness.BENCH, "configs", "luxball_prod.json")
+    r = harness.make_renderer(cfg, torch.device("cuda"))
+    r.init_wavefront()
+    r.render_wavefront(segment - 1)
+    with cs.LastCalls(mt, "trace_rol") as k2, \
+            cs.LastCalls(mt, "tile_order") as k1:
+        r.render_wavefront(1)
+    del r
+    calls = [("trace_rol", f"production segment {segment}, "
+              f"any_hit={bool(args[-1])}", args) for args in k2.calls]
+    calls.append(("tile_order", f"production segment {segment}",
+                  k1.calls[0]))
+    return calls
+
+
+def luxball_calls(cs, mt, segs=(4, 24)):
+    """K2's two calls of the segments ``segs`` of the luxball wavefront
+    (1920x1080, 1M paths)."""
+    r = cs.make_renderer(1920, 1080, "cuda")
+    r.init_wavefront(1 << 20)
+    calls = []
+    for seg in range(1, max(segs) + 1):
+        with cs.LastCalls(mt, "trace_rol") as last:
+            r.render_wavefront(1)
+        if seg in segs:
+            calls += [("trace_rol", f"segment {seg}, "
+                       f"any_hit={bool(args[-1])}", args)
+                      for args in last.calls]
+    del r
+    return calls
+
+
+def megastep_calls(cs, mt, flags):
+    """K2's two calls of bounce 2 of the megastep on luxball (1920x1080,
+    rays sorted, as the single-set trace hands them to K2)."""
+    r = cs.make_renderer(1920, 1080, "cuda")
+    saved = flags.FORCE_MK, flags.SORT_RAYS
+    try:
+        flags.FORCE_MK, flags.SORT_RAYS = True, True
+        r.reset()
+        with cs.RosRecorder(keep=(4, 5), name="trace_rol") as rec:
+            r.render_single(1)
+    finally:
+        flags.FORCE_MK, flags.SORT_RAYS = saved
+    del r
+    return [("trace_rol", f"megastep bounce 2, any_hit={bool(args[-1])}",
+             args) for args in rec.calls.values()]
+
+
+def least_worst_loss(table, kernel):
+    """Per mode of ``kernel`` (closest-hit, any-hit), each shape's worst loss
+    over the calls timed (ms over the call's fastest shape, less 1), and
+    the shape with the least such loss."""
+    out = {}
+    for mode in ("any_hit=False", "any_hit=True"):
+        rows = {k: v for k, v in table.items()
+                if k.startswith(f"{kernel}: ") and k.endswith(mode)}
+        shapes = set.intersection(*(set(v) for v in rows.values()))
+        worst = {sh: max(v[sh] / min(v.values()) - 1 for v in rows.values())
+                 for sh in shapes}
+        out[mode] = dict(worst_loss=worst, pick=min(worst, key=worst.get))
+    return out
+
+
+def ranks_of(x):
+    """Ranks 0..n-1 of x (ties in index order)."""
+    import torch
+    r = torch.empty_like(x, dtype=torch.float64)
+    r[torch.argsort(x, stable=True)] = torch.arange(
+        x.numel(), dtype=torch.float64, device=x.device)
+    return r
+
+
+def queue_study(cs, mt, calls, card, heavy=0.05, top=0.10):
+    """K2's tiles on each recorded call: visits, K1's counts and how they
+    rank the heavy tiles, and K2's time in three launch orders (see the
+    module docstring). Prints one line per call; returns them."""
+    import torch
+    lines = []
+    for kernel, what, args in calls:
+        if kernel != "trace_rol":
+            continue
+        ref = mt.trace_rol(*args)
+        visits, counts = ref[2], mt.live_counts(args[2])
+        nt = visits.numel()
+        v = visits.double()
+        q = torch.tensor([0.5, 0.99], dtype=torch.float64, device=v.device)
+        qv, qc = torch.quantile(v, q), torch.quantile(counts.double(), q)
+        kh, kt = max(1, int(nt * heavy)), max(1, int(nt * top))
+        by_visits = torch.argsort(visits, descending=True, stable=True)
+        by_count = torch.argsort(counts, descending=True, stable=True)
+        rv, rc = ranks_of(visits), ranks_of(counts)
+        rv, rc = rv - rv.mean(), rc - rc.mean()
+        line = dict(
+            kernel=kernel, call=what, tiles=nt, card=card,
+            visits_p50=float(qv[0]), visits_p99=float(qv[1]),
+            visits_max=int(visits.max()), visits_total=int(visits.sum()),
+            k1_count_p50=float(qc[0]), k1_count_p99=float(qc[1]),
+            k1_count_max=int(counts.max()),
+            heavy_in_top_by_k1=float(torch.isin(
+                by_visits[:kh], by_count[:kt]).float().mean()),
+            heavy_share=heavy, top_share=top,
+            rank_correlation=float((rv * rc).sum() / (
+                rv.norm() * rc.norm()).clamp_min(1e-30)),
+            heaviest_visits_share=float(visits[by_visits[:kh]].sum()
+                                        / visits.sum().clamp_min(1)))
+        orders = {"index": None, "visits": by_visits, "k1_count": by_count}
+        runs = {}
+        for name, idx in orders.items():
+            sub = args if idx is None else (
+                [a[idx].contiguous() for a in args[:4]] + list(args[4:]))
+            got = mt.trace_rol(*sub)
+            if idx is not None:
+                back = []
+                for x in got:
+                    y = torch.empty_like(x)
+                    y[idx] = x
+                    back.append(y)
+                got = tuple(back)
+            diff = cs.trace_diffs(got, ref)
+            if any(diff.values()):
+                raise AssertionError(f"K2 in {name} order differs from index "
+                                     f"order ({what}): {diff}")
+            runs[name] = sub
+        ms = {}
+        for name in list(runs) + list(reversed(runs)):
+            ms.setdefault(name, []).append(
+                cs.time_ms(lambda: mt.trace_rol(*runs[name]), 10))
+        line["ms"] = ms
+        line["ms_median"] = {k: sorted(x)[len(x) // 2] for k, x in
+                             ms.items()}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    return lines
 
 
 def exact_calls(cs):
@@ -426,6 +591,59 @@ def sweep_splat(cs, kb, bs, card, baseline):
     return times
 
 
+def sweep_k2(cs, kb, mt, flags, card):
+    """K2's SHAPE_SETS on its luxball (segments 4 and 24), production
+    (segment PROD_SEGMENT) and megastep (bounce 2) calls, each copy bit-equal
+    to the committed build; one line per set and call, then each mode's
+    least worst-case loss."""
+    import torch
+    csrc = kb.CSRC
+    base = committed_shapes(csrc)
+    sets = [(n, {**base, **s}) for n, s in SHAPE_SETS
+            if n == "committed" or "trace_rol.cu" in s]
+    dirs = {n: shaped_copy(csrc, cs.TMP_ROOT, n,
+                           {"trace_rol.cu": s["trace_rol.cu"]})
+            for n, s in sets}
+    jobs = []
+    for d in dirs.values():                     # one nvcc per copy, at once
+        kb.CSRC = d
+        jobs.append(kb._start_build("trace_rol.cu"))
+    for job in jobs:
+        kb._finish_build(*job)
+    kb.CSRC = dirs["committed"]
+    mt.K2._fn = None
+    calls = [c for c in luxball_calls(cs, mt) + production_calls(cs, mt)
+             + megastep_calls(cs, mt, flags) if c[0] == "trace_rol"]
+    torch.cuda.empty_cache()
+    refs = [mt.trace_rol(*a) for _, _, a in calls]
+    table = {}
+    for name, shapes in sets:
+        kb.CSRC = dirs[name]
+        mt.K2._fn = None
+        for (kernel, what, args), ref in zip(calls, refs):
+            got = mt.trace_rol(*args)
+            diff = cs.trace_diffs(got, ref)
+            shape = shapes["trace_rol.cu"][bool(args[-1])]
+            line = dict(set=name, kernel=kernel, call=what,
+                        visits=int(got[2].sum()), differ=diff,
+                        ms=cs.time_ms(lambda: mt.trace_rol(*args), 5),
+                        shape=dict(rays_per_thread=shape[0],
+                                   groups_per_cta=shape[1],
+                                   ctas_per_tile=shape[2]), card=card)
+            print(json.dumps(line), flush=True)
+            if any(diff.values()):
+                raise AssertionError(f"{name} differs from the committed "
+                                     f"build: {line}")
+            table.setdefault(f"{kernel}: {what}", {})[str(shape)] = \
+                line["ms"]
+    kb.CSRC = csrc
+    mt.K2._fn = None
+    print(json.dumps({"least_worst_loss": least_worst_loss(table,
+                                                           "trace_rol"),
+                      "ms": table}), flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="another csrc/ directory to build "
@@ -434,6 +652,13 @@ def main():
                     help="time K8's shapes (and the baseline's) alone")
     ap.add_argument("--splat-only", action="store_true",
                     help="time K4 (and the baseline's) alone")
+    ap.add_argument("--k2-only", action="store_true",
+                    help="K2's shape sets alone, on its luxball, production "
+                    "and megastep calls, with each mode's least worst-case "
+                    "loss")
+    ap.add_argument("--queue-study", action="store_true",
+                    help="K2's per-tile visits, K1's counts and K2 in three "
+                    "launch orders, alone")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -453,6 +678,15 @@ def main():
         card = cs.card_line()
         print(card, flush=True)
         kb.build_all()                  # the committed kernels, at once
+        if opts.queue_study:
+            calls = luxball_calls(cs, mt) + production_calls(cs, mt)
+            torch.cuda.empty_cache()
+            print(json.dumps(dict(sweep=cs.sweep_build_info(kb)["trace_rol"],
+                                  card=card)), flush=True)
+            queue_study(cs, mt, calls, card)
+            return 0
+        if opts.k2_only:
+            return sweep_k2(cs, kb, mt, flags, card)
         if opts.splat_only:
             times = sweep_splat(cs, kb, bs, card, baseline)
             print(json.dumps({"ms": {"block_splat: luxball segment 4":
