@@ -208,9 +208,11 @@ def wf_segment(scene: DeviceScene, params: RenderParams, state: WfState,
     cursor(s). ``pixel_base`` counts padded pixels on the block ring (a
     multiple of the padded group size) and true pixels on the flat one.
 
-    ``held``: an int64 0-d tensor on the pool's device to which a segment
-    under the spp cap adds, on the device, its lanes held idle because
-    their pixel had reached its target (the capped ring's counter)."""
+    ``held``: the capped ring's counters, an int64 [2] tensor on the pool's
+    device to which a segment under the spp cap adds, on the device, its
+    lanes held idle because their pixel had reached its target and its
+    finished paths that tried to splat (the admitted ones are the
+    counters' ``splatted``, so the cap refused the difference)."""
     with span("flt::segment"):
         raw, occluded = wf_trace_phase(scene, state.pool, params, config)
         # off the cap the shade phase takes its seven arguments as before,
@@ -269,8 +271,9 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
                    pixel_base: int = 0, held: Optional[torch.Tensor] = None):
     """Logic + shading + NEE + material sampling + raygen + splat — the
     post-trace half of the segment (wf_logic.cl onward), on the pixel ring
-    ``[pixel_base, pixel_base + len(film))`` and with the counter ``held``
-    (see ``wf_segment``). Returns (state, counters)."""
+    ``[pixel_base, pixel_base + len(film))`` and with the capped ring's
+    counters ``held`` and ``tried`` (see ``wf_segment``). Returns (state,
+    counters)."""
     cfg = config
     pool = state.pool
     n = pool.seed.shape[0]
@@ -315,8 +318,6 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
             pix_spp = ring.fetch_spp(lpid, state.spp)
             max_samples_reached = pix_spp >= spp_cap
             terminate |= max_samples_reached
-            if held is not None:
-                held += max_samples_reached.sum()
 
         terminate |= is_zero(T) | (pool.last_pdf_w == 0.0)
         use_mis = (plen > 1) & ~pool.last_specular
@@ -371,6 +372,10 @@ def wf_logic_phase(scene: DeviceScene, params: RenderParams, state: WfState,
     with span("flt::shade.logic.splat"):
         # ---- splat terminated paths (wf_logic.cl:171-205) -------------------
         splat = terminate & (plen > 0) & ~max_samples_reached
+        if held is not None:
+            # the lanes held idle and the paths that try to splat, in one
+            # reduction and one add
+            held += torch.stack([max_samples_reached, splat]).sum(dim=1)
         film = state.film
         rows, spp_counts, n_splatted = ring.splat(
             lpid, splat, [torch.where(splat, Ei.x, 0.0),

@@ -23,6 +23,15 @@ A segment's ring (``segment_ring``) covers the film slice
 ``[pixel_base, pixel_base + num_pixels)``: the whole film, or one rank's
 slice under ``parallel.mesh``. ``pixel_base`` counts padded pixels on the
 block ring (a multiple of Pk) and true pixels on the flat one.
+
+Both rings mark their work with the same spans (``profiling.span``,
+no-ops off the profiler): ``flt::ring.fetch`` (the cap's spp read: K8,
+or the gather), ``flt::ring.admit`` (the cap's admission: the remaining
+budgets K7 reads, or the flat ring's ranking), ``flt::ring.scatter``
+(the film, spp and feature splats: K4/K7, or the scatter-adds) and
+``flt::ring.raygen`` (the raygen ranks computed in torch: the flat ring's
+prefix count, or the block ring's plain raygen; on the card the block
+ring's raygen runs inside csrc/surface_shade.cu).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..geom import RenderConfig
+from ..profiling import span
 from . import block_splat as bs
 
 DEAD_SPP = 1 << 29      # a padded dead slot's spp: past every target
@@ -213,9 +223,10 @@ class _BlockRing(_Ring):
 
     def fetch_spp(self, lpid, spp):
         """Each lane's pixel's spp (K8)."""
-        return bs.fetch(torch.remainder(lpid, self.pk).to(torch.int32),
-                        spp.to(torch.float32)[None, :],
-                        groups=self.groups).to(torch.int32)
+        with span("flt::ring.fetch"):
+            return bs.fetch(torch.remainder(lpid, self.pk).to(torch.int32),
+                            spp.to(torch.float32)[None, :],
+                            groups=self.groups).to(torch.int32)
 
     def splat(self, lpid, mask, rows, old, spp=None, cap=None,
               pix_spp=None):
@@ -225,20 +236,24 @@ class _BlockRing(_Ring):
         each pixel's remaining budget. Returns (new rows, new spp, the
         count splatted); the last two None without ``spp`` (the guide
         features, which keep no count)."""
-        data = torch.stack(rows, dim=0)
-        local = torch.where(mask, torch.remainder(lpid, self.pk), -1).to(
-            torch.int32)
-        if cap is None:
-            return (bs.splat(local, data, old, groups=self.groups), spp,
-                    None if spp is None else mask.sum())
-        # the weight deltas are whole numbers below 2^24, so rounding them
-        # is exact
-        remaining = torch.clamp_min(cap - spp, 0).to(torch.float32)[None, :]
-        new = bs.splat(local, data, old, groups=self.groups,
-                       remaining=remaining)
-        delta_w = new[3] - old[3]
-        return (new, spp + torch.round(delta_w).to(torch.int32),
-                torch.round(delta_w.sum()).to(torch.int32))
+        remaining = None
+        if cap is not None:
+            with span("flt::ring.admit"):
+                remaining = torch.clamp_min(cap - spp, 0).to(
+                    torch.float32)[None, :]
+        with span("flt::ring.scatter"):
+            data = torch.stack(rows, dim=0)
+            local = torch.where(mask, torch.remainder(lpid, self.pk),
+                                -1).to(torch.int32)
+            new = bs.splat(local, data, old, groups=self.groups,
+                           remaining=remaining)
+            if cap is None:
+                return new, spp, None if spp is None else mask.sum()
+            # the weight deltas are whole numbers below 2^24, so rounding
+            # them is exact
+            delta_w = new[3] - old[3]
+            return (new, spp + torch.round(delta_w).to(torch.int32),
+                    torch.round(delta_w.sum()).to(torch.int32))
 
     def raygen(self, terminate, curr_pixel):
         """Each group's terminated lanes take its next pixels in lane
@@ -248,21 +263,23 @@ class _BlockRing(_Ring):
         dev = terminate.device
         g, pk, p_true = self.groups, self.pk, self.p_true
         s = n // g
-        lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s
-        term_i = terminate.to(torch.int32).view(g, s)
-        rank2 = (torch.cumsum(term_i, dim=1) - term_i).to(torch.int32)
-        n_term_g = term_i.sum(dim=1).to(torch.int32)
-        n_regen = n_term_g.sum()
-        # the slice's groups are g0.. of the whole film's
-        g_row = self.pixel_base // pk + torch.arange(g, dtype=torch.int32,
-                                                     device=dev)
-        len_g = torch.clamp(self.config.num_pixels - g_row * p_true, 1,
-                            p_true)
-        new_l = torch.remainder(curr_pixel[:, None] + rank2, len_g[:, None])
-        new_pixel = (self.pixel_base + lane_g * pk + new_l.reshape(n)).to(
-            torch.int32)
-        curr_out = torch.remainder(curr_pixel + n_term_g, len_g).to(
-            torch.int32)
+        with span("flt::ring.raygen"):
+            lane_g = torch.arange(n, dtype=torch.int32, device=dev) // s
+            term_i = terminate.to(torch.int32).view(g, s)
+            rank2 = (torch.cumsum(term_i, dim=1) - term_i).to(torch.int32)
+            n_term_g = term_i.sum(dim=1).to(torch.int32)
+            n_regen = n_term_g.sum()
+            # the slice's groups are g0.. of the whole film's
+            g_row = self.pixel_base // pk + torch.arange(
+                g, dtype=torch.int32, device=dev)
+            len_g = torch.clamp(self.config.num_pixels - g_row * p_true, 1,
+                                p_true)
+            new_l = torch.remainder(curr_pixel[:, None] + rank2,
+                                    len_g[:, None])
+            new_pixel = (self.pixel_base + lane_g * pk
+                         + new_l.reshape(n)).to(torch.int32)
+            curr_out = torch.remainder(curr_pixel + n_term_g, len_g).to(
+                torch.int32)
         return new_pixel, curr_out, n_regen
 
     def kernel_args(self, terminate) -> KernelRing:
@@ -283,9 +300,10 @@ class _FlatRing(_Ring):
         from wf_reset) lie outside a slice that does not start at 0:
         clamped, they read a count they never use (they terminate without
         splatting)."""
-        idx = (torch.clamp(lpid, 0, self.num_pixels - 1) if self.pixel_base
-               else lpid)
-        return spp[idx.long()]
+        with span("flt::ring.fetch"):
+            idx = (torch.clamp(lpid, 0, self.num_pixels - 1)
+                   if self.pixel_base else lpid)
+            return spp[idx.long()]
 
     def splat(self, lpid, mask, rows, old, spp=None, cap=None,
               pix_spp=None):
@@ -296,30 +314,33 @@ class _FlatRing(_Ring):
         to the overflow bucket, with the lanes that do not splat."""
         num_pixels = self.num_pixels
         if cap is not None:
-            rank = run_ranks(torch.where(mask, lpid, 0x7FFFFFFF))
-            mask = mask & (rank < (cap - pix_spp))
-        seg = torch.where(mask, lpid, num_pixels).to(torch.int32)
-        n_splatted = None if spp is None else mask.sum()
-        new = old + scatter_pixels(seg, torch.stack(rows, dim=1),
-                                   num_pixels).T
-        if cap is not None:
-            spp = torch.minimum(
-                spp + scatter_pixels(seg, mask.to(torch.int32), num_pixels),
-                cap)
+            with span("flt::ring.admit"):
+                rank = run_ranks(torch.where(mask, lpid, 0x7FFFFFFF))
+                mask = mask & (rank < (cap - pix_spp))
+        with span("flt::ring.scatter"):
+            seg = torch.where(mask, lpid, num_pixels).to(torch.int32)
+            n_splatted = None if spp is None else mask.sum()
+            new = old + scatter_pixels(seg, torch.stack(rows, dim=1),
+                                       num_pixels).T
+            if cap is not None:
+                spp = torch.minimum(spp + scatter_pixels(
+                    seg, mask.to(torch.int32), num_pixels), cap)
         return new, spp, n_splatted
 
     def raygen(self, terminate, curr_pixel):
         """The terminated lanes take the next pixels of the one ring, in
         lane order (see ``_BlockRing.raygen``)."""
-        rank, n_regen = exclusive_rank(terminate)
-        new_pixel = (self.pixel_base + torch.remainder(
-            curr_pixel + rank, self.num_pixels)).to(torch.int32)
-        curr_out = torch.remainder(curr_pixel + n_regen,
-                                   self.num_pixels).to(torch.int32)
+        with span("flt::ring.raygen"):
+            rank, n_regen = exclusive_rank(terminate)
+            new_pixel = (self.pixel_base + torch.remainder(
+                curr_pixel + rank, self.num_pixels)).to(torch.int32)
+            curr_out = torch.remainder(curr_pixel + n_regen,
+                                       self.num_pixels).to(torch.int32)
         return new_pixel, curr_out, n_regen
 
     def kernel_args(self, terminate) -> KernelRing:
-        rank, n_regen = exclusive_rank(terminate)
+        with span("flt::ring.raygen"):
+            rank, n_regen = exclusive_rank(terminate)
         return KernelRing(False, 0, 0, 0, 0, 0, rank, n_regen, None)
 
     def kernel_cursors(self, kr: KernelRing, curr_pixel):

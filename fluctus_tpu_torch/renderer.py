@@ -91,6 +91,7 @@ class CappedStats(NamedTuple):
     lanes: int         # the pool's lanes
     held: int          # lane-segments held idle: the pixel had its target
     admitted: int      # splat records admitted (K7, or the flat ring's)
+    refused: int = 0   # finished paths whose record the cap refused
 
 
 def _restored_samples(film: Film) -> int:
@@ -125,7 +126,8 @@ class Renderer:
         self._wf_total = None        # int64[4] counters (RenderStats order)
         self._wf_segments = 0        # segments counted in _wf_total
         self._wf_exact_mode = False
-        self._wf_held = None         # int64 0-d: capped lanes held idle
+        self._wf_held = None         # int64 [2]: capped lanes held idle,
+        #                              capped paths that tried to splat
         self._film_src = "mk"
 
     # -- scene lifecycle (Tracer::init) -------------------------------------
@@ -558,7 +560,7 @@ class Renderer:
                 target, dtype=torch.int32, device=self.device))
             done = 0
             self._clear_counters()
-            self._wf_held = torch.zeros((), dtype=torch.int64,
+            self._wf_held = torch.zeros(2, dtype=torch.int64,
                                         device=self.device)
             while done < max_segments:
                 for _ in range(16):
@@ -648,13 +650,15 @@ class Renderer:
     def capped_stats(self) -> CappedStats:
         """The capped ring's counters over the last exact-spp wavefront
         call (zeros before one), fetched in one transfer: read once a
-        job."""
+        job. The refused paths are those that tried to splat less those
+        admitted."""
         if self._wf_held is None:
             return CappedStats(0, 0, 0, 0)
-        held, admitted = torch.stack([self._wf_held,
-                                      self._wf_total[3]]).tolist()
+        held, tried, admitted = torch.cat([
+            self._wf_held, self._wf_total[3:]]).tolist()
         lanes = self._wf_exact_state.pool.seed.shape[0]
-        return CappedStats(self._wf_segments, lanes, held, admitted)
+        return CappedStats(self._wf_segments, lanes, held, admitted,
+                           tried - admitted)
 
     def trace_stats(self) -> mt.TraceStats:
         """K2's queue counters on this renderer's device, summed on the card
